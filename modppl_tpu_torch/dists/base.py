@@ -1,0 +1,76 @@
+"""Distribution protocol (counterpart of modppl_tpu/dists/base.py).
+
+``logpdf(x, params)`` is plain tensor arithmetic that broadcasts over any
+leading particle axis. ``sample(gen, params)`` and
+``sample_batch(gen, shape, params)`` draw from a ``torch.Generator`` on the
+generator's own device. Parameters may be tensors or Python numbers; Python
+numbers stay host scalars in the arithmetic, so a constant parameter never
+costs a host-to-device copy.
+
+Parameter conventions follow the reference: std-dev normal, inclusive
+uniform bounds.
+"""
+
+import torch
+
+
+def as_param_tuple(params):
+    """Normalize params: a bare scalar becomes a 1-tuple."""
+    if isinstance(params, tuple):
+        return params
+    return (params,)
+
+
+def shape_of(p):
+    return tuple(p.shape) if torch.is_tensor(p) else ()
+
+
+def _sample_dtype(params, dtype):
+    """The dtype of the first floating tensor parameter, else ``dtype``,
+    else torch's default."""
+    for p in params:
+        if torch.is_tensor(p) and p.is_floating_point():
+            return p.dtype
+    return dtype if dtype is not None else torch.get_default_dtype()
+
+
+class Distribution:
+    """A sampling distribution with an analytic log-density.
+
+    Subclasses implement ``_logpdf(x, *params)``,
+    ``_sample(gen, shape, dtype, *params)`` (``shape`` is the batch shape,
+    broadcast with the parameters' own) and may set ``event_rank``.
+    """
+
+    #: rank of one draw (0 for scalar distributions, 1 for vectors)
+    event_rank = 0
+
+    def logpdf(self, x, params):
+        """log p(x; params), elementwise over leading batch axes."""
+        return self._logpdf(x, *as_param_tuple(params))
+
+    def sample(self, gen, params, dtype=None):
+        """x ~ p(.; params), with the parameters' own batch shape."""
+        params = as_param_tuple(params)
+        return self._sample(gen, (), _sample_dtype(params, dtype), *params)
+
+    def sample_batch(self, gen, shape, params, dtype=None):
+        """``shape`` iid draws from ONE generator's stream (a plate)."""
+        params = as_param_tuple(params)
+        return self._sample(gen, tuple(shape), _sample_dtype(params, dtype),
+                            *params)
+
+    def batched(self, params):
+        """True if a parameter carries a batch axis beyond the event rank:
+        such a site cannot share one plate draw across particles."""
+        return any(torch.is_tensor(p) and p.ndim > self.event_rank
+                   for p in as_param_tuple(params))
+
+    def _logpdf(self, x, *params):
+        raise NotImplementedError
+
+    def _sample(self, gen, shape, dtype, *params):
+        raise NotImplementedError
+
+    def __repr__(self):
+        return type(self).__name__

@@ -1,0 +1,53 @@
+"""Scalar distributions the particle-filter slice uses: ``uniform`` and
+``normal`` (counterpart of modppl_tpu/dists/scalar.py:48-78, 127-148)."""
+
+import math
+
+import torch
+
+from modppl_tpu_torch.dists.base import Distribution, shape_of
+
+
+def _log(v):
+    return torch.log(v) if torch.is_tensor(v) else math.log(v)
+
+
+class UniformContinuous(Distribution):
+    """Uniform on [a, b], inclusive bounds, -inf outside."""
+
+    @staticmethod
+    def _check(a, b):
+        # only host numbers are checked: a tensor check would sync the device
+        if not torch.is_tensor(a) and not torch.is_tensor(b) and a >= b:
+            raise ValueError(
+                f"a >= b in [a, b] = [{a}, {b}]; b > a is required.")
+
+    def _logpdf(self, x, a, b):
+        self._check(a, b)
+        inside = (a <= x) & (x <= b)
+        return torch.where(inside, -_log(b - a) + torch.zeros_like(x),
+                           -math.inf)
+
+    def _sample(self, gen, shape, dtype, a, b):
+        self._check(a, b)
+        shape = torch.broadcast_shapes(shape, shape_of(a), shape_of(b))
+        u = torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
+        return u * (b - a) + a
+
+
+class Normal(Distribution):
+    """Gaussian with (mu, std-dev) parameters: -(z^2 + ln 2pi)/2 - ln sigma."""
+
+    def _logpdf(self, x, mu, std):
+        z = (x - mu) / std
+        return -(z * z + math.log(2.0 * math.pi)) / 2.0 - _log(std)
+
+    def _sample(self, gen, shape, dtype, mu, std):
+        shape = torch.broadcast_shapes(shape, shape_of(mu), shape_of(std))
+        z = torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+        return z * std + mu
+
+
+uniform_continuous = UniformContinuous()
+uniform = uniform_continuous
+normal = Normal()

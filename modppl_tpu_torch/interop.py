@@ -1,0 +1,47 @@
+"""Carry the JAX package's values into the port.
+
+Takes values as numpy arrays (``np.asarray`` of the reference's arrays) and
+turns them into the port's tensors on a given device, so a test can hand
+both sides the same inputs. Imports neither jax nor modppl_tpu.
+"""
+
+import numpy as np
+import torch
+
+from modppl_tpu_torch.core.trie import Trie
+from modppl_tpu_torch.inference.vsmc import SMCState
+
+
+def tensor(x, device="cpu"):
+    """A numpy array (or number) as a tensor of the same dtype on ``device``."""
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def trie_from_numpy(d, device="cpu"):
+    """The port's Trie from a nested dict {component: array | dict}, the
+    form ``Trie.from_dict`` takes on the JAX side."""
+    return Trie.from_dict(_to_tensors(d, device))
+
+
+def _to_tensors(d, device):
+    return {k: _to_tensors(v, device) if isinstance(v, dict)
+            else tensor(v, device) for k, v in d.items()}
+
+
+def trie_to_numpy(trie):
+    """Nested dict of numpy arrays from the port's Trie (the inverse)."""
+    out = {}
+    for k, sub in trie.children.items():
+        out[k] = (sub.inner().cpu().numpy() if sub.is_leaf()
+                  else trie_to_numpy(sub))
+    return out
+
+
+def smc_state_from_numpy(key, state, log_weights, log_ml, t, device="cpu"):
+    """The port's SMCState from the reference's ``state``, ``log_weights``,
+    ``log_ml`` and ``t`` as numpy values. ``key`` is the port's integer
+    key: a threefry key has no counterpart to carry."""
+    state = (tensor(state, device) if not isinstance(state, (tuple, list))
+             else type(state)(tensor(x, device) for x in state))
+    return SMCState(key, state, tensor(log_weights, device),
+                    tensor(log_ml, device), int(t))

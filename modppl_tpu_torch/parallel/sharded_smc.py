@@ -1,0 +1,209 @@
+"""The batched-tier particle filter, one device (counterpart of the dp=1
+body of modppl_tpu/parallel/sharded_smc.py).
+
+Per step: a systematic resample from a layout-invariant blocked CDF, then
+ONE batched generate over all particles. The CDF, its block totals and the
+slot positions S come from kernels 1 and 2 (ops/grid_positions.py), and the
+ancestors and the state copy from kernel 3 (ops/fused_resample.py). On CPU
+tensors the same code runs their plain versions, which compute the
+reference's XLA path; the tests hold them bitwise to it.
+
+Nothing here reads a device value on the host: ESS, the resample flag and
+the log marginal likelihood stay on the device until the caller reads them.
+The multi-device layout (``mesh``), proposals and rejuvenation are not
+ported yet and raise ``NotImplementedError``.
+"""
+
+import math
+
+import torch
+from torch.utils import _pytree as pytree
+
+from modppl_tpu_torch.core.keys import fold_in, generator, split
+from modppl_tpu_torch.inference.adaptation import _tree_sum
+from modppl_tpu_torch.inference.vsmc import SMCState, batched_smc_init
+from modppl_tpu_torch.modeling.autobatch import auto_batch_scan_kernel
+from modppl_tpu_torch.ops.fused_resample import parents_from_s
+from modppl_tpu_torch.ops.grid_positions import (
+    doubling_cumsum,
+    positions_cummax,
+    stats_cumsum,
+)
+from modppl_tpu_torch.parallel.resample import gather_from_s
+
+_B0 = 1024        # max CDF block width
+_MIN_BLOCKS = 64  # min block count
+_INT32_MIN = -(2 ** 31)
+
+_doubling_cumsum = doubling_cumsum
+_parents_from_s = parents_from_s
+
+
+def _cdf_block(num_particles):
+    """Block width of the blocked CDF, a function of N only."""
+    n_blocks = max(num_particles // _B0, _MIN_BLOCKS)
+    if num_particles % n_blocks:
+        raise ValueError(
+            f"sharded filter: num_particles {num_particles} must be a "
+            f"multiple of {n_blocks} (power-of-two sizes)")
+    return num_particles // n_blocks
+
+
+def _det_sum(x, num_total):
+    """Fixed-order sum: per-block totals from the Hillis-Steele scan's last
+    column, then the adjacent-pairing tree over the block totals."""
+    rows = x.reshape(-1, _cdf_block(num_total))
+    return _tree_sum(_doubling_cumsum(rows)[:, -1])
+
+
+def det_logsumexp(lw, num_total):
+    """logsumexp with the exact max and the fixed-order blocked sum."""
+    m = torch.max(lw)
+    return m + torch.log(_det_sum(torch.exp(lw - m), num_total))
+
+
+def systematic_uniform(key, like):
+    """The resample step's single uniform, drawn on ``like``'s device from
+    the stream of ``fold_in(key, 0)`` (the reference's ``k_pos``)."""
+    g = generator(fold_in(key, 0), like.device)
+    return torch.rand((), generator=g, device=like.device, dtype=like.dtype)
+
+
+def _det_grid_positions(u, lw, num_particles):
+    """Sorted systematic slot positions S = cummax(ceil(N*cdf - u)) from the
+    blocked CDF. Returns (s, log_total, ess), all on lw's device."""
+    n = num_particles
+    block = _cdf_block(n)
+    m = torch.max(lw)
+    cum, totals, sq_totals = stats_cumsum(lw.reshape(-1, block), m)
+    offs_incl = _doubling_cumsum(totals[None, :])[0]
+    offs_excl = torch.cat([totals.new_zeros(1), offs_incl[:-1]])
+    total = offs_incl[-1]
+    log_total = m + torch.log(total)
+    ess = (total * total) / _tree_sum(sq_totals)
+    s_rows, mx = positions_cummax(cum, offs_excl, total, u, n)
+    # cross-block repair: exclusive running maxima of the block maxima, then
+    # one elementwise max (the same integers as a global cummax)
+    prev = torch.cummax(mx, dim=0).values
+    prev = torch.cat([torch.full((1,), _INT32_MIN, dtype=torch.int32,
+                                 device=mx.device), prev[:-1]])
+    s = torch.maximum(s_rows, prev[:, None]).reshape(n)
+    return s, log_total, ess
+
+
+def make_resample_step(mesh, num_particles, ess_threshold):
+    """The per-step (maybe-)resample block.
+
+    Returns ``fn(key, lw, state, u=None) -> (state, lw, d_log_ml, parents,
+    ess, resampled)``; ``u`` replaces the uniform drawn from ``key``.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "modppl_tpu_torch: only mesh=None (one device) is ported")
+    n = num_particles
+    log_n = math.log(float(n))
+
+    def step(key, lw, state, u=None):
+        if u is None:
+            u = systematic_uniform(key, lw)
+        s, log_total, ess = _det_grid_positions(u, lw, n)
+        new_state, parents = gather_from_s(s, state)
+        if ess_threshold >= 1.0:
+            # threshold 1.0 resamples every step; no select on a device flag
+            do = torch.ones((), dtype=torch.bool, device=lw.device)
+            return (new_state, torch.zeros_like(lw), log_total - log_n,
+                    parents, ess, do)
+        # the choice stays on the device: both arms are computed and one is
+        # selected elementwise, where a Python `if` would sync every step
+        do = ess < ess_threshold * n
+        new_state = pytree.tree_map(lambda a, b: torch.where(do, a, b),
+                                    new_state, state)
+        slots = torch.arange(n, dtype=torch.int32, device=lw.device)
+        return (new_state, torch.where(do, torch.zeros_like(lw), lw),
+                torch.where(do, log_total - log_n, torch.zeros_like(log_total)),
+                torch.where(do, parents, slots), ess, do)
+
+    return step
+
+
+def _num_steps(step_constraints):
+    values = step_constraints.values()
+    if not values:
+        raise ValueError("step_constraints: no per-step values to scan over")
+    return values[0].shape[0]
+
+
+def _draws(trace, constraints):
+    """The values a generate drew (its unconstrained addresses)."""
+    return {a: trace.data[a] for a in trace.data.addresses()
+            if a not in constraints}
+
+
+def sharded_batched_particle_filter(mesh, key, kernel, state0,
+                                    init_constraints, step_constraints,
+                                    num_particles, ess_threshold=1.0,
+                                    auto_batch=False, store_ancestry=True,
+                                    proposal=None, proposal_params=None,
+                                    rejuvenation=None, replay=None,
+                                    record=None):
+    """The batched-tier bootstrap particle filter on ``state0``'s device.
+
+    ``key`` is an integer PRNG key (core/keys.py). ``step_constraints`` is a
+    Trie whose values are stacked over the T-1 steps on their leading axis.
+    Resampling is systematic.
+
+    ``replay``: a list of T ``(u, pool)`` pairs (``u`` None for the init)
+    that replaces the filter's own draws: ``u`` the resample uniform,
+    ``pool`` the plate draws by address. ``record``: a list the filter
+    appends its own ``(u, pool)`` pairs to, in the same form.
+
+    Returns a dict: ``state``, ``log_weights``, ``log_ml``, ``ancestors``
+    ((T-1, N) int32, or None without ``store_ancestry``), ``ess`` and
+    ``resampled`` ((T-1,) each), all on the device.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "modppl_tpu_torch: only mesh=None (one device) is ported")
+    if (proposal is not None or proposal_params is not None
+            or rejuvenation is not None):
+        raise NotImplementedError(
+            "modppl_tpu_torch: guided and rejuvenated filters are not ported")
+    if not auto_batch:
+        raise NotImplementedError(
+            "modppl_tpu_torch: only auto_batch=True kernels are ported")
+    n = num_particles
+    _cdf_block(n)
+    kernel = auto_batch_scan_kernel(kernel)
+    resample_step = make_resample_step(None, n, ess_threshold)
+    num_steps = _num_steps(step_constraints)
+    if replay is not None and len(replay) != num_steps + 1:
+        raise ValueError(f"replay: expected {num_steps + 1} (u, pool) pairs, "
+                         f"got {len(replay)}")
+
+    s, trace = batched_smc_init(key, kernel, state0, init_constraints, n,
+                                pool=replay[0][1] if replay else None)
+    if record is not None:
+        record.append((None, _draws(trace, init_constraints)))
+    ancestors, ess_t, resampled_t = [], [], []
+    for i in range(num_steps):
+        cons_t = step_constraints.map(lambda v: v[i])
+        key, k_res, k_gen, _k_rej = split(s.key, 4)
+        u, pool = replay[i + 1] if replay else (None, None)
+        if u is None:
+            u = systematic_uniform(k_res, s.log_weights)
+        state, lw, d_log_ml, parents, ess, do = resample_step(
+            k_res, s.log_weights, s.state, u=u)
+        trace, w = kernel.step.generate(k_gen, (s.t, state), cons_t,
+                                        pool=pool)
+        if record is not None:
+            record.append((u, _draws(trace, cons_t)))
+        s = SMCState(key, trace.retv, lw + w, s.log_ml + d_log_ml, s.t + 1)
+        if store_ancestry:
+            ancestors.append(parents)
+        ess_t.append(ess)
+        resampled_t.append(do)
+
+    log_ml = s.log_ml + det_logsumexp(s.log_weights, n) - math.log(float(n))
+    return {"state": s.state, "log_weights": s.log_weights, "log_ml": log_ml,
+            "ancestors": torch.stack(ancestors) if store_ancestry else None,
+            "ess": torch.stack(ess_t), "resampled": torch.stack(resampled_t)}
