@@ -1,13 +1,22 @@
-"""Drive modppl_tpu_torch's main path once on one NVIDIA GPU.
+"""Drive modppl_tpu_torch's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
 
-The main path is the spiral-tracking bootstrap particle filter
-(``parallel/sharded_smc.sharded_batched_particle_filter``, one device,
-auto-batched, ``ess_threshold=1.0``) at N = 2^20 particles and T = 10 steps
-in float32: one init and 9 steps, each of which resamples through the
-port's three hand-written CUDA kernels. Phases, in order; any failure raises
-and the script exits non-zero:
+Two paths, each driven with its kernels' launch counters set to 0 just
+before it and read just after:
+
+- the spiral-tracking bootstrap particle filter
+  (``parallel/sharded_smc.sharded_batched_particle_filter``, one device,
+  auto-batched, ``ess_threshold=1.0``) at N = 2^20 particles and T = 10
+  steps in float32: one init and 9 steps, each of which resamples through
+  three hand-written CUDA kernels;
+- pooled-adaptation HMC on quadratic targets through
+  ``inference/hmc.hmc_runner(device="cuda")``, the reference's two legs at
+  full width (``LEGS``): the whole warmup and the whole sampling phase are
+  one launch each of the d <= 12 (hierarchical, d = 3) or d >= 13
+  (ill-conditioned Gaussian, d = 128) chunk kernels.
+
+Phases, in order; any failure raises and the script exits non-zero:
 
 1. needs a CUDA device, and prints the card's name and power limit;
 2. builds the kernels from ``modppl_tpu_torch/csrc/`` with nvcc;
@@ -23,12 +32,25 @@ and the script exits non-zero:
    log-ML to agree within the bounds below (CUDA's and the CPU's exp, cos
    and sin round differently, which the filter amplifies step by step);
 5. times the filter (median of 5 after a warm-up) and each kernel against
-   its plain version at N = 2^20 (CUDA events, L2 flushed before each
-   launch; median of 20).
+   its plain version and one PyTorch library call at N = 2^20 (CUDA
+   events, L2 flushed before each launch; median of 20);
+6. holds the four HMC kernels against their plain versions on the card:
+   the d <= 12 pair bitwise (d = 3 at 10^4 chains over the full 500 / 300
+   iterations, d = 12 over 20 / 60), the d >= 13 pair at d = 13, 64, 128
+   and 160, every output to the tolerances below (and reports whether
+   bitwise); runs every kernel twice, requiring bitwise equal results, and
+   checks that a diverging chain leaves the others unchanged;
+7. runs both HMC legs with the counters at 0 and requires one launch of
+   each of the leg's two kernels, the fused path, ``quad_check_ok`` and
+   posterior moments within the reference tests' bounds;
+8. times each leg (median of 3 after a warm-up; min-coordinate ESS/s and
+   transitions/s) and each HMC kernel against its plain version at the
+   leg's shapes.
 
-``--profile`` adds a torch.profiler breakdown of one filter run by kernel.
-The last three lines are the kernels' JSON record, the card's
-``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
+``--profile`` adds a torch.profiler breakdown by kernel of one filter run
+and one run of each HMC leg. The last three lines are the kernels' JSON
+record, the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": ...}``.
 """
 
 import contextlib
@@ -278,10 +300,10 @@ def time_filter(n=N, runs=5):
     return statistics.median(times), times
 
 
-def time_ms(fn, reps=20):
+def time_ms(fn, reps=20, warmup=3):
     """Median device ms of ``fn`` with L2 flushed before each launch."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
@@ -295,7 +317,13 @@ def time_ms(fn, reps=20):
 
 
 def time_kernels(n=N):
-    """(kernel ms, plain ms) per kernel at the main path's shapes."""
+    """(kernel ms, plain ms, library ms, bound ms) per kernel at the main
+    path's shapes. The library call is the one PyTorch call closest to the
+    kernel's work, timed as a yardstick only (the port never calls it):
+    torch.cumsum of the rows, torch.cummax of the unscanned positions,
+    torch.searchsorted for the ancestors' rank step. The bound is the
+    kernel's bytes (each input read once, each output written once) over
+    3.35 TB/s."""
     from modppl_tpu_torch.ops import fused_resample as fr
     from modppl_tpu_torch.ops import grid_positions as gp
     from modppl_tpu_torch.parallel import sharded_smc as smc
@@ -309,6 +337,19 @@ def time_kernels(n=N):
     u = torch.tensor(0.37, dtype=torch.float32, device="cuda")
     s, _, _ = smc._det_grid_positions(u, lw, n)
     state = torch.randn(n, 2, device="cuda")
+    s_unscanned = torch.clamp(torch.ceil(((cum + offs[:, None]) / total) * n
+                                         - u), 0, n).to(torch.int32)
+    slots = torch.arange(n, dtype=torch.int32, device="cuda")
+    library = {
+        "stats_cumsum": lambda: torch.cumsum(rows, dim=1),
+        "positions_cummax": lambda: torch.cummax(s_unscanned, dim=1),
+        "resample_fused_from_s": lambda: torch.searchsorted(s, slots,
+                                                            right=True),
+    }
+    nb = rows.shape[0]
+    nbytes = {"stats_cumsum": 4 * (2 * n + 2 * nb),
+              "positions_cummax": 4 * (2 * n + 2 * nb + 2),
+              "resample_fused_from_s": 4 * n * (2 + 2 * state.shape[1])}
     pairs = {
         "stats_cumsum": (lambda: gp.stats_cumsum(rows, m),
                          lambda: gp.stats_cumsum_plain(rows, m)),
@@ -324,30 +365,420 @@ def time_kernels(n=N):
         # turns: plain, kernel, kernel, plain; each reported as its median
         p1, k1, k2, p2 = (time_ms(plain), time_ms(kernel), time_ms(kernel),
                           time_ms(plain))
-        out[name] = (statistics.median([k1, k2]), statistics.median([p1, p2]))
+        out[name] = (statistics.median([k1, k2]), statistics.median([p1, p2]),
+                     time_ms(library[name]), nbytes[name] / 3.35e12 * 1e3)
     return out
 
 
-def profile_filter(median_s, n=N):
-    """Device time of one filter run by kernel and copy, and the device's
-    idle share of the unprofiled median wall time ``median_s``."""
+def profile_run(label, fn, median_s):
+    """Device time of one run of ``fn`` by kernel and copy, and the
+    device's idle share of the unprofiled median wall time ``median_s``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_filter("cuda", n, 201, store_ancestry=False)
+        fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    print(f"# profile: {sum(r[2] for r in rows)} device ops, busy "
-          f"{busy_ms:.3f} ms of a {median_s * 1e3:.3f} ms filter: idle share "
+    print(f"# profile {label}: {sum(r[2] for r in rows)} device ops, busy "
+          f"{busy_ms:.3f} ms of a {median_s * 1e3:.3f} ms run: idle share "
           f"{1 - busy_ms / (median_s * 1e3):.3f}")
     for key, ms, count in rows[:15]:
         print(f"#   {ms:8.3f} ms  x{count:<4d} {key[:100]}")
+
+
+# --------------------------------------------------------------------------
+# slice 2: pooled-adaptation HMC on quadratic targets
+# --------------------------------------------------------------------------
+
+# the reference's two HMC legs (bench.py:65-125, 190-243) at full width
+LEGS = {
+    "hierarchical": dict(dim=3, num_chains=10_000, num_warmup=300,
+                         num_samples=500, num_leapfrog=8),
+    "illcond": dict(dim=128, num_chains=4096, num_warmup=300,
+                    num_samples=256, num_leapfrog=32),
+}
+LEG_KERNELS = {"hierarchical": ("hmc_warmup_chunk_small",
+                                "hmc_sample_chunk_small"),
+               "illcond": ("hmc_warmup_chunk", "hmc_sample_chunk")}
+# d >= 13 kernels vs their plain versions, the pass criteria, each value x
+# against the plain version's y as |x - y| <= tol (1 + |y|):
+# - sampling with forced accepts (u01 = -1), 8 transitions of 32 leapfrog
+#   steps: positions, logp and aprob within POS_TOL, divergent flags equal;
+# - sampling with real uniforms: accept decisions equal on >=
+#   DECISION_AGREEMENT of (chain, transition) pairs, and on every chain whose
+#   decisions all agree, positions, logp and aprob within POS_TOL and the
+#   divergent flags equal;
+# - warmup, 300 iterations: eps and inv_mass within ADAPT_TOL relative, the
+#   final positions within ADAPT_TOL on >= WARMUP_CHAIN_AGREEMENT of the
+#   chains (a chain whose accept decision flips in any iteration parts from
+#   its twin, and every chain moves with eps and inv_mass).
+# The plain versions take the kernels' arithmetic order today, so the
+# results are also bitwise (and reported so); the tolerances leave room for
+# a product in another order (tensor cores), since the dot-product order is
+# the kernel's own.
+POS_TOL = 1e-4
+DECISION_AGREEMENT = 0.999
+ADAPT_TOL = 1e-3
+WARMUP_CHAIN_AGREEMENT = 0.99
+WIDE_DIMS = ((13, 1024), (64, 1024), (128, 4096), (160, 1024))
+# the d <= 12 pair's bitwise checks: (d, chains, sampling T, warmup T)
+SMALL_CASES = ((3, 10_000, 500, 300), (12, 10_000, 20, 60))
+
+
+def hmc_wrappers():
+    from modppl_tpu_torch.ops import leapfrog, leapfrog_small
+
+    return {"hmc_warmup_chunk_small": leapfrog_small.warmup_chunk_small,
+            "hmc_sample_chunk_small": leapfrog_small.sample_chunk_small,
+            "hmc_warmup_chunk": leapfrog.warmup_chunk,
+            "hmc_sample_chunk": leapfrog.sample_chunk}
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Any matmul of the plain versions in full float32 (no TF32), stated
+    explicitly."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def quad_problem(d, n, seed, device):
+    """A well-conditioned quadratic target (Λ = A Aᵀ / d + I, b), a positive
+    inverse mass and start points, float32, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((d, d))
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+    return (f32(a @ a.T / d + np.eye(d)), f32(rng.standard_normal(d)),
+            f32(0.5 + rng.random(d)), f32(rng.standard_normal((n, d))))
+
+
+def hold_close(errs, name, what, got, want, tol, chains=None):
+    """Every element of ``got`` within tol * (1 + |want|) of ``want`` (a
+    bool output equal), over the chains where ``chains`` (a mask over
+    axis 1, the chain axis of a (T, N[, d]) output) is true; the largest
+    difference goes into ``errs``."""
+    if chains is not None:
+        got, want = got[:, chains], want[:, chains]
+    if got.dtype == torch.bool:
+        err = 0.0 if torch.equal(got, want) else 1.0
+        ok = err == 0.0
+    else:
+        diff = torch.where(got == want, 0.0, (got.double() - want.double())
+                           .abs())
+        err = float(diff.max()) if diff.numel() else 0.0
+        ok = bool((diff <= tol * (1 + want.double().abs())).all())
+    errs.max[name] = max(errs.max.get(name, 0.0), err)
+    if not ok:
+        raise AssertionError(f"{name}: {what} differs from the plain version "
+                             f"by {err} (limit {tol} relative)")
+
+
+def _twice(name, fn):
+    """Run a kernel twice on the same inputs; the results must be bitwise
+    equal (no atomics, fixed reduction orders)."""
+    first, second = fn(), fn()
+    for a, b in zip(first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: two runs on the same inputs differ")
+    return first
+
+
+def check_hmc_kernels(device):
+    """The four HMC kernels against their plain versions on the card."""
+    from modppl_tpu_torch.ops import leapfrog as lf
+    from modppl_tpu_torch.ops import leapfrog_small as lfs
+
+    errs = Errors()
+    f32 = torch.float32
+    # d <= 12: bitwise, at the hierarchical leg's width (full T at d = 3)
+    for d, n, t_s, t_w in SMALL_CASES:
+        lam, b, im, u0 = quad_problem(d, n, d, device)
+        z, jit, u01 = lfs.phase_draws(d, t_s, n, d, f32, device)
+        args = (u0, z / torch.sqrt(im), 0.3 * jit, u01, lam, b, im, 8)
+        got = _twice("hmc_sample_chunk_small",
+                     lambda: lfs.sample_chunk_small(*args))
+        want = lfs.sample_chunk_small_plain(*args)
+        for what, x, y in zip(("us", "logp", "aprob", "divergent"), got, want):
+            errs.same("hmc_sample_chunk_small", f"{what} (d={d}, T={t_s})",
+                      x, y)
+        z, jit, u01 = lfs.phase_draws(100 + d, t_w, n, d, f32, device)
+        args = (u0, z, jit, u01, lam, b, 0.1, 8)
+        got = _twice("hmc_warmup_chunk_small",
+                     lambda: lfs.warmup_chunk_small(*args))
+        want = lfs.warmup_chunk_small_plain(*args)
+        for what, x, y in zip(("us", "eps", "inv_mass"), got, want):
+            errs.same("hmc_warmup_chunk_small", f"{what} (d={d}, T={t_w})",
+                      x, y)
+        sync(device)
+
+    # d >= 13: every output to the stated tolerances, at the illcond leg's
+    # L = 32; the plain versions take the kernels' arithmetic order, so the
+    # results are also reported as bitwise equal or not
+    agree, bitwise = {}, {}
+    with full_fp32():
+        for d, n in WIDE_DIMS:
+            lam, b, im, u0 = quad_problem(d, n, d, device)
+            z, jit, u01 = lfs.phase_draws(d, 8, n, d, f32, device)
+            mom, epsj = z / torch.sqrt(im), 0.1 * jit
+            forced = torch.full_like(u01, -1.0)
+            got = _twice("hmc_sample_chunk", lambda: lf.sample_chunk(
+                u0, mom, epsj, forced, lam, b, im, 32))
+            want = lf.sample_chunk_plain(u0, mom, epsj, forced, lam, b, im, 32)
+            same = all(torch.equal(x, y) for x, y in zip(got, want))
+            for what, x, y in zip(("us", "logp", "aprob", "divergent"),
+                                  got, want):
+                hold_close(errs, "hmc_sample_chunk", f"forced-accept {what} "
+                           f"(d={d})", x, y, POS_TOL)
+            got = lf.sample_chunk(u0, mom, epsj, u01, lam, b, im, 32)
+            want = lf.sample_chunk_plain(u0, mom, epsj, u01, lam, b, im, 32)
+            same &= all(torch.equal(x, y) for x, y in zip(got, want))
+            decided = (u01 < got[2]) == (u01 < want[2])
+            agree[d] = float(decided.double().mean())
+            if agree[d] < DECISION_AGREEMENT:
+                raise AssertionError(f"hmc_sample_chunk: accept decisions "
+                                     f"agree on {agree[d]} at d={d}")
+            # a chain whose decisions all agree took the same moves
+            for what, x, y in zip(("us", "logp", "aprob", "divergent"),
+                                  got, want):
+                hold_close(errs, "hmc_sample_chunk", f"{what} (d={d})", x, y,
+                           POS_TOL, chains=decided.all(dim=0))
+            z, jit, u01 = lfs.phase_draws(100 + d, 300, n, d, f32, device)
+            args = (u0, z, jit, u01, lam, b, 0.1, 32)
+            got = _twice("hmc_warmup_chunk", lambda: lf.warmup_chunk(*args))
+            want = lf.warmup_chunk_plain(*args)
+            same &= all(torch.equal(x, y) for x, y in zip(got, want))
+            bitwise[d] = same
+            for what, x, y in (("eps", got[1], want[1]),
+                               ("inv_mass", got[2], want[2])):
+                rel = float(((x - y).abs() / y.abs()).max())
+                errs.max["hmc_warmup_chunk"] = max(
+                    errs.max.get("hmc_warmup_chunk", 0.0),
+                    float((x - y).abs().max()))
+                if rel > ADAPT_TOL:
+                    raise AssertionError(f"hmc_warmup_chunk: {what} off by "
+                                         f"{rel} relative at d={d}")
+            err = (got[0] - want[0]).abs()
+            errs.max["hmc_warmup_chunk"] = max(errs.max["hmc_warmup_chunk"],
+                                               float(err.max()))
+            near = float((err <= ADAPT_TOL * (1 + want[0].abs())).all(dim=1)
+                         .double().mean())
+            if near < WARMUP_CHAIN_AGREEMENT:
+                raise AssertionError(f"hmc_warmup_chunk: final positions "
+                                     f"within {ADAPT_TOL} on only {near} of "
+                                     f"the chains at d={d}")
+            sync(device)
+    check_divergent_isolation(device)
+    return errs.max, agree, bitwise
+
+
+def check_divergent_isolation(device):
+    """A chain whose energy overflows float32 is flagged divergent and held
+    at its start; every other chain is bitwise what it is without it."""
+    from modppl_tpu_torch.ops import leapfrog as lf
+    from modppl_tpu_torch.ops import leapfrog_small as lfs
+
+    lam, b, im, u_ok = quad_problem(20, 8, 0, device)
+    u_bad = u_ok.clone()
+    u_bad[0] = 1e20
+    draws = lfs.phase_draws(3, 3, 8, 20, torch.float32, device)
+    ok = lf.hmc_sample_chunk(None, u_ok, 0.1, lam, b, im, 3, 4, draws=draws)
+    bad = lf.hmc_sample_chunk(None, u_bad, 0.1, lam, b, im, 3, 4, draws=draws)
+    if not bool(bad[3][:, 0].any()) or not bool(bad[0][:, 0].isfinite().all()):
+        raise AssertionError("divergent chain: not flagged or not held")
+    for x, y in zip(ok, bad):
+        if not torch.equal(x[:, 1:], y[:, 1:]):
+            raise AssertionError("divergent chain: another chain changed")
+
+
+def hierarchical_data(device):
+    """bench.py:78-84: 10 points on [-1, 1], a quadratic signal plus noise
+    from numpy seed 0, float32."""
+    from modppl_tpu_torch.models.hierarchical_static import NOISE
+
+    xs = np.linspace(-1.0, 1.0, 10).astype(np.float32)
+    ys = (0.3 + 0.5 * xs - 0.8 * xs * xs + NOISE
+          * np.random.default_rng(0).standard_normal(10)).astype(np.float32)
+    return (torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device))
+
+
+def make_leg(name, device):
+    """The leg's runner through the user's entry point, ``hmc_runner``."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.hmc import hmc_runner
+
+    cfg = {k: v for k, v in LEGS[name].items() if k != "dim"}
+    if name == "hierarchical":
+        from modppl_tpu_torch.models.hierarchical_static import (
+            make_hierarchical_static,
+        )
+
+        xs, ys = hierarchical_data(device)
+        return hmc_runner(make_hierarchical_static(10), (xs,),
+                          Trie.from_dict({"ys": ys, "is_linear": False}),
+                          setup_key=99, device=device, **cfg)
+    from modppl_tpu_torch.models.illcond_gauss import make_illcond_gauss
+
+    return hmc_runner(make_illcond_gauss(128, 1e4), (), Trie(),
+                      setup_key=99, device=device, **cfg)
+
+
+def check_leg(name, out):
+    """Fused path, self-check, and the posterior within the reference
+    tests' bounds (test_combinators.py:103-104 for the hierarchical
+    coefficients; test_leapfrog_pallas.py:322-323 for the Gaussian)."""
+    if not (out["fused_quadratic"] and bool(out["quad_check_ok"])):
+        raise AssertionError(f"{name}: fused path not taken or its "
+                             f"self-check failed")
+    us = out["unconstrained"].double().cpu().numpy()
+    if not np.isfinite(us).all():
+        raise AssertionError(f"{name}: non-finite draws")
+    flat = us.reshape(-1, us.shape[-1])
+    if name == "hierarchical":
+        from modppl_tpu_torch.models.hierarchical_static import (
+            exact_hierarchical_posterior,
+        )
+
+        xs, ys = (x.cpu().numpy() for x in hierarchical_data("cpu"))
+        _, _, _, mean, cov, _ = exact_hierarchical_posterior(xs, ys)
+        sd = np.sqrt(np.diag(cov))
+        ok = (np.abs(flat.mean(0) - mean).max() <= 0.03
+              and np.abs(flat.std(0) / sd - 1).max() <= 0.3)
+    else:
+        from modppl_tpu_torch.models.illcond_gauss import illcond_cov
+
+        var = np.diag(illcond_cov(128, 1e4)).astype(np.float64)
+        ok = (np.abs(flat.mean(0)).max() <= 0.05
+              and np.abs(flat.var(0) / var - 1).max() <= 0.15)
+    if not ok:
+        raise AssertionError(f"{name}: posterior moments out of bounds")
+
+
+def check_hmc_main_path(device="cuda"):
+    """Both legs once through hmc_runner with the counters at 0 just before
+    each: each of its two kernels must launch exactly once, the other
+    leg's not at all."""
+    fns = hmc_wrappers()
+    launches, outs = {}, {}
+    for name in LEGS:
+        run = make_leg(name, device)
+        for fn in fns.values():
+            fn.launches = 0
+        outs[name] = run(0)
+        sync(device)
+        counts = {k: fn.launches for k, fn in fns.items()}
+        for k, c in counts.items():
+            want = 1 if k in LEG_KERNELS[name] else 0
+            if c != want:
+                raise AssertionError(f"{name}: {k} launched {c} times, "
+                                     f"expected {want}")
+        for k in LEG_KERNELS[name]:
+            launches[k] = counts[k]
+        check_leg(name, outs[name])
+    return launches, outs
+
+
+def time_leg(name, reps=3):
+    """bench.py's measure: the median wall time of ``reps`` runs after a
+    warm-up, and min-coordinate ESS (ess_autocorr per coordinate) of the
+    last run. Returns (median s, times, ess_min, ess_median, accept)."""
+    from modppl_tpu_torch.utils.diagnostics import ess_autocorr
+
+    run = make_leg(name, "cuda")
+    run(0)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        out = run(i + 1)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    us = out["unconstrained"].double().cpu().numpy()
+    ess = np.array([ess_autocorr(us[:, :, j]) for j in range(us.shape[-1])])
+    return (statistics.median(times), times, float(ess.min()),
+            float(np.median(ess)), float(out["accept_prob"].mean()))
+
+
+def leg_inputs(name):
+    """The kernels' inputs at a leg's shapes, with random draws."""
+    from modppl_tpu_torch.ops import leapfrog_small as lfs
+
+    c = LEGS[name]
+    d, n = c["dim"], c["num_chains"]
+    lam, b, im, u0 = quad_problem(d, n, 7, "cuda")
+    warm = lfs.phase_draws(1, c["num_warmup"], n, d, torch.float32, "cuda")
+    z, jit, u01 = lfs.phase_draws(2, c["num_samples"], n, d, torch.float32,
+                                  "cuda")
+    samp = (u0, z / torch.sqrt(im), 0.1 * jit, u01, lam, b, im,
+            c["num_leapfrog"])
+    return (u0, *warm, lam, b, 0.1, c["num_leapfrog"]), samp
+
+
+def hmc_bounds(name):
+    """Per phase of a leg: (bound ms, "bytes" or "operations"): the larger
+    of (bytes read once + written once) / 3.35 TB/s and FP32 flops /
+    67 TFLOP/s (the H100's published peaks at 700 W). Flops per transition
+    and chain, the least the function needs: (L + 1) gradients of 2 d^2,
+    logp at both ends as u.(b + g)/2 from the gradient (4 d), and 7 d per
+    leapfrog step (two momentum and one position multiply-add, b - uΛ)."""
+    c = LEGS[name]
+    d, n, L = c["dim"], c["num_chains"], c["num_leapfrog"]
+    per = (L + 1) * 2 * d * d + 4 * d + 7 * d * L
+    q = 4 * (d * d + 2 * d)   # Λ, b, inv_mass
+    out = {}
+    for phase, num in (("warmup", c["num_warmup"]),
+                       ("sample", c["num_samples"])):
+        streams = 4 * num * n * (d + 2)
+        if phase == "warmup":
+            nbytes = q + 4 * n * d + streams + 4 * n * d + 4 * (d + 1)
+        else:
+            nbytes = q + 4 * n * d + streams + num * n * (4 * d + 9)
+        t_bytes, t_ops = nbytes / 3.35e12, num * n * per / 67e12
+        out[phase] = (max(t_bytes, t_ops) * 1e3,
+                      "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def time_hmc_kernels():
+    """(kernel ms, plain ms, bound ms, bound by) per HMC kernel at its
+    leg's shapes, in turns (plain, kernel, kernel, plain): each kernel turn
+    the median of 5 launches, each plain turn one run (a plain run launches
+    ~10^5-10^6 small ops), each reported as the median of its two turns."""
+    from modppl_tpu_torch.ops import leapfrog as lf
+    from modppl_tpu_torch.ops import leapfrog_small as lfs
+
+    pairs = {"hierarchical": (("hmc_warmup_chunk_small", lfs.warmup_chunk_small,
+                               lfs.warmup_chunk_small_plain),
+                              ("hmc_sample_chunk_small", lfs.sample_chunk_small,
+                               lfs.sample_chunk_small_plain)),
+             "illcond": (("hmc_warmup_chunk", lf.warmup_chunk,
+                          lf.warmup_chunk_plain),
+                         ("hmc_sample_chunk", lf.sample_chunk,
+                          lf.sample_chunk_plain))}
+    out = {}
+    with full_fp32():
+        for leg, kernels in pairs.items():
+            warm, samp = leg_inputs(leg)
+            bound = hmc_bounds(leg)
+            for (name, kernel, plain), args, phase in zip(
+                    kernels, (warm, samp), ("warmup", "sample")):
+                p1 = time_ms(lambda: plain(*args), reps=1, warmup=0)
+                k1 = time_ms(lambda: kernel(*args), reps=5, warmup=1)
+                k2 = time_ms(lambda: kernel(*args), reps=5, warmup=1)
+                p2 = time_ms(lambda: plain(*args), reps=1, warmup=0)
+                out[name] = (statistics.median([k1, k2]),
+                             statistics.median([p1, p2]), *bound[phase])
+            del warm, samp
+    return out
 
 
 SOURCES = {
@@ -357,6 +788,14 @@ SOURCES = {
                          "modppl_tpu/ops/grid_positions_pallas.py:99"),
     "resample_fused_from_s": ("modppl_tpu_torch/csrc/fused_resample.cu",
                               "modppl_tpu/ops/fused_resample_pallas.py:101"),
+    "hmc_warmup_chunk_small": ("modppl_tpu_torch/csrc/hmc_small.cu",
+                               "modppl_tpu/ops/leapfrog_vpu_pallas.py:565"),
+    "hmc_sample_chunk_small": ("modppl_tpu_torch/csrc/hmc_small.cu",
+                               "modppl_tpu/ops/leapfrog_vpu_pallas.py:325"),
+    "hmc_warmup_chunk": ("modppl_tpu_torch/csrc/hmc_chunk.cu",
+                         "modppl_tpu/ops/leapfrog_pallas.py:529"),
+    "hmc_sample_chunk": ("modppl_tpu_torch/csrc/hmc_chunk.cu",
+                         "modppl_tpu/ops/leapfrog_pallas.py:599"),
 }
 
 
@@ -399,17 +838,58 @@ def main(argv):
           f"{[round(t * 1e3, 3) for t in times]} ms -> "
           f"{N * T / median_s:.1f} particle-steps/s ({card})")
     timings = time_kernels()
-    for name, (k_ms, p_ms) in timings.items():
-        print(f"# {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms at N={N}")
+    for name, (k_ms, p_ms, l_ms, b_ms) in timings.items():
+        print(f"# {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+              f"{l_ms:.4f} ms, bound {b_ms:.4f} ms at N={N}")
     if "--profile" in argv:
-        profile_filter(median_s)
+        profile_run("spiral filter", lambda: run_filter(
+            "cuda", N, 201, store_ancestry=False), median_s)
+    sys.stdout.flush()
 
-    record = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": timings[name][0],
-         "plain_ms": timings[name][1]}
-        for name in SOURCES]}
+    hmc_errs, agree, bitwise = check_hmc_kernels("cuda")
+    print("# HMC d <= 12 kernels == plain versions on the card, bitwise "
+          "(d=3 N=10^4 T=500/300, d=12 N=10^4 T=20/60); d >= 13 within "
+          f"tolerance at d in {[d for d, _ in WIDE_DIMS]}: accept decisions "
+          f"agree {agree}, bitwise equal {bitwise}; max abs err {hmc_errs}; "
+          "every kernel run twice, bitwise equal; a divergent chain leaves "
+          "the others unchanged")
+    sys.stdout.flush()
+    hmc_launches, _ = check_hmc_main_path("cuda")
+    print(f"# main path: both HMC legs through hmc_runner(device='cuda'), "
+          f"fused, quad_check_ok, posterior in bounds; launches "
+          f"{hmc_launches}")
+    sys.stdout.flush()
+    for name, cfg in LEGS.items():
+        med, times, ess_min, ess_med, acc = time_leg(name)
+        if "--profile" in argv:
+            run = make_leg(name, "cuda")
+            profile_run(f"HMC leg {name}", lambda: run(11), med)
+        n_tr = cfg["num_chains"] * (cfg["num_warmup"] + cfg["num_samples"])
+        print(f"# leg {name} {cfg}: median {med * 1e3:.3f} ms of "
+              f"{[round(t * 1e3, 3) for t in times]} ms; min-coord ESS "
+              f"{ess_min:.1f} (median {ess_med:.1f}) -> {ess_min / med:.1f} "
+              f"ESS/s; {n_tr / med:.4g} transitions/s; accept {acc:.3f} "
+              f"({card})")
+        sys.stdout.flush()
+    hmc_timings = time_hmc_kernels()
+    for name, (k_ms, p_ms, b_ms, _) in hmc_timings.items():
+        print(f"# {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms at its leg's shapes")
+    launches.update(hmc_launches)
+    errs.update(hmc_errs)
+
+    def row(name):
+        if name in timings:
+            k_ms, p_ms, l_ms, b_ms = timings[name]
+            bound_by = "bytes"
+        else:
+            (k_ms, p_ms, b_ms, bound_by), l_ms = hmc_timings[name], None
+        return {"name": name, "route": "cuda", "source": SOURCES[name][0],
+                "replaces": SOURCES[name][1], "launches": launches[name],
+                "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": bound_by, "library_ms": l_ms}
+
+    record = {"kernels": [row(name) for name in SOURCES]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

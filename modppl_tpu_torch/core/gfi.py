@@ -32,6 +32,11 @@ class GenFn:
         """Execute the generative function, returning a sampled Trace."""
         raise NotImplementedError
 
-    def generate(self, key, args, constraints):
+    def generate(self, key, args, constraints, device=None):
         """Execute consistent with ``constraints``; returns (trace, weight)."""
         raise NotImplementedError
+
+    def assess(self, key, args, constraints, device=None):
+        """Conditional log-probability of fully-proposed ``constraints``."""
+        _, weight = self.generate(key, args, constraints, device=device)
+        return weight

@@ -4,6 +4,9 @@ A pure-Python trie whose values and per-leaf log-probabilities are tensors
 (or Python numbers). Same structural semantics as the reference: writes to
 an occupied address raise, ``remove`` prunes empty intermediate nodes.
 
+Each leaf also records the distribution that drew it (``dist``), which
+gradient inference reads to pick an unconstraining bijector.
+
 One difference follows from the port's batched tier, where a model body runs
 once on tensors whose leading axis is the particle axis: ``weight`` adds the
 leaf log-probabilities elementwise and keeps that axis, so a batched trace
@@ -18,12 +21,13 @@ _EMPTY = object()  # sentinel: "no inner value" (distinct from a stored None)
 class Trie:
     """Hierarchical choice map: children dict + optional inner value + leaf logp."""
 
-    __slots__ = ("children", "value", "logp")
+    __slots__ = ("children", "value", "logp", "dist")
 
     def __init__(self):
         self.children = {}
         self.value = _EMPTY
         self.logp = 0.0
+        self.dist = None  # Distribution that drew this leaf, if any
 
     # ---- structure --------------------------------------------------------
 
@@ -94,8 +98,9 @@ class Trie:
             node = node.children.setdefault(c, Trie())
         return node, comps[-1]
 
-    def w_observe(self, addr, value, logp):
-        """Store a weighted ``value`` leaf at ``addr``; raises if occupied."""
+    def w_observe(self, addr, value, logp, dist=None):
+        """Store a weighted ``value`` leaf at ``addr``; raises if occupied.
+        ``dist`` records the distribution that drew ``value``."""
         node, last = self._parent_of(addr)
         if last in node.children:
             raise KeyError(
@@ -103,6 +108,7 @@ class Trie:
         leaf = Trie()
         leaf.value = value
         leaf.logp = logp
+        leaf.dist = dist
         node.children[last] = leaf
 
     def observe(self, addr, value):
@@ -142,6 +148,7 @@ class Trie:
         t = Trie()
         t.value = self.value
         t.logp = self.logp
+        t.dist = self.dist
         t.children = {k: v.copy() for k, v in self.children.items()}
         return t
 

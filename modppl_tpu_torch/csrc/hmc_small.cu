@@ -1,0 +1,376 @@
+// Whole-phase HMC chunks for quadratic targets at d <= 12: kernels 9 and 10.
+//
+// Replaces modppl_tpu/ops/leapfrog_vpu_pallas.py:hmc_sample_chunk_small
+// (Pallas body _chunk_kernel) and :hmc_warmup_chunk_small (Pallas body
+// _warmup_kernel). The target is logp(u) = b.u - u.Λu/2, grad = b - Λu.
+//
+// What bounds them on the card: latency. Per chain and transition the work
+// is L leapfrog steps of d^2 multiply-adds, a few hundred flops, against
+// (2d + 5) floats of traffic, and the T transitions of a chain are a strict
+// sequence; at N = 10^4 chains there are fewer threads than the card holds.
+// The design keeps every chain's whole phase in one thread's registers
+// (positions, momenta, gradients), with Λ, b and the inverse mass in
+// shared memory, a template on d so the d^2 gradient terms unroll, and a
+// loop over all T transitions inside the kernel: one launch per phase,
+// device memory touched only to read each transition's pre-drawn randoms
+// and write its outputs. The TPU kernel's (8d, N/8) sublane packing and its
+// parameter tile have no counterpart: a thread per chain needs neither.
+//
+// Exactness contract, so that results are bitwise those of the plain
+// versions in ops/leapfrog_small.py on the same inputs: every add, multiply
+// and divide is a round-to-nearest intrinsic in the plain version's order
+// (no FMA contraction); sums over coordinates run in index order; exp, log,
+// sqrt and rsqrt are CUDA's accurate expf, logf, sqrtf and rsqrtf, as
+// PyTorch's CUDA kernels call them. Pooled sums over chains are the
+// adjacent-pairing tree over the chain axis zero-padded to a power of two
+// (the plain versions' _tree_sum): a tree inside each 256-chain tile, then
+// the same tree over the tile totals.
+//
+// The warmup pools statistics over ALL chains every iteration (the accept
+// mean for dual averaging; in slow windows the batch mean, then the
+// squared deviations from it), and the next iteration's step size depends
+// on them. Blocks run in no order, so the warmup is ONE cooperative launch:
+// blocks loop over chain tiles, write tile partials, and meet at
+// grid.sync(); then every block reduces the partials in the same fixed
+// order and updates its own copy of the dual-averaging, Welford and
+// inverse-mass state, so no scalar is ever broadcast and no float atomic
+// is used: a run repeats bitwise. Partials are double-buffered by
+// iteration parity, so one sync per reduction suffices.
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include "hmc_pooled.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+using namespace modppl;
+
+constexpr int kMaxDim = 12;
+constexpr int kSampleBlock = 128;
+constexpr int kTile = 256;        // ops/leapfrog_small.WARMUP_TILE
+constexpr int kMaxTiles = 1024;   // ops/leapfrog_small.MAX_WARMUP_TILES
+constexpr int kRedRows = 2 * kMaxDim + 1;
+
+// g = b - Λu, the sum over k in order
+template <int D>
+__device__ __forceinline__ void grad(const float* lam, const float* b,
+                                     const float (&u)[D], float (&g)[D]) {
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    float acc = mul(u[0], lam[j * D]);
+#pragma unroll
+    for (int k = 1; k < D; ++k) acc = add(acc, mul(u[k], lam[j * D + k]));
+    g[j] = sub(b[j], acc);
+  }
+}
+
+// b.u - 0.5 * sum_jk (Λjk u_j) u_k, both sums in index order
+template <int D>
+__device__ __forceinline__ float logp(const float* lam, const float* b,
+                                      const float (&u)[D]) {
+  float quad = mul(mul(lam[0], u[0]), u[0]);
+#pragma unroll
+  for (int jk = 1; jk < D * D; ++jk)
+    quad = add(quad, mul(mul(lam[jk], u[jk / D]), u[jk % D]));
+  float lin = mul(b[0], u[0]);
+#pragma unroll
+  for (int j = 1; j < D; ++j) lin = add(lin, mul(b[j], u[j]));
+  return sub(lin, mul(0.5f, quad));
+}
+
+template <int D>
+__device__ __forceinline__ float kinetic(const float* im, const float (&p)[D]) {
+  float s = mul(mul(im[0], p[0]), p[0]);
+#pragma unroll
+  for (int j = 1; j < D; ++j) s = add(s, mul(mul(im[j], p[j]), p[j]));
+  return mul(0.5f, s);
+}
+
+// One HMC transition of one chain: u is replaced by the post-accept
+// position, p by the trajectory's end momentum.
+template <int D>
+__device__ __forceinline__ void transition(const float* lam, const float* b,
+                                           const float* im, float (&u)[D],
+                                           float (&p)[D], float eps,
+                                           float u01, int steps, float& lp,
+                                           float& ap, bool& dv) {
+  float u0[D], ei[D], g[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    u0[j] = u[j];
+    ei[j] = mul(eps, im[j]);
+  }
+  const float logp0 = logp<D>(lam, b, u0);
+  const float h0 = add(-logp0, kinetic<D>(im, p));
+  const float he = mul(0.5f, eps);
+  grad<D>(lam, b, u, g);
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) p[j] = add(p[j], mul(he, g[j]));
+#pragma unroll
+    for (int j = 0; j < D; ++j) u[j] = add(u[j], mul(ei[j], p[j]));
+    grad<D>(lam, b, u, g);
+#pragma unroll
+    for (int j = 0; j < D; ++j) p[j] = add(p[j], mul(he, g[j]));
+  }
+  const float logp1 = logp<D>(lam, b, u);
+  const float h1 = add(-logp1, kinetic<D>(im, p));
+  const float delta = sub(h0, h1);
+  dv = !isfinite(delta) || delta < -1000.0f;
+  ap = dv ? 0.0f : fminf(expf(fminf(delta, 0.0f)), 1.0f);
+  const bool acc = u01 < ap;
+#pragma unroll
+  for (int j = 0; j < D; ++j) u[j] = acc ? u[j] : u0[j];
+  lp = acc ? logp1 : logp0;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSampleBlock)
+sample_small_kernel(const float* __restrict__ u0, const float* __restrict__ mom,
+                    const float* __restrict__ epsj,
+                    const float* __restrict__ u01,
+                    const float* __restrict__ lam_g,
+                    const float* __restrict__ b_g,
+                    const float* __restrict__ im_g, int n, int num, int steps,
+                    float* __restrict__ us, float* __restrict__ lps,
+                    float* __restrict__ aps, bool* __restrict__ dvs) {
+  __shared__ float lam[D * D], b[D], im[D];
+  for (int i = threadIdx.x; i < D * D; i += blockDim.x) lam[i] = lam_g[i];
+  if (threadIdx.x < D) {
+    b[threadIdx.x] = b_g[threadIdx.x];
+    im[threadIdx.x] = im_g[threadIdx.x];
+  }
+  __syncthreads();
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n) return;
+  float u[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) u[j] = u0[static_cast<size_t>(c) * D + j];
+  for (int t = 0; t < num; ++t) {
+    const size_t r = static_cast<size_t>(t) * n + c;
+    float p[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) p[j] = mom[r * D + j];
+    float lp, ap;
+    bool dv;
+    transition<D>(lam, b, im, u, p, epsj[r], u01[r], steps, lp, ap, dv);
+#pragma unroll
+    for (int j = 0; j < D; ++j) us[r * D + j] = u[j];
+    lps[r] = lp;
+    aps[r] = ap;
+    dvs[r] = dv;
+  }
+}
+
+struct WarmupState {
+  DualAveraging da;
+  float mean[kMaxDim], m2[kMaxDim], im[kMaxDim];
+  float sums[kRedRows];   // this iteration's pooled sums
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTile)
+warmup_small_kernel(float* __restrict__ u, const float* __restrict__ z,
+                    const float* __restrict__ jit,
+                    const float* __restrict__ u01,
+                    const float* __restrict__ lam_g,
+                    const float* __restrict__ b_g, int n, int num, int steps,
+                    float eps0, float eps0x10, float target, int nwin,
+                    const int* __restrict__ sch, float* __restrict__ part,
+                    int ntiles, int ptiles, float* __restrict__ eps_out,
+                    float* __restrict__ im_out) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float lam[D * D], b[D];
+  __shared__ float red[kRedRows * kTile];
+  __shared__ WarmupState st;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < D * D; i += blockDim.x) lam[i] = lam_g[i];
+  if (tid < D) b[tid] = b_g[tid];
+  if (tid == 0) {
+    st.da.init(eps0, eps0x10);
+    for (int j = 0; j < D; ++j) {
+      st.mean[j] = st.m2[j] = 0.0f;
+      st.im[j] = 1.0f;
+    }
+  }
+  __syncthreads();
+  const float c_live = static_cast<float>(n);
+  const int rows = 1 + 2 * D;
+
+  for (int t = 0; t < num; ++t) {
+    bool in_slow, at_end;
+    window_flags(sch, nwin, t, in_slow, at_end);
+    if (at_end && tid == 0) {
+      // slow window ended: the regularized variance becomes the inverse
+      // mass, dual averaging restarts around the averaged step size
+      for (int j = 0; j < D; ++j) {
+        st.im[j] = window_variance(st.m2[j], st.da.nw);
+        st.mean[j] = st.m2[j] = 0.0f;
+      }
+      st.da.restart();
+    }
+    __syncthreads();
+    float* pb = part + static_cast<size_t>(t & 1) * rows * ptiles;
+    const int r1 = in_slow ? 1 + D : 1;
+    const float eps_t = expf(st.da.log_eps);
+
+    // pass 1: every chain's transition; tile sums of aprob (and of u)
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int c = tile * kTile + tid;
+      float uc[D];
+      float ap = 0.0f;
+      if (c < n) {
+        const size_t r = static_cast<size_t>(t) * n + c;
+        float p[D];
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          uc[j] = u[static_cast<size_t>(c) * D + j];
+          p[j] = mul(z[r * D + j], rsqrtf(st.im[j]));
+        }
+        float lp;
+        bool dv;
+        transition<D>(lam, b, st.im, uc, p, mul(eps_t, jit[r]), u01[r],
+                      steps, lp, ap, dv);
+#pragma unroll
+        for (int j = 0; j < D; ++j) u[static_cast<size_t>(c) * D + j] = uc[j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < D; ++j) uc[j] = 0.0f;
+      }
+      red[tid] = ap;
+      if (in_slow) {
+#pragma unroll
+        for (int j = 0; j < D; ++j) red[(1 + j) * kTile + tid] = uc[j];
+      }
+      __syncthreads();
+      tree_rows(red, r1, kTile);
+      if (tid < r1) pb[tid * ptiles + tile] = red[tid * kTile];
+      __syncthreads();
+    }
+    grid.sync();
+    reduce_partials(pb, r1, ptiles, red, kRedRows * kTile, st.sums);
+
+    if (tid == 0) {
+      st.da.update(quo(st.sums[0], c_live), target);
+      for (int j = 0; j < D; ++j) st.sums[1 + j] = quo(st.sums[1 + j], c_live);
+    }
+    __syncthreads();
+    if (!in_slow) continue;
+
+    // pass 2 (slow windows): squared deviations from the batch mean
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int c = tile * kTile + tid;
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        float sq = 0.0f;
+        if (c < n) {
+          const float dv = sub(u[static_cast<size_t>(c) * D + j],
+                               st.sums[1 + j]);
+          sq = mul(dv, dv);
+        }
+        red[j * kTile + tid] = sq;
+      }
+      __syncthreads();
+      tree_rows(red, D, kTile);
+      if (tid < D) pb[(1 + D + tid) * ptiles + tile] = red[tid * kTile];
+      __syncthreads();
+    }
+    grid.sync();
+    reduce_partials(pb + (1 + D) * ptiles, D, ptiles, red, kRedRows * kTile,
+                    st.sums + 1 + D);
+    if (tid == 0) {
+      for (int j = 0; j < D; ++j)
+        welford_merge(st.mean[j], st.m2[j], st.sums[1 + j],
+                      st.sums[1 + D + j], st.da.nw, c_live);
+      st.da.nw = add(st.da.nw, c_live);
+    }
+    __syncthreads();
+  }
+  if (blockIdx.x == 0 && tid == 0) {
+    *eps_out = expf(st.da.leb);
+    for (int j = 0; j < D; ++j) im_out[j] = st.im[j];
+  }
+}
+
+template <int D>
+cudaError_t launch_sample(const float* u0, const float* mom, const float* epsj,
+                          const float* u01, const float* lam, const float* b,
+                          const float* im, int n, int num, int steps,
+                          float* us, float* lps, float* aps, bool* dvs,
+                          cudaStream_t stream) {
+  const int grid = (n + kSampleBlock - 1) / kSampleBlock;
+  sample_small_kernel<D><<<grid, kSampleBlock, 0, stream>>>(
+      u0, mom, epsj, u01, lam, b, im, n, num, steps, us, lps, aps, dvs);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_warmup(float* u, const float* z, const float* jit,
+                          const float* u01, const float* lam, const float* b,
+                          int n, int num, int steps, float eps0,
+                          float eps0x10, float target, int nwin,
+                          const int* sch, float* part, float* eps_out,
+                          float* im_out, cudaStream_t stream) {
+  int ntiles = (n + kTile - 1) / kTile;
+  int ptiles = 1;
+  while (ptiles < ntiles) ptiles <<= 1;
+  if (ntiles > kMaxTiles || nwin > kMaxWindows) return cudaErrorInvalidValue;
+  void* args[] = {&u,    &z,    &jit,   &u01,    &lam,     &b,      &n,
+                  &num,  &steps, &eps0, &eps0x10, &target, &nwin,   &sch,
+                  &part, &ntiles, &ptiles, &eps_out, &im_out};
+  return launch_cooperative(warmup_small_kernel<D>, ntiles, kTile, 0, args,
+                            stream);
+}
+
+}  // namespace
+
+#define MODPPL_DISPATCH_DIM(d, CALL) \
+  switch (d) {                       \
+    case 1: return CALL(1);          \
+    case 2: return CALL(2);          \
+    case 3: return CALL(3);          \
+    case 4: return CALL(4);          \
+    case 5: return CALL(5);          \
+    case 6: return CALL(6);          \
+    case 7: return CALL(7);          \
+    case 8: return CALL(8);          \
+    case 9: return CALL(9);          \
+    case 10: return CALL(10);        \
+    case 11: return CALL(11);        \
+    case 12: return CALL(12);        \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+// u (n, d), mom (num, n, d), epsj and u01 (num, n), Λ (d, d), b and
+// inv_mass (d,), all f32 -> us (num, n, d), lps and aps (num, n) f32,
+// dvs (num, n) bool
+extern "C" int modppl_hmc_sample_small_f32(
+    const float* u, const float* mom, const float* epsj, const float* u01,
+    const float* lam, const float* b, const float* im, int n, int d, int num,
+    int steps, float* us, float* lps, float* aps, bool* dvs,
+    cudaStream_t stream) {
+#define MODPPL_SAMPLE(D)                                                   \
+  static_cast<int>(launch_sample<D>(u, mom, epsj, u01, lam, b, im, n, num, \
+                                    steps, us, lps, aps, dvs, stream))
+  MODPPL_DISPATCH_DIM(d, MODPPL_SAMPLE)
+#undef MODPPL_SAMPLE
+}
+
+// us (n, d) f32: the start positions, overwritten with the final ones;
+// z (num, n, d), jit and u01 (num, n), Λ (d, d), b (d,) f32; sch int32
+// (2, 32): slow-window starts and ends, nwin of them; part f32
+// (2, 1 + 2d, ptiles) zeroed scratch -> eps_out (), im_out (d,)
+extern "C" int modppl_hmc_warmup_small_f32(
+    float* us, const float* z, const float* jit, const float* u01,
+    const float* lam, const float* b, int n, int d, int num, int steps,
+    float eps0, float eps0x10, float target, int nwin, const int* sch,
+    float* part, float* eps_out, float* im_out, cudaStream_t stream) {
+#define MODPPL_WARMUP(D)                                                    \
+  static_cast<int>(launch_warmup<D>(us, z, jit, u01, lam, b, n, num, steps, \
+                                    eps0, eps0x10, target, nwin, sch, part, \
+                                    eps_out, im_out, stream))
+  MODPPL_DISPATCH_DIM(d, MODPPL_WARMUP)
+#undef MODPPL_WARMUP
+}

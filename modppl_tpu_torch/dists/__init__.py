@@ -1,7 +1,9 @@
-"""Distributions the particle-filter slice uses."""
+"""Distributions of the port."""
 
 from modppl_tpu_torch.dists.base import Distribution
+from modppl_tpu_torch.dists.iid import iid
 from modppl_tpu_torch.dists.mvnormal import mvnormal
-from modppl_tpu_torch.dists.scalar import normal, uniform
+from modppl_tpu_torch.dists.scalar import bernoulli, normal, uniform
 
-__all__ = ["Distribution", "mvnormal", "normal", "uniform"]
+__all__ = ["Distribution", "bernoulli", "iid", "mvnormal", "normal",
+           "uniform"]

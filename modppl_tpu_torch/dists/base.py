@@ -45,6 +45,13 @@ class Distribution:
     #: rank of one draw (0 for scalar distributions, 1 for vectors)
     event_rank = 0
 
+    #: True if draws live in a discrete space (no gradient flows through them)
+    is_discrete = False
+
+    #: "real" | "positive" | "unit_interval" | "discrete" | "other": picks the
+    #: default unconstraining bijector (inference/transforms.py)
+    support = "real"
+
     def logpdf(self, x, params):
         """log p(x; params), elementwise over leading batch axes."""
         return self._logpdf(x, *as_param_tuple(params))

@@ -1,9 +1,13 @@
 """Multivariate normal (counterpart of modppl_tpu/dists/mvnormal.py).
 
-The factorization is the closed-form unrolled Cholesky-Banachiewicz of
-modppl_tpu/ops/smalllinalg.py, written out per entry. On CUDA that keeps
-the factor on the device: ``torch.linalg.cholesky`` goes through cuSOLVER
-and checks its ``info`` on the host, a sync per call.
+Up to ``SMALL_DIM_MAX`` = 32 dimensions the factorization is the
+closed-form unrolled Cholesky-Banachiewicz of modppl_tpu/ops/smalllinalg.py,
+written out per entry. On CUDA that keeps the factor on the device:
+``torch.linalg.cholesky`` goes through cuSOLVER and checks its ``info`` on
+the host, a sync per call. Above 32 the unrolled form costs O(k^3) tensor
+ops per logpdf, so the factor comes from ``torch.linalg.cholesky_ex`` (no
+host check) and the solve from ``torch.linalg.solve_triangular``, as the
+reference does with ``jnp.linalg`` above the same bound.
 
 A covariance given as a constant (a nested sequence of numbers, like the
 spiral's ``OBS_COV``) is factored once on the host, cached, and its entries
@@ -17,6 +21,8 @@ from functools import lru_cache
 import torch
 
 from modppl_tpu_torch.dists.base import Distribution
+
+SMALL_DIM_MAX = 32
 
 
 def _sqrt(v):
@@ -68,6 +74,8 @@ class MvNormal(Distribution):
                 or (torch.is_tensor(cov) and cov.ndim > 2))
 
     def _logpdf(self, x, mu, cov):
+        if _dim(mu, cov) > SMALL_DIM_MAX:
+            return _logpdf_large(x, mu, cov)
         L = cholesky(cov)
         k = len(L)
         b = x - mu
@@ -88,6 +96,13 @@ class MvNormal(Distribution):
         return -(k * math.log(2.0 * math.pi) + logdet + maha) / 2.0
 
     def _sample(self, gen, shape, dtype, mu, cov):
+        if _dim(mu, cov) > SMALL_DIM_MAX:
+            L = torch.linalg.cholesky_ex(_as_tensor(cov, mu)).L
+            shape = torch.broadcast_shapes(shape + (L.shape[-1],),
+                                           tuple(mu.shape))
+            z = torch.randn(shape, generator=gen, device=gen.device,
+                            dtype=dtype)
+            return mu + (L @ z[..., None])[..., 0]
         L = cholesky(cov)
         k = len(L)
         shape = torch.broadcast_shapes(shape + (k,), tuple(mu.shape))
@@ -99,6 +114,29 @@ class MvNormal(Distribution):
                 acc = acc + L[i][j] * z[..., j]
             rows.append(acc)
         return mu + torch.stack(rows, dim=-1)
+
+
+def _dim(mu, cov):
+    return mu.shape[-1] if torch.is_tensor(mu) else len(cov)
+
+
+def _as_tensor(cov, like):
+    if torch.is_tensor(cov):
+        return cov
+    return torch.tensor(cov, dtype=like.dtype, device=like.device)
+
+
+def _logpdf_large(x, mu, cov):
+    """The k > SMALL_DIM_MAX arm: one batched factor and triangular solve."""
+    L = torch.linalg.cholesky_ex(_as_tensor(cov, x)).L
+    k = L.shape[-1]
+    r = torch.broadcast_to(x - mu, torch.broadcast_shapes(
+        (x - mu).shape, L.shape[:-1]))
+    z = torch.linalg.solve_triangular(L, r[..., None], upper=False)[..., 0]
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                             dim=-1)
+    maha = torch.sum(z * z, dim=-1)
+    return -(k * math.log(2.0 * math.pi) + logdet + maha) / 2.0
 
 
 mvnormal = MvNormal()

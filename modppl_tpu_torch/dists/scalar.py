@@ -1,5 +1,5 @@
-"""Scalar distributions the particle-filter slice uses: ``uniform`` and
-``normal`` (counterpart of modppl_tpu/dists/scalar.py:48-78, 127-148)."""
+"""Scalar distributions: ``bernoulli``, ``uniform`` and ``normal``
+(counterpart of modppl_tpu/dists/scalar.py:30-78, 127-148)."""
 
 import math
 
@@ -12,8 +12,29 @@ def _log(v):
     return torch.log(v) if torch.is_tensor(v) else math.log(v)
 
 
+class Bernoulli(Distribution):
+    """Bernoulli over {True, False} with success probability p."""
+
+    is_discrete = True
+    support = "discrete"
+
+    def _logpdf(self, x, p):
+        if not torch.is_tensor(x) and not torch.is_tensor(p):
+            return math.log(p if x else 1.0 - p)
+        dev = x.device if torch.is_tensor(x) else p.device
+        x = torch.as_tensor(x, dtype=torch.bool, device=dev)
+        return torch.log(torch.where(x, p, 1.0 - p))
+
+    def _sample(self, gen, shape, dtype, p):
+        shape = torch.broadcast_shapes(shape, shape_of(p))
+        return torch.rand(shape, generator=gen, device=gen.device,
+                          dtype=dtype) < p
+
+
 class UniformContinuous(Distribution):
     """Uniform on [a, b], inclusive bounds, -inf outside."""
+
+    support = "other"  # an interval whose bounds are parameters
 
     @staticmethod
     def _check(a, b):
@@ -48,6 +69,7 @@ class Normal(Distribution):
         return z * std + mu
 
 
+bernoulli = Bernoulli()
 uniform_continuous = UniformContinuous()
 uniform = uniform_continuous
 normal = Normal()

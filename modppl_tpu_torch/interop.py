@@ -2,7 +2,10 @@
 
 Takes values as numpy arrays (``np.asarray`` of the reference's arrays) and
 turns them into the port's tensors on a given device, so a test can hand
-both sides the same inputs. Imports neither jax nor modppl_tpu.
+both sides the same inputs. Imports neither jax nor modppl_tpu. For HMC:
+``quadratic_from_numpy`` carries a detected (Λ, b), ``phase_streams`` a
+phase's pre-drawn randoms; start positions and an adapted (eps, inv_mass)
+go through ``tensor``.
 """
 
 import numpy as np
@@ -35,6 +38,24 @@ def trie_to_numpy(trie):
         out[k] = (sub.inner().cpu().numpy() if sub.is_leaf()
                   else trie_to_numpy(sub))
     return out
+
+
+def quadratic_from_numpy(lam, b, device="cpu"):
+    """The quadratic form (Λ (d, d), b (d,)) of a target the reference
+    detected (``detect_quadratic_target``), as the port's tensors."""
+    return tensor(lam, device), tensor(b, device)
+
+
+def phase_streams(z, jit, u01, device="cpu"):
+    """One HMC phase's pre-drawn streams, as the reference's chunk wrappers
+    draw them from ``jax.random.split(key, 3)``: standard normals z
+    (T, N, d), step-size jitters in [0.5, 1.5) and accept uniforms, each
+    (T, N) or (T, N, 1) (the d <= 12 wrappers draw the latter). Returns the
+    (z, jit, u01) the port's chunk entries take as ``draws``."""
+    z = np.asarray(z)
+    lead = z.shape[:2]
+    return (tensor(z, device), tensor(np.reshape(jit, lead), device),
+            tensor(np.reshape(u01, lead), device))
 
 
 def smc_state_from_numpy(key, state, log_weights, log_ml, t, device="cpu"):

@@ -2,7 +2,8 @@
 
 A model is ``fn(h, *args)``; ``h.sample(dist, params, addr)`` is a random
 choice. The body is written with torch ops, so it runs on whatever device
-its argument tensors are on.
+its argument tensors are on, or on the ``device`` the caller names (a model
+with no tensor arguments must be given one).
 """
 
 from modppl_tpu_torch.core.gfi import GenFn, Trace
@@ -39,17 +40,17 @@ class Gen(GenFn):
     def __repr__(self):
         return f"Gen({self.__name__})"
 
-    def generate(self, key, args, constraints):
+    def generate(self, key, args, constraints, device=None):
         args = _as_args_tuple(args)
         constraints = constraints.copy()
         constraints.take_inner()  # in case constraints came from a proposal
-        dtype, device = infer_dtype_device(args)
+        dtype, device = infer_dtype_device(args, device)
         g = GenerateHandler(key, Trace(args, Trie(), None, 0.0), constraints,
                             dtype, device)
         return run_generate(g, self.fn, args)
 
-    def simulate(self, key, args):
-        trace, _ = self.generate(key, args, Trie())
+    def simulate(self, key, args, device=None):
+        trace, _ = self.generate(key, args, Trie(), device=device)
         return trace
 
 

@@ -18,17 +18,25 @@ def addr_subkey(key, addr):
     return fold_in(key, addr_hash(addr))
 
 
-def infer_dtype_device(args):
+def infer_dtype_device(args, device=None):
     """dtype and device of the first floating tensor in ``args`` (searched
-    through tuples and lists), else torch's default dtype on the CPU."""
+    through tuples and lists). An explicit ``device`` wins over the
+    arguments' (the dtype is then the argument's, else torch's default).
+    With neither, raise: a model without tensor arguments must be told
+    where to run rather than falling back to the CPU."""
     stack = list(args)
     while stack:
         a = stack.pop(0)
         if torch.is_tensor(a) and a.is_floating_point():
-            return a.dtype, a.device
+            return a.dtype, torch.device(a.device if device is None
+                                         else device)
         if isinstance(a, (tuple, list)):
             stack[:0] = list(a)
-    return torch.get_default_dtype(), torch.device("cpu")
+    if device is None:
+        raise ValueError(
+            "no floating tensor argument to take a device from: pass "
+            "device= (e.g. 'cuda' or 'cpu')")
+    return torch.get_default_dtype(), torch.device(device)
 
 
 class GenerateHandler:
@@ -58,5 +66,5 @@ class GenerateHandler:
         else:
             x = self._draw(dist, params, addr)
             logp = dist.logpdf(x, params)
-        self.tr.data.w_observe(addr, x, logp)
+        self.tr.data.w_observe(addr, x, logp, dist)
         return x

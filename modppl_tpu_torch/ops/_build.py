@@ -1,10 +1,11 @@
 """Builds the port's CUDA kernels at first use, and nothing else builds them.
 
-Every ``*.cu`` file under ``modppl_tpu_torch/csrc/`` is compiled by ``nvcc``
-for ``sm_90a`` into ONE shared library with a plain C interface, written to
+Every ``*.cu`` file under ``modppl_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` for ``sm_90a``, all at once, and the objects are linked into ONE
+shared library with a plain C interface, written to
 ``modppl_tpu_torch/_build/`` under a name that carries a hash of the sources
-and flags (a changed source builds anew; an unchanged one is reused). The
-library is loaded with ``ctypes``. Each C entry launches on the stream it is
+(``*.cuh`` headers included) and flags (a changed source builds anew; an
+unchanged one is reused). The library is loaded with ``ctypes``. Each C entry launches on the stream it is
 given and returns ``cudaGetLastError()``; ``check`` raises if that is not 0.
 """
 
@@ -20,8 +21,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas=-v")
 
 
 def _nvcc():
@@ -56,17 +58,36 @@ def build():
     path = library_path()
     if path.exists():
         return path, 0.0, ""
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    objs = BUILD / f"{path.stem}.{os.getpid()}.objs"
+    objs.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = objs / f"{src.stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{obj.stem}.cu ({proc.returncode})")
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                           + "".join(log))
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+         *[str(obj) for obj, _ in jobs]],
+        capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stderr}")
     os.replace(tmp, path)
-    return path, seconds, proc.stderr
+    shutil.rmtree(objs)
+    return path, time.perf_counter() - t0, "".join(log)
 
 
 @functools.lru_cache(maxsize=1)

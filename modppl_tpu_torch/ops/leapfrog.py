@@ -1,0 +1,229 @@
+"""Whole-phase HMC chunks for quadratic targets at d >= 13: kernels 6 and 7.
+
+Counterpart of modppl_tpu/ops/leapfrog_pallas.py. The target is
+logp(u) = b.u - u.Λu/2 (+ const), so grad = b - uΛ. The CUDA kernels are in
+csrc/hmc_chunk.cu; its header says what bounds them and how they are laid
+out. Both follow the reference kernels' arithmetic: per-coordinate
+energies e = -u(b+g)/2 + im p^2/2, dH the sum of the finite (e0 - e1)
+terms (any non-finite term marks the chain divergent), logp = u.(b+g)/2,
+and the gradient's input clamped to +-1e30.
+
+- ``sample_chunk(u, mom, epsj, u01, lam, b, inv_mass, num_steps)``: the
+  whole sampling phase from pre-drawn momenta (already scaled by
+  1/sqrt(inv_mass)), jittered step sizes and accept uniforms. Returns us
+  (T, N, d), logp, aprob (T, N) and divergent (T, N) bool.
+- ``warmup_chunk(u0s, z, jit, u01, lam, b, eps0, num_steps,
+  target_accept)``: the whole pooled windowed warmup from pre-drawn
+  standard normals, jitters and uniforms; (us (N, d), eps (), inv_mass (d,)).
+
+Each runs its kernel on CUDA tensors (float32) and its plain PyTorch version
+on CPU tensors. The plain versions take the kernels' arithmetic order: each
+gradient entry is a ``torch.addcmul`` chain over k (one fused multiply-add
+per term on the card, as the kernels' FFMA chain), and sums over a chain's
+coordinates are the adjacent-pairing tree (``_tree_sum``). No matmul runs,
+so TF32 settings cannot touch them. ``<wrapper>.launches`` counts kernel
+launches. ``hmc_sample_chunk`` and
+``hmc_warmup_chunk`` are the reference's key-taking entries.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from modppl_tpu_torch.inference.adaptation import _tree_sum
+from modppl_tpu_torch.ops._hmc_common import (
+    accept_prob,
+    check_f32,
+    check_quadratic,
+    check_streams,
+    launch,
+    phase_draws,
+    require,
+    sample_plain,
+    schedule_arrays,
+    warmup_plain,
+)
+
+# shared memory a block may take on an H100 (227 KB), less room for the
+# kernels' static shared variables
+MAX_SMEM = 232448 - 1024
+CHAIN_TILES = (32, 16, 8, 4)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SAMPLE_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                _P, _P, _P, _P, _P)
+_WARMUP_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
+                _I, _P, _P, _I, _P, _P, _P)
+
+
+def smem_bytes(d, tile):
+    """Dynamic shared memory of a CTA holding Λ and ``tile`` chains
+    (csrc/hmc_chunk.cu:tile_floats)."""
+    dp = -(-d // 4) * 4
+    return 4 * (dp * dp + 6 * dp + 1 + 7 * tile * dp + 6 * tile)
+
+
+def chain_tile(d):
+    """The most chains per CTA (of CHAIN_TILES) whose tiles fit beside Λ in
+    shared memory; raises above the largest d that fits (224)."""
+    for tile in CHAIN_TILES:
+        if smem_bytes(d, tile) <= MAX_SMEM:
+            return tile
+    raise ValueError(f"hmc chunk kernels: d={d} does not fit in shared "
+                     f"memory ({MAX_SMEM} bytes a block); the largest d is "
+                     f"224")
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def quadratic_logp(u, lam, b):
+    """logp(u) = -1/2 u.Λu + b.u, batched over rows of u."""
+    return -0.5 * torch.sum(u * (u @ lam), dim=-1) + u @ b
+
+
+def _grad(u, lam, b):
+    """b - clip(u) Λ, each entry one multiply-add chain over k in order."""
+    uc = torch.clamp(u, -1e30, 1e30)
+    acc = uc[:, 0:1] * lam[0]
+    for k in range(1, u.shape[1]):
+        acc = torch.addcmul(acc, uc[:, k:k + 1], lam[k])
+    return b - acc
+
+
+def _coord_sum(x):
+    """(N, d) -> (N,): the adjacent-pairing tree over the coordinates."""
+    return _tree_sum(x.T)
+
+
+def _energy(u, g, p, b, im):
+    """-logp + kinetic, per coordinate."""
+    return (-0.5 * u) * (b + g) + ((0.5 * im) * p) * p
+
+
+def transition_plain(u0, p0, eps, u01, lam, b, im, num_steps):
+    """One HMC transition of every chain: u0, p0 (N, d); eps, u01 (N,).
+    Returns (u_out, logp_out, aprob, divergent), u_out post-accept."""
+    e = eps[:, None]
+    g0 = _grad(u0, lam, b)
+    e0 = _energy(u0, g0, p0, b, im)
+    u, p, g = u0, p0, g0
+    for _ in range(num_steps):
+        p = p + (0.5 * e) * g
+        u = u + (e * im) * p
+        g = _grad(u, lam, b)
+        p = p + (0.5 * e) * g
+    e_diff = e0 - _energy(u, g, p, b, im)
+    fin = torch.isfinite(e_diff)
+    dh = _coord_sum(torch.where(fin, e_diff, 0.0))
+    aprob, div = accept_prob(dh)
+    div = div | ~fin.all(dim=1)
+    aprob = torch.where(div, 0.0, aprob)
+    acc = u01 < aprob
+    u_out = torch.where(acc[:, None], u, u0)
+    lp_elem = 0.5 * torch.where(acc[:, None], u * (b + g), u0 * (b + g0))
+    lp = _coord_sum(torch.where(torch.isfinite(lp_elem), lp_elem, 0.0))
+    return u_out, lp, aprob, div
+
+
+# plain versions of ``sample_chunk`` and ``warmup_chunk``
+sample_chunk_plain = functools.partial(sample_plain, transition_plain)
+warmup_chunk_plain = functools.partial(warmup_plain, transition_plain)
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+def sample_chunk(u, mom, epsj, u01, lam, b, inv_mass, num_steps):
+    """(us (T, N, d), logp (T, N), aprob (T, N), divergent (T, N) bool)."""
+    if u.device.type == "cpu":
+        return sample_chunk_plain(u, mom, epsj, u01, lam, b, inv_mass,
+                                  num_steps)
+    name = "hmc_sample_chunk"
+    n, d = u.shape
+    num = mom.shape[0]
+    tile = chain_tile(d)
+    check_quadratic(name, n, d, u.device, d, lam=lam, b=b, inv_mass=inv_mass)
+    check_f32(name, u.device, u=u, mom=mom, epsj=epsj, u01=u01)
+    check_streams(name, num, n, d, mom, epsj, u01)
+    require(num_steps >= 0, name, "num_steps >= 0")
+    us = torch.empty(num, n, d, dtype=torch.float32, device=u.device)
+    lps = torch.empty(num, n, dtype=torch.float32, device=u.device)
+    aps = torch.empty_like(lps)
+    dvs = torch.empty(num, n, dtype=torch.bool, device=u.device)
+    launch("modppl_hmc_sample_chunk_f32", _SAMPLE_ARGS, name, u.device,
+           u.data_ptr(), mom.data_ptr(), epsj.data_ptr(), u01.data_ptr(),
+           lam.data_ptr(), b.data_ptr(), inv_mass.data_ptr(), n, d, num,
+           num_steps, tile, us.data_ptr(), lps.data_ptr(), aps.data_ptr(),
+           dvs.data_ptr())
+    sample_chunk.launches += 1
+    return us, lps, aps, dvs
+
+
+def warmup_chunk(u0s, z, jit, u01, lam, b, eps0, num_steps,
+                 target_accept=0.8):
+    """(us (N, d), eps (), inv_mass (d,)) after the whole pooled warmup."""
+    if u0s.device.type == "cpu":
+        return warmup_chunk_plain(u0s, z, jit, u01, lam, b, eps0, num_steps,
+                                  target_accept)
+    name = "hmc_warmup_chunk"
+    n, d = u0s.shape
+    num = z.shape[0]
+    tile = chain_tile(d)
+    check_quadratic(name, n, d, u0s.device, d, lam=lam, b=b)
+    check_f32(name, u0s.device, u0s=u0s, z=z, jit=jit, u01=u01)
+    check_streams(name, num, n, d, z, jit, u01)
+    require(num_steps >= 0 and eps0 > 0, name, "num_steps >= 0, eps0 > 0")
+    ntiles = -(-n // tile)
+    ptiles = 1 << (ntiles - 1).bit_length()
+    dp = -(-d // 4) * 4
+    require(ptiles <= 5 * tile * dp, name,
+            f"at most {5 * tile * dp * tile} chains at d={d}")
+    sch, nwin = schedule_arrays(num, u0s.device)
+    us = u0s.clone()
+    part = torch.zeros(2, 1 + 2 * d, ptiles, dtype=torch.float32,
+                       device=u0s.device)
+    eps = torch.empty((), dtype=torch.float32, device=u0s.device)
+    im = torch.empty(d, dtype=torch.float32, device=u0s.device)
+    launch("modppl_hmc_warmup_chunk_f32", _WARMUP_ARGS, name, u0s.device,
+           us.data_ptr(), z.data_ptr(), jit.data_ptr(), u01.data_ptr(),
+           lam.data_ptr(), b.data_ptr(), n, d, num, num_steps, float(eps0),
+           float(10.0 * eps0), float(target_accept), nwin, sch.data_ptr(),
+           part.data_ptr(), tile, eps.data_ptr(), im.data_ptr())
+    warmup_chunk.launches += 1
+    return us, eps, im
+
+
+sample_chunk.launches = 0
+warmup_chunk.launches = 0
+
+
+# --------------------------------------------------------------------------
+# key-taking entries (the reference's API)
+# --------------------------------------------------------------------------
+
+def hmc_sample_chunk(key, u, eps, lam, b, inv_mass, num_samples, num_steps,
+                     draws=None):
+    """``num_samples`` transitions in one launch; momenta z / sqrt(inv_mass),
+    step sizes eps * jitter. ``draws`` = (z, jit, u01) replaces the streams
+    drawn from ``key``. Returns (us (T, N, d), logps, aprobs, divs (T, N))."""
+    n, d = u.shape
+    z, jit, u01 = draws if draws is not None else phase_draws(
+        key, num_samples, n, d, u.dtype, u.device)
+    return sample_chunk(u, z / torch.sqrt(inv_mass), eps * jit, u01, lam, b,
+                        inv_mass, num_steps)
+
+
+def hmc_warmup_chunk(key, u0s, eps0, lam, b, num_warmup, num_steps,
+                     target_accept=0.8, draws=None):
+    """The whole pooled warmup in one launch; (us, eps, inv_mass)."""
+    n, d = u0s.shape
+    z, jit, u01 = draws if draws is not None else phase_draws(
+        key, num_warmup, n, d, u0s.dtype, u0s.device)
+    return warmup_chunk(u0s, z, jit, u01, lam, b, eps0, num_steps,
+                        target_accept)

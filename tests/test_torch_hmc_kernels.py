@@ -1,0 +1,205 @@
+"""HMC chunk kernels' plain versions, port vs reference (CPU).
+
+The reference's Pallas chunk kernels run in interpret mode, as their own
+tests run them. The port is fed the reference's own random streams: each
+JAX wrapper draws momenta, step-size jitters and accept uniforms from
+``jax.random.split(key, 3)``; the tests draw them the same way and hand them
+to the port's ``draws=`` entries. On CPU tensors the port's wrappers run
+their plain versions. Everything runs in float64, so both sides agree to
+1e-9 and make the same accept decisions.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from modppl_tpu.inference.hmc import _quadratic_chains as j_quadratic_chains
+from modppl_tpu.ops import leapfrog_pallas as jmxu
+from modppl_tpu.ops import leapfrog_vpu_pallas as jvpu
+from modppl_tpu_torch.inference.hmc import _quadratic_chains
+from modppl_tpu_torch.interop import phase_streams, quadratic_from_numpy, tensor
+from modppl_tpu_torch.ops import leapfrog, leapfrog_small
+
+TOL = dict(rtol=1e-9, atol=1e-9)
+
+
+def _target(d, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((d, d)) * 0.3
+    lam = a @ a.T + np.eye(d)
+    b = rng.standard_normal(d)
+    return lam, b, rng
+
+
+def _jax_draws(key, num, n, d, small):
+    """The reference wrappers' streams: split(key, 3) -> momenta, jitter,
+    accept uniforms; the d <= 12 wrappers draw the latter two as
+    (T, n, 1)."""
+    k_mom, k_jit, k_acc = jax.random.split(key, 3)
+    shape = (num, n, 1) if small else (num, n)
+    z = jax.random.normal(k_mom, (num, n, d), jnp.float64)
+    jit = jax.random.uniform(k_jit, shape, jnp.float64, minval=0.5,
+                             maxval=1.5)
+    u01 = jax.random.uniform(k_acc, shape, jnp.float64)
+    return phase_streams(np.asarray(z), np.asarray(jit), np.asarray(u01))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("d", [3, 10])
+def test_sample_chunk_small_matches_reference(d):
+    lam, b, rng = _target(d, d)
+    n, T, L = 200, 6, 5
+    u0 = rng.standard_normal((n, d)) * 0.5
+    im = 0.5 + rng.random(d)
+    key = jax.random.PRNGKey(d)
+    j_us, j_lp, j_ap, j_dv, j_uf = jvpu.hmc_sample_chunk_small(
+        key, jnp.asarray(u0), jnp.asarray(0.3), jnp.asarray(lam),
+        jnp.asarray(b), jnp.asarray(im), T, L, interpret=True)
+    lam_t, b_t = quadratic_from_numpy(lam, b)
+    us, lp, ap, dv, uf = leapfrog_small.hmc_sample_chunk_small(
+        None, tensor(u0), torch.tensor(0.3, dtype=torch.float64), lam_t, b_t,
+        tensor(im), T, L, draws=_jax_draws(key, T, n, d, small=True))
+    for got, want in ((us, j_us), (lp, j_lp), (ap, j_ap), (uf, j_uf)):
+        _close(got, want)
+    np.testing.assert_array_equal(dv.numpy(), np.asarray(j_dv))
+    # the accept decisions: a chain moved iff the reference's moved
+    prev = np.concatenate([u0[None], np.asarray(j_us)[:-1]])
+    moved_ref = np.any(np.asarray(j_us) != prev, axis=-1)
+    moved = np.any(us.numpy() != np.concatenate(
+        [u0[None], us.numpy()[:-1]]), axis=-1)
+    np.testing.assert_array_equal(moved, moved_ref)
+    assert 0 < moved.mean() < 1
+
+
+def test_warmup_chunk_small_matches_reference():
+    """T = 100: the schedule (15, [25, 50], 10) fires both slow windows'
+    ends, and the Welford passes run for 75 iterations."""
+    d, n, T, L = 3, 256, 100, 4
+    lam, b, rng = _target(d, 11)
+    u0 = rng.standard_normal((n, d))
+    key = jax.random.PRNGKey(5)
+    j_us, j_eps, j_im = jvpu.hmc_warmup_chunk_small(
+        key, jnp.asarray(u0), 0.2, jnp.asarray(lam), jnp.asarray(b), T, L,
+        interpret=True)
+    lam_t, b_t = quadratic_from_numpy(lam, b)
+    us, eps, im = leapfrog_small.hmc_warmup_chunk_small(
+        None, tensor(u0), 0.2, lam_t, b_t, T, L,
+        draws=_jax_draws(key, T, n, d, small=True))
+    _close(us, j_us)
+    _close(eps, j_eps)
+    _close(im, j_im)
+    assert not np.allclose(im.numpy(), 1.0)   # the windows' ends fired
+
+
+@pytest.mark.parametrize("d,n", [(13, 37), (20, 10), (64, 9), (70, 5)])
+def test_sample_chunk_matches_reference(d, n):
+    lam, b, rng = _target(d, d)
+    T, L = 4, 3
+    u0 = rng.standard_normal((n, d)) * 0.3
+    im = 1.0 + rng.random(d)
+    key = jax.random.PRNGKey(42)
+    j_us, j_lp, j_ap, j_dv = jmxu.hmc_sample_chunk(
+        key, jnp.asarray(u0), 0.1, jnp.asarray(lam), jnp.asarray(b),
+        jnp.asarray(im), T, L, interpret=True)
+    lam_t, b_t = quadratic_from_numpy(lam, b)
+    us, lp, ap, dv = leapfrog.hmc_sample_chunk(
+        None, tensor(u0), 0.1, lam_t, b_t, tensor(im), T, L,
+        draws=_jax_draws(key, T, n, d, small=False))
+    for got, want in ((us, j_us), (lp, j_lp), (ap, j_ap)):
+        _close(got, want)
+    np.testing.assert_array_equal(dv.numpy(), np.asarray(j_dv))
+    u01 = _jax_draws(key, T, n, d, small=False)[2].numpy()
+    np.testing.assert_array_equal(u01 < ap.numpy(), u01 < np.asarray(j_ap))
+
+
+def test_warmup_chunk_matches_reference():
+    d, n, T, L = 24, 64, 60, 4
+    var = np.geomspace(0.1, 10.0, d)
+    lam = np.diag(1.0 / var)
+    b = np.zeros(d)
+    u0 = np.random.default_rng(1).standard_normal((n, d)) * np.sqrt(var)
+    key = jax.random.PRNGKey(7)
+    j_us, j_eps, j_im = jmxu.hmc_warmup_chunk(
+        key, jnp.asarray(u0), 0.5, jnp.asarray(lam), jnp.asarray(b), T, L,
+        interpret=True)
+    lam_t, b_t = quadratic_from_numpy(lam, b)
+    us, eps, im = leapfrog.hmc_warmup_chunk(
+        None, tensor(u0), 0.5, lam_t, b_t, T, L,
+        draws=_jax_draws(key, T, n, d, small=False))
+    _close(us, j_us)
+    _close(eps, j_eps)
+    _close(im, j_im)
+
+
+@pytest.mark.parametrize("d", [3, 16])
+def test_quadratic_chains_replay_reference(d):
+    """The whole fused path, warmup then sampling, on the reference's
+    draws: warmup streams from fold_in(key, 0), sampling from
+    fold_in(key, 2)."""
+    lam, b, rng = _target(d, 100 + d)
+    n, W, S, L = 40, 30, 8, 4
+    u0 = rng.standard_normal((n, d))
+    key = jax.random.PRNGKey(d)
+    want = j_quadratic_chains(key, jnp.asarray(lam), jnp.asarray(b),
+                              jnp.asarray(u0), W, S, 0.1, L, 0.8,
+                              interpret=True)
+    small = d < 13
+    draws = (_jax_draws(jax.random.fold_in(key, 0), W, n, d, small),
+             _jax_draws(jax.random.fold_in(key, 2), S, n, d, small))
+    lam_t, b_t = quadratic_from_numpy(lam, b)
+    got = _quadratic_chains(0, lam_t, b_t, tensor(u0), W, S, 0.1, L, 0.8,
+                            draws=draws)
+    for i in (0, 1, 2, 4, 5):   # us, logp, aprob, eps, inv_mass
+        _close(got[i], want[i])
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+
+
+def test_divergent_chain_leaves_others_bitwise_unchanged():
+    """Chain 0's energy overflows float32: it is flagged divergent and held
+    at its start, and every other chain's results are bitwise those of the
+    run without it (tests/test_leapfrog_pallas.py:560-593)."""
+    rng = np.random.default_rng(0)
+    d, n, T, L = 20, 8, 3, 4
+    a = rng.standard_normal((d, d)) * 0.2
+    lam = torch.tensor(a @ a.T + np.eye(d), dtype=torch.float32)
+    b = torch.zeros(d)
+    im = torch.ones(d)
+    u_ok = torch.tensor(rng.standard_normal((n, d)) * 0.5,
+                        dtype=torch.float32)
+    u_bad = u_ok.clone()
+    u_bad[0] = 1e20
+    draws = leapfrog_small.phase_draws(3, T, n, d, torch.float32, "cpu")
+    ok = leapfrog.hmc_sample_chunk(None, u_ok, 0.1, lam, b, im, T, L,
+                                   draws=draws)
+    bad = leapfrog.hmc_sample_chunk(None, u_bad, 0.1, lam, b, im, T, L,
+                                    draws=draws)
+    assert bool(bad[3][:, 0].any())
+    assert bool(torch.isfinite(bad[0][:, 0]).all())
+    for x_ok, x_bad in zip(ok, bad):
+        assert torch.equal(x_ok[:, 1:], x_bad[:, 1:])
+
+
+def test_chain_tile_and_shared_memory_limit():
+    """The d >= 13 kernels hold Λ and a chain tile in shared memory: 32
+    chains to d = 128, fewer above, and a clear error past d = 224."""
+    assert leapfrog.chain_tile(128) == 32
+    assert leapfrog.chain_tile(160) == 16
+    assert leapfrog.smem_bytes(160, 16) <= leapfrog.MAX_SMEM
+    assert leapfrog.chain_tile(224) == 4
+    with pytest.raises(ValueError, match="shared memory"):
+        leapfrog.chain_tile(232)
+
+
+@pytest.mark.parametrize("d", [5, 40])
+def test_quadratic_logp_matches_reference(d):
+    lam, b, rng = _target(d, 200 + d)
+    u = rng.standard_normal((7, d))
+    np.testing.assert_allclose(
+        leapfrog.quadratic_logp(tensor(u), tensor(lam), tensor(b)).numpy(),
+        np.asarray(jmxu.quadratic_logp(jnp.asarray(u), jnp.asarray(lam),
+                                       jnp.asarray(b))), **TOL)
