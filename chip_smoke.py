@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Two paths, each driven with its kernels' launch counters set to 0 just
+Five paths, each driven with its kernels' launch counters set to 0 just
 before it and read just after:
 
 - the spiral-tracking bootstrap particle filter
@@ -14,7 +14,17 @@ before it and read just after:
   ``inference/hmc.hmc_runner(device="cuda")``, the reference's two legs at
   full width (``LEGS``): the whole warmup and the whole sampling phase are
   one launch each of the d <= 12 (hierarchical, d = 3) or d >= 13
-  (ill-conditioned Gaussian, d = 128) chunk kernels.
+  (ill-conditioned Gaussian, d = 128) chunk kernels;
+- the 3-state HMM of the reference's SMC gate through
+  ``inference/vsmc.batched_particle_filter`` at N = 2^20, T = 10, float32
+  weights and an int32 state, which no fused gather takes: each of the 9
+  steps resamples through S -> ``grid_rank`` (kernel 4) -> a gather;
+- the spiral through the same ``vsmc`` filter, whose float32 state takes
+  the fused arm (kernel 3, 9 launches);
+- fixed-step HMC, ``ops/leapfrog.hmc_quadratic``, on both HMC legs' targets
+  after their warmup, at the adapted step size and inverse mass: one launch
+  per transition of ``hmc_transition_small`` (d = 3, 500 transitions) or
+  ``fused_leapfrog`` (d = 128, 256 transitions).
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -45,12 +55,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    posterior moments within the reference tests' bounds;
 8. times each leg (median of 3 after a warm-up; min-coordinate ESS/s and
    transitions/s) and each HMC kernel against its plain version at the
-   leg's shapes.
+   leg's shapes;
+9. holds the three slice-3 kernels against their plain versions on the
+   card: ``grid_rank`` bitwise at N = 2^20, 2^16 and 100003 with the three
+   weight kinds, ``hmc_transition_small`` bitwise on all seven outputs at
+   d = 3 and 7 (10^4 chains), ``fused_leapfrog`` within POS_TOL at
+   d = 8, 64, 128 (one call of 32 steps; bitwise reported); each twice;
+10. runs the HMM leg with the counters at 0 and requires 9 launches of
+    ``grid_rank`` and none of kernel 3, a log-ML within 0.03 of the exact
+    forward algorithm's, sorted ancestors, and every output bitwise equal
+    to the same filter through ``grid_rank``'s plain version; an
+    ``ess_threshold = 0.5`` run must skip at least one resample;
+11. runs the spiral through ``vsmc`` (9 launches of kernel 3, none of
+    ``grid_rank``), then ``hmc_quadratic`` on both legs (500 and 256
+    launches, posterior within the bounds of phase 7, no divergence at
+    d = 3);
+12. times the HMM leg (median of 5), each ``hmc_quadratic`` leg (median of
+    3) and the three new kernels against their plain versions, bounds and
+    (``grid_rank``) ``torch.searchsorted``.
 
-``--profile`` adds a torch.profiler breakdown by kernel of one filter run
-and one run of each HMC leg. The last three lines are the kernels' JSON
-record, the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": ...}``.
+``--profile`` adds a torch.profiler breakdown by kernel of one run of each
+path. The last three lines are the kernels' JSON record, the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
 import contextlib
@@ -300,8 +326,15 @@ def time_filter(n=N, runs=5):
     return statistics.median(times), times
 
 
+# GPU clock cycles the card sleeps before each timed launch (~1 ms)
+SLEEP_CYCLES = 2_000_000
+
+
 def time_ms(fn, reps=20, warmup=3):
-    """Median device ms of ``fn`` with L2 flushed before each launch."""
+    """Median device ms of ``fn`` with L2 flushed before each launch. The
+    card sleeps after the flush, so the host has queued ``fn``'s launches
+    before the start event runs: the time is the device's, not the
+    wrapper's Python (which a small kernel would otherwise wait for)."""
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -309,6 +342,7 @@ def time_ms(fn, reps=20, warmup=3):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     for i in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
@@ -642,7 +676,13 @@ def check_leg(name, out):
     us = out["unconstrained"].double().cpu().numpy()
     if not np.isfinite(us).all():
         raise AssertionError(f"{name}: non-finite draws")
-    flat = us.reshape(-1, us.shape[-1])
+    if not posterior_ok(name, us.reshape(-1, us.shape[-1])):
+        raise AssertionError(f"{name}: posterior moments out of bounds")
+
+
+def posterior_ok(name, flat):
+    """The draws ``flat`` (draws, d) within the reference tests' bounds of
+    the leg's exact posterior."""
     if name == "hierarchical":
         from modppl_tpu_torch.models.hierarchical_static import (
             exact_hierarchical_posterior,
@@ -659,8 +699,7 @@ def check_leg(name, out):
         var = np.diag(illcond_cov(128, 1e4)).astype(np.float64)
         ok = (np.abs(flat.mean(0)).max() <= 0.05
               and np.abs(flat.var(0) / var - 1).max() <= 0.15)
-    if not ok:
-        raise AssertionError(f"{name}: posterior moments out of bounds")
+    return bool(ok)
 
 
 def check_hmc_main_path(device="cuda"):
@@ -781,6 +820,379 @@ def time_hmc_kernels():
     return out
 
 
+# --------------------------------------------------------------------------
+# slice 3: the HMM filter through grid_rank, fixed-step quadratic HMC
+# --------------------------------------------------------------------------
+
+# the reference's quantitative SMC gate (tests/test_vsmc.py:29-40) at the
+# headline width: 2^20 particles, T = 10 observations drawn from the HMM
+HMM_PRIOR = (0.2, 0.3, 0.5)
+HMM_EMISSION = ((0.1, 0.2, 0.7), (0.2, 0.7, 0.1), (0.7, 0.2, 0.1))  # .T
+HMM_TRANSITION = ((0.4, 0.4, 0.2), (0.2, 0.3, 0.5), (0.9, 0.05, 0.05))  # .T
+HMM_LOG_ML_GAP = 0.03
+HMM_ADAPTIVE_GAP = 0.05
+# grid_rank's bitwise checks; 100003 is not a multiple of 1024
+RANK_SIZES = (1 << 20, 1 << 16, 100_003)
+# hmc_quadratic on each leg's target, after its hmc_runner warmup: the
+# kernel each transition launches
+QUAD_KERNEL = {"hierarchical": "hmc_transition_small",
+               "illcond": "fused_leapfrog"}
+# hmc_transition_small's bitwise checks: (d, chains)
+TRANSITION_CASES = ((3, 10_000), (7, 10_000))
+# fused_leapfrog vs its plain version, one call of L = 32 steps each, every
+# output within POS_TOL * (1 + |y|) (also reported as bitwise or not)
+LEAPFROG_DIMS = ((8, 4096), (64, 4096), (128, 4096))
+
+
+def hmm_arrays():
+    """(prior, emission, transition) as float64 numpy arrays in the
+    reference's conventions: emission[obs, state], transition[new, prev]."""
+    return (np.array(HMM_PRIOR), np.array(HMM_EMISSION).T,
+            np.array(HMM_TRANSITION).T)
+
+
+def hmm_observations(num_steps, seed=0):
+    """T observations drawn from the HMM with numpy.random.default_rng."""
+    prior, emission, transition = hmm_arrays()
+    rng = np.random.default_rng(seed)
+    z, obs = rng.choice(3, p=prior), []
+    for _ in range(num_steps):
+        obs.append(int(rng.choice(3, p=emission[:, z])))
+        z = rng.choice(3, p=transition[:, z])
+    return obs
+
+
+def run_hmm(device, n, seed, ess_threshold=1.0):
+    """The HMM leg: vsmc.batched_particle_filter, systematic resampling,
+    float32 weights and an int32 state, on ``device``."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.vsmc import batched_particle_filter
+    from modppl_tpu_torch.interop import hmm_params_from_numpy
+    from modppl_tpu_torch.models.hmm import hmm_scan_kernel
+
+    params = hmm_params_from_numpy(*(a.astype(np.float32)
+                                     for a in hmm_arrays()), device=device)
+    obs = torch.tensor(hmm_observations(T), dtype=torch.int32, device=device)
+    return batched_particle_filter(
+        seed, hmm_scan_kernel(params),
+        torch.zeros((), dtype=torch.float32, device=device),
+        Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}), n,
+        resampling="systematic", ess_threshold=ess_threshold, auto_batch=True)
+
+
+def run_spiral_vsmc(device, n, seed):
+    """The spiral through vsmc.batched_particle_filter (not the sharded
+    filter): a float32 state of two columns takes kernel 3."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.vsmc import batched_particle_filter
+    from modppl_tpu_torch.models.spiral import (
+        circle_observations,
+        spiral_scan_kernel,
+    )
+
+    obs = torch.tensor(circle_observations(T), dtype=torch.float32,
+                       device=device)
+    return batched_particle_filter(
+        seed, spiral_scan_kernel(), torch.zeros(2, dtype=torch.float32,
+                                                device=device),
+        Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}), n,
+        auto_batch=True)
+
+
+def all_wrappers():
+    from modppl_tpu_torch.ops import leapfrog, leapfrog_small, resample
+
+    fns = {**wrappers(), **hmc_wrappers()}
+    fns.update({"grid_rank": resample.grid_rank,
+                "fused_leapfrog": leapfrog.fused_leapfrog,
+                "hmc_transition_small": leapfrog_small.hmc_transition_small})
+    return fns
+
+
+def counted(fn):
+    """Run ``fn`` with every kernel's launch counter at 0 just before it;
+    returns (its result, the launches by kernel) read just after it."""
+    fns = all_wrappers()
+    for f in fns.values():
+        f.launches = 0
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in fns.items()}
+
+
+def require_launches(what, launches, want):
+    """Every kernel launched exactly ``want.get(name, 0)`` times."""
+    for k, c in launches.items():
+        if c != want.get(k, 0):
+            raise AssertionError(f"{what}: {k} launched {c} times, expected "
+                                 f"{want.get(k, 0)}")
+
+
+@contextlib.contextmanager
+def plain_grid_rank():
+    """grid_rank's plain version in the kernel's place on the card."""
+    from modppl_tpu_torch.ops import resample
+
+    saved = resample.grid_rank
+    resample.grid_rank = resample.grid_rank_plain
+    try:
+        yield
+    finally:
+        resample.grid_rank = saved
+
+
+def check_slice3_kernels(device):
+    """Phase (a): the three new kernels against their plain versions on the
+    card, each run twice (bitwise equal)."""
+    from modppl_tpu_torch.ops import leapfrog as lf
+    from modppl_tpu_torch.ops import leapfrog_small as lfs
+    from modppl_tpu_torch.ops import resample as rs
+    from modppl_tpu_torch.utils.numerics import logsumexp, normalized_cdf
+
+    errs, f32 = Errors(), torch.float32
+    for n in RANK_SIZES:
+        for seed, kind in enumerate(KINDS):
+            lw = make_lw(kind, n, seed, device)
+            cdf = normalized_cdf(lw - logsumexp(lw))
+            s = rs.slot_positions(cdf, torch.tensor(0.37, device=device), n)
+            got = _twice("grid_rank", lambda: (rs.grid_rank(s, n),))[0]
+            errs.same("grid_rank", f"parents (N={n}, {kind})", got,
+                      rs.grid_rank_plain(s, n))
+            if kind == "degenerate" and int(got.unique().numel()) != 1:
+                raise AssertionError("grid_rank: degenerate weights, expected "
+                                     "a single ancestor")
+        sync(device)
+    for d, n in TRANSITION_CASES:
+        lam, b, im, u0 = quad_problem(d, n, 30 + d, device)
+        z, jit, u01 = lfs.phase_draws(40 + d, 1, n, d, f32, device)
+        args = (u0, z[0] / torch.sqrt(im), 0.3 * jit[0], u01[0], lam, b, im, 8)
+        got = _twice("hmc_transition_small",
+                     lambda: _flat(lfs.hmc_transition_small(*args)))
+        want = _flat(lfs.transition_small_plain(*args))
+        for what, x, y in zip(("u_out", "p_end", "logp", "aprob", "divergent",
+                               "h0", "h1"), got, want):
+            errs.same("hmc_transition_small", f"{what} (d={d}, N={n})", x, y)
+        sync(device)
+    bitwise = {}
+    with full_fp32():
+        for d, n in LEAPFROG_DIMS:
+            lam, b, im, u0 = quad_problem(d, n, 50 + d, device)
+            z, jit, _ = lfs.phase_draws(60 + d, 1, n, d, f32, device)
+            args = (u0, z[0] / torch.sqrt(im), 0.1 * jit[0], lam, b, im, 32)
+            got = _twice("fused_leapfrog", lambda: lf.fused_leapfrog(*args))
+            want = lf.fused_leapfrog_plain(*args)
+            bitwise[d] = all(torch.equal(x, y) for x, y in zip(got, want))
+            for what, x, y in zip(("u_L", "p_L"), got, want):
+                if not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"fused_leapfrog: non-finite {what}")
+                hold_close(errs, "fused_leapfrog", f"{what} (d={d})", x, y,
+                           POS_TOL)
+            sync(device)
+    return errs.max, bitwise
+
+
+def _flat(out):
+    (u, p), *rest = out
+    return (u, p, *rest)
+
+
+def check_hmm_leg(device="cuda", n=N):
+    """Phase (b): the HMM leg with the counters at 0: 9 launches of
+    grid_rank and none of kernel 3, the log-ML within HMM_LOG_ML_GAP of the
+    exact one, sorted ancestors, bitwise equal to the same filter through
+    grid_rank's plain version; an ess_threshold = 0.5 run that skips at
+    least one resample."""
+    from modppl_tpu_torch.models.hmm import hmm_forward_log_ml
+
+    exact = float(hmm_forward_log_ml(*hmm_arrays(), hmm_observations(T)))
+    out, launches = counted(lambda: run_hmm(device, n, 13))
+    require_launches("HMM leg", launches, {"grid_rank": T - 1})
+    log_ml = float(out["log_ml"])
+    if not math.isfinite(log_ml) or abs(log_ml - exact) > HMM_LOG_ML_GAP:
+        raise AssertionError(f"HMM leg: log_ml {log_ml} vs exact {exact}")
+    anc = out["ancestors"]
+    if anc.shape != (T - 1, n) or bool((anc[:, 1:] < anc[:, :-1]).any()):
+        raise AssertionError("HMM leg: expected sorted (T-1, N) ancestors")
+    if out["state"].dtype != torch.int32 or out["log_weights"].shape != (n,):
+        raise AssertionError("HMM leg: expected an int32 state and (N,) "
+                             "weights")
+    with plain_grid_rank():
+        plain = run_hmm(device, n, 13)
+    for what in ("log_ml", "ancestors", "state", "log_weights", "ess",
+                 "resampled"):
+        if not torch.equal(out[what], plain[what]):
+            raise AssertionError(f"HMM leg: {what} differs from the same "
+                                 f"filter through grid_rank's plain version")
+    adaptive = run_hmm(device, n, 14, ess_threshold=0.5)
+    skipped = int((~adaptive["resampled"]).sum())
+    gap_adaptive = abs(float(adaptive["log_ml"]) - exact)
+    if skipped < 1 or gap_adaptive > HMM_ADAPTIVE_GAP:
+        raise AssertionError(f"HMM leg, ess_threshold 0.5: {skipped} skipped "
+                             f"resamples, log_ml gap {gap_adaptive}")
+    return launches["grid_rank"], {"log_ml": log_ml, "exact": exact,
+                                   "skipped": skipped,
+                                   "gap_adaptive": gap_adaptive}
+
+
+def check_spiral_vsmc(device="cuda", n=N):
+    """Phase (c): the spiral's float32 state takes the fused arm: 9
+    launches of kernel 3, none of grid_rank."""
+    out, launches = counted(lambda: run_spiral_vsmc(device, n, 15))
+    require_launches("spiral via vsmc", launches,
+                     {"resample_fused_from_s": T - 1})
+    if not math.isfinite(float(out["log_ml"])):
+        raise AssertionError("spiral via vsmc: log_ml is not finite")
+    return float(out["log_ml"])
+
+
+def quad_leg(name, device="cuda"):
+    """A leg's target after its hmc_runner warmup: (u0 = the last draws,
+    Λ, b, the adapted inverse mass and step size)."""
+    run = make_leg(name, device)
+    out = run(0)
+    lam, b = run.quadratic
+    return (out["unconstrained"][:, -1, :].contiguous(), lam, b,
+            out["inv_mass"], out["step_size"])
+
+
+def run_quad(name, leg, key):
+    from modppl_tpu_torch.ops.leapfrog import hmc_quadratic
+
+    u0, lam, b, im, eps = leg
+    c = LEGS[name]
+    return hmc_quadratic(key, u0, lam, b, im, step_size=eps,
+                         num_samples=c["num_samples"],
+                         num_leapfrog=c["num_leapfrog"])
+
+
+def check_quad_legs(legs):
+    """Phase (d): hmc_quadratic on both legs with the counters at 0: one
+    launch of the leg's kernel per transition and no other; the posterior
+    within check_leg's bounds; no divergence at d = 3."""
+    launches = {}
+    for name, leg in legs.items():
+        with full_fp32():
+            out, counts = counted(lambda: run_quad(name, leg, 21))
+        num = LEGS[name]["num_samples"]
+        require_launches(f"hmc_quadratic {name}", counts,
+                         {QUAD_KERNEL[name]: num})
+        launches[QUAD_KERNEL[name]] = counts[QUAD_KERNEL[name]]
+        us = out["samples"].double().cpu().numpy()
+        if not np.isfinite(us).all() or not posterior_ok(
+                name, us.reshape(-1, us.shape[-1])):
+            raise AssertionError(f"hmc_quadratic {name}: posterior moments "
+                                 f"out of bounds")
+        if name == "hierarchical" and bool(out["divergences"].any()):
+            raise AssertionError("hmc_quadratic hierarchical: divergences")
+    return launches
+
+
+def time_quad(name, leg, reps=3):
+    """Median wall time of ``reps`` hmc_quadratic runs after a warm-up;
+    min-coordinate ESS of the last; (median s, times, ess_min, accept)."""
+    from modppl_tpu_torch.utils.diagnostics import ess_autocorr
+
+    with full_fp32():
+        run_quad(name, leg, 30)
+        torch.cuda.synchronize()
+        times = []
+        for i in range(reps):
+            t0 = time.perf_counter()
+            out = run_quad(name, leg, 31 + i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    us = out["samples"].transpose(0, 1).double().cpu().numpy()
+    ess = min(ess_autocorr(us[:, :, j]) for j in range(us.shape[-1]))
+    return (statistics.median(times), times, float(ess),
+            float(out["accept_prob"].mean()))
+
+
+def time_hmm(n=N, runs=5):
+    """Median seconds of one HMM filter on the card after a warm-up."""
+    run_hmm("cuda", n, 100)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_hmm("cuda", n, 101 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not math.isfinite(float(out["log_ml"])):
+            raise AssertionError("timed HMM run: log_ml is not finite")
+    return statistics.median(times), times
+
+
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the larger of bytes / 3.35 TB/s and
+    FP32 flops / 67 TFLOP/s."""
+    t_bytes, t_ops = nbytes / 3.35e12, flops / 67e12
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_slice3_kernels():
+    """(kernel ms, plain ms, library ms or None, bound ms, bound by) for the
+    three new kernels at their main paths' shapes, in turns (plain, kernel,
+    kernel, plain), each turn the median of CUDA-event launches with L2
+    flushed before each (time_ms): grid_rank at N = 2^20,
+    hmc_transition_small at the hierarchical leg's (10^4, 3) and L = 8,
+    fused_leapfrog at the ill-conditioned leg's (4096, 128) and L = 32. The
+    plain fused_leapfrog launches ~5000 small ops, so it gets one run a
+    turn. Bounds count each input read once and each output written once,
+    and the flops the function needs: per chain and transition (L + 1)
+    gradients of 2 d^2, the Hamiltonians at both ends (3 d^2 + 7 d each for
+    the single transition), 7 d per leapfrog step."""
+    from modppl_tpu_torch.ops import leapfrog as lf
+    from modppl_tpu_torch.ops import leapfrog_small as lfs
+    from modppl_tpu_torch.ops import resample as rs
+    from modppl_tpu_torch.utils.numerics import logsumexp, normalized_cdf
+
+    out = {}
+    lw = make_lw("uniform", N, 0, "cuda")
+    s = rs.slot_positions(normalized_cdf(lw - logsumexp(lw)),
+                          torch.tensor(0.37, device="cuda"), N)
+    slots = torch.arange(N, dtype=torch.int32, device="cuda")
+    cases = {"grid_rank": (lambda: rs.grid_rank(s, N),
+                           lambda: rs.grid_rank_plain(s, N),
+                           lambda: torch.searchsorted(s, slots, right=True),
+                           bound(8 * N, 0), 20)}
+    for name, (dim, n, L, kernel, plain) in {
+            "hmc_transition_small": (3, 10_000, 8, lfs.hmc_transition_small,
+                                     lfs.transition_small_plain),
+            "fused_leapfrog": (128, 4096, 32, lf.fused_leapfrog,
+                               lf.fused_leapfrog_plain)}.items():
+        lam, b, im, u0 = quad_problem(dim, n, 70, "cuda")
+        z, jit, u01 = lfs.phase_draws(71, 1, n, dim, torch.float32, "cuda")
+        p0, eps = z[0] / torch.sqrt(im), 0.1 * jit[0]
+        params = 4 * (dim * dim + 2 * dim)
+        grads = (L + 1) * 2 * dim * dim + 7 * dim * L
+        if name == "hmc_transition_small":
+            args = (u0, p0, eps, u01[0], lam, b, im, L)
+            nbytes = params + n * (4 * (4 * dim + 2) + 4 * 4 + 1)
+            flops = n * (grads + 2 * (3 * dim * dim + 7 * dim))
+            reps = 20
+        else:
+            args = (u0, p0, eps, lam, b, im, L)
+            nbytes = params + n * (4 * (4 * dim + 1))
+            flops = n * grads
+            reps = 1
+        cases[name] = (lambda k=kernel, a=args: k(*a),
+                       lambda p=plain, a=args: p(*a), None,
+                       bound(nbytes, flops), reps)
+    with full_fp32():
+        for name, (kernel, plain, library, (b_ms, by), reps) in cases.items():
+            p1 = time_ms(plain, reps=reps, warmup=1)
+            k1, k2 = time_ms(kernel), time_ms(kernel)
+            p2 = time_ms(plain, reps=reps, warmup=1)
+            out[name] = (statistics.median([k1, k2]),
+                         statistics.median([p1, p2]),
+                         None if library is None else time_ms(library),
+                         b_ms, by)
+    return out
+
+
 SOURCES = {
     "stats_cumsum": ("modppl_tpu_torch/csrc/grid_positions.cu",
                      "modppl_tpu/ops/grid_positions_pallas.py:59"),
@@ -796,6 +1208,12 @@ SOURCES = {
                          "modppl_tpu/ops/leapfrog_pallas.py:529"),
     "hmc_sample_chunk": ("modppl_tpu_torch/csrc/hmc_chunk.cu",
                          "modppl_tpu/ops/leapfrog_pallas.py:599"),
+    "grid_rank": ("modppl_tpu_torch/csrc/grid_rank.cu",
+                  "modppl_tpu/ops/resample_pallas.py:40"),
+    "fused_leapfrog": ("modppl_tpu_torch/csrc/hmc_chunk.cu",
+                       "modppl_tpu/ops/leapfrog_pallas.py:81"),
+    "hmc_transition_small": ("modppl_tpu_torch/csrc/hmc_small.cu",
+                             "modppl_tpu/ops/leapfrog_vpu_pallas.py:165"),
 }
 
 
@@ -875,13 +1293,71 @@ def main(argv):
     for name, (k_ms, p_ms, b_ms, _) in hmc_timings.items():
         print(f"# {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms at its leg's shapes")
+    sys.stdout.flush()
+
+    s3_errs, leap_bitwise = check_slice3_kernels("cuda")
+    print(f"# slice 3 kernels on the card: grid_rank == plain bitwise (N in "
+          f"{list(RANK_SIZES)}, weights {list(KINDS)}); hmc_transition_small "
+          f"== plain bitwise on all outputs (d, N in {list(TRANSITION_CASES)})"
+          f"; fused_leapfrog within {POS_TOL} relative at d in "
+          f"{[d for d, _ in LEAPFROG_DIMS]}, bitwise equal {leap_bitwise}; "
+          f"max abs err {s3_errs}; every kernel run twice, bitwise equal")
+    sys.stdout.flush()
+    rank_launches, hmm_seen = check_hmm_leg("cuda")
+    print(f"# main path: HMM leg N={N} T={T} (int32 state) through "
+          f"vsmc.batched_particle_filter; grid_rank launches {rank_launches}, "
+          f"kernel 3 none; log_ml {hmm_seen['log_ml']!r} exact "
+          f"{hmm_seen['exact']!r}; == the same filter through grid_rank's "
+          f"plain version, bitwise; ess_threshold 0.5 skipped "
+          f"{hmm_seen['skipped']} resamples, log_ml gap "
+          f"{hmm_seen['gap_adaptive']!r}")
+    spiral_ml = check_spiral_vsmc("cuda")
+    print(f"# spiral via vsmc.batched_particle_filter: kernel 3 launched "
+          f"{T - 1} times, grid_rank none; log_ml {spiral_ml!r}")
+    sys.stdout.flush()
+    legs = {name: quad_leg(name) for name in LEGS}
+    quad_launches = check_quad_legs(legs)
+    print(f"# main path: hmc_quadratic on both legs after hmc_runner's "
+          f"warmup, posterior in bounds, no divergence at d=3; launches "
+          f"{quad_launches}")
+    sys.stdout.flush()
+    hmm_s, hmm_times = time_hmm()
+    print(f"# HMM leg: median {hmm_s * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in hmm_times]} ms -> "
+          f"{N * T / hmm_s:.1f} particle-steps/s ({card})")
+    if "--profile" in argv:
+        profile_run("HMM leg", lambda: run_hmm("cuda", N, 201), hmm_s)
+    for name, leg in legs.items():
+        med, times, ess_min, acc = time_quad(name, leg)
+        if "--profile" in argv:
+            with full_fp32():
+                profile_run(f"hmc_quadratic {name}",
+                            lambda: run_quad(name, leg, 41), med)
+        c = LEGS[name]
+        n_tr = c["num_chains"] * c["num_samples"]
+        print(f"# hmc_quadratic {name} (d={c['dim']}, {c['num_chains']} "
+              f"chains, {c['num_samples']} x L={c['num_leapfrog']}): median "
+              f"{med * 1e3:.3f} ms of {[round(t * 1e3, 3) for t in times]} "
+              f"ms; min-coord ESS {ess_min:.1f} -> {ess_min / med:.1f} ESS/s; "
+              f"{n_tr / med:.4g} transitions/s; accept {acc:.3f} ({card})")
+        sys.stdout.flush()
+    s3_timings = time_slice3_kernels()
+    for name, (k_ms, p_ms, l_ms, b_ms, by) in s3_timings.items():
+        lib = "" if l_ms is None else f", library {l_ms:.4f} ms"
+        print(f"# {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, "
+              f"bound {b_ms:.4f} ms ({by}) at its main path's shapes")
     launches.update(hmc_launches)
+    launches.update(quad_launches)
+    launches["grid_rank"] = rank_launches
     errs.update(hmc_errs)
+    errs.update(s3_errs)
 
     def row(name):
         if name in timings:
             k_ms, p_ms, l_ms, b_ms = timings[name]
             bound_by = "bytes"
+        elif name in s3_timings:
+            k_ms, p_ms, l_ms, b_ms, bound_by = s3_timings[name]
         else:
             (k_ms, p_ms, b_ms, bound_by), l_ms = hmc_timings[name], None
         return {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -20,27 +20,15 @@
 // Strides make one kernel serve both layouts: (C, N) as the JAX entry takes
 // it (particle stride 1, column stride N) and (N, C) as the filter keeps its
 // state (particle stride C, column stride 1). With C = 0 it writes parents
-// only: that is the rank step a port of grid_rank (ops/resample_pallas.py)
-// wraps.
+// only; the port of grid_rank (csrc/grid_rank.cu) is a kernel of its own that
+// shares rank_upper_bound (rank.cuh).
 #include <cuda_runtime.h>
+
+#include "rank.cuh"
 
 namespace {
 
-// #{j : s[j] <= i} for sorted s of length n.
-__device__ __forceinline__ int rank_upper_bound(const int* __restrict__ s,
-                                                int n, int i) {
-  int lo = 0;
-  int hi = n;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (__ldg(s + mid) <= i) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
+using modppl::rank_upper_bound;
 
 __global__ void resample_from_s_kernel(const int* __restrict__ s,
                                        const float* __restrict__ state,

@@ -1,8 +1,12 @@
-// Whole-phase HMC chunks for quadratic targets at d >= 13: kernels 6 and 7.
+// Whole-phase HMC chunks for quadratic targets at d >= 13: kernels 6 and 7;
+// the leapfrog integration alone, at any d that fits: kernel 5.
 //
 // Replaces modppl_tpu/ops/leapfrog_pallas.py:hmc_sample_chunk (Pallas body
-// _chunk_kernel_mxu) and :hmc_warmup_chunk (Pallas body _warmup_kernel_mxu).
-// The target is logp(u) = b.u - u.Λu/2, grad g = b - uΛ.
+// _chunk_kernel_mxu), :hmc_warmup_chunk (Pallas body _warmup_kernel_mxu) and
+// :fused_leapfrog (Pallas body _kernel). The target is
+// logp(u) = b.u - u.Λu/2, grad g = b - uΛ. Kernel 5 shares the tile layout,
+// the tile product and the leapfrog loop; its product's input is the
+// position itself, not clamped (leapfrog_steps' template flag).
 //
 // What bounds them on the card: operations. A transition of one chain is
 // (L + 1) products of a d-vector with the (d, d) Λ, 2 d^2 flops each; at
@@ -174,6 +178,35 @@ __device__ __forceinline__ float warp_tree_sum(int d, Term term) {
   return t;
 }
 
+// The product's input: clamped to +-1e30 in the chunk kernels (the
+// reference's chunk kernels clamp), the position itself in the plain
+// leapfrog (fused_leapfrog's gradient is b - uΛ, unclamped).
+template <bool kClamp>
+__device__ __forceinline__ float product_input(float v) {
+  return kClamp ? clip(v) : v;
+}
+
+// `steps` leapfrog steps of the tile from s.u, s.p and their gradient s.g:
+// half kick, drift, gradient, half kick, in the reference's order.
+template <int TC, bool kClamp>
+__device__ void leapfrog_steps(const Tile& s, int d, int dp, int steps) {
+  const int m = TC * dp;
+  for (int step = 0; step < steps; ++step) {
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      const int c = i / dp, j = i - c * dp;
+      const float e = s.eps[c];
+      const float p = add(s.p[i], mul(mul(0.5f, e), s.g[i]));
+      const float u = add(s.u[i], mul(mul(e, s.im[j]), p));
+      s.p[i] = p;
+      s.u[i] = u;
+      s.uc[i] = product_input<kClamp>(u);
+    }
+    __syncthreads();
+    gradient_kick<TC>(s, d, dp, true);
+    __syncthreads();
+  }
+}
+
 // One HMC transition of the tile: s.u0 (positions) and s.p (momenta),
 // s.eps and s.u01 per chain in; s.u0 becomes the post-accept positions and
 // s.lp / s.ap / s.dv the chain's logp, accept probability and divergence.
@@ -193,20 +226,7 @@ __device__ void tile_transition(const Tile& s, int d, int dp, int steps) {
     s.lpe[i] = mul(s.u0[i], add(s.b[j], s.g[i]));
   }
   __syncthreads();
-  for (int step = 0; step < steps; ++step) {
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      const int c = i / dp, j = i - c * dp;
-      const float e = s.eps[c];
-      const float p = add(s.p[i], mul(mul(0.5f, e), s.g[i]));
-      const float u = add(s.u[i], mul(mul(e, s.im[j]), p));
-      s.p[i] = p;
-      s.u[i] = u;
-      s.uc[i] = clip(u);
-    }
-    __syncthreads();
-    gradient_kick<TC>(s, d, dp, true);
-    __syncthreads();
-  }
+  leapfrog_steps<TC, true>(s, d, dp, steps);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int c = warp; c < TC; c += kWarps) {
     const float* u = s.u + c * dp;
@@ -282,6 +302,45 @@ sample_kernel(const float* __restrict__ u0, const float* __restrict__ mom,
         aps[row + c] = s.ap[c];
         dvs[row + c] = s.dv[c] != 0.0f;
       }
+    }
+  }
+}
+
+// fused_leapfrog (kernel 5): L leapfrog steps of a tile of chains with Λ
+// and the tile resident in shared memory, returning (u_L, p_L). No clamp,
+// no energies, no accept: those run as plain torch around it, as XLA runs
+// them around the reference kernel.
+template <int TC>
+__global__ void __launch_bounds__(kThreads)
+leapfrog_kernel(const float* __restrict__ u0, const float* __restrict__ p0,
+                const float* __restrict__ eps, const float* __restrict__ lam,
+                const float* __restrict__ b, const float* __restrict__ im,
+                int n, int d, int dp, int steps, float* __restrict__ u_out,
+                float* __restrict__ p_out) {
+  extern __shared__ float4 smem4[];
+  const Tile s = carve(reinterpret_cast<float*>(smem4), dp, TC);
+  load_quadratic(s, lam, b, im, d, dp);
+  const int cb = blockIdx.x * TC;
+  for (int i = threadIdx.x; i < TC * dp; i += blockDim.x) {
+    const int c = i / dp, j = i - c * dp;
+    const bool live = cb + c < n && j < d;
+    const size_t g = static_cast<size_t>(cb + c) * d + j;
+    s.u[i] = live ? u0[g] : 0.0f;
+    s.uc[i] = s.u[i];
+    s.p[i] = live ? p0[g] : 0.0f;
+  }
+  for (int c = threadIdx.x; c < TC; c += blockDim.x)
+    s.eps[c] = cb + c < n ? eps[cb + c] : 0.0f;
+  __syncthreads();
+  gradient_kick<TC>(s, d, dp, false);
+  __syncthreads();
+  leapfrog_steps<TC, false>(s, d, dp, steps);
+  for (int i = threadIdx.x; i < TC * dp; i += blockDim.x) {
+    const int c = i / dp, j = i - c * dp;
+    if (cb + c < n && j < d) {
+      const size_t g = static_cast<size_t>(cb + c) * d + j;
+      u_out[g] = s.u[i];
+      p_out[g] = s.p[i];
     }
   }
 }
@@ -426,6 +485,23 @@ cudaError_t launch_sample(const float* u0, const float* mom, const float* epsj,
 }
 
 template <int TC>
+cudaError_t launch_leapfrog(const float* u, const float* p, const float* eps,
+                            const float* lam, const float* b, const float* im,
+                            int n, int d, int steps, float* u_out,
+                            float* p_out, cudaStream_t stream) {
+  const int dp = (d + 3) / 4 * 4;
+  const size_t smem = tile_floats(dp, TC) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      leapfrog_kernel<TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int grid = (n + TC - 1) / TC;
+  leapfrog_kernel<TC><<<grid, kThreads, smem, stream>>>(
+      u, p, eps, lam, b, im, n, d, dp, steps, u_out, p_out);
+  return cudaGetLastError();
+}
+
+template <int TC>
 cudaError_t launch_warmup(float* u, const float* z, const float* jit,
                           const float* u01, const float* lam, const float* b,
                           int n, int d, int num, int steps, float eps0,
@@ -492,4 +568,17 @@ extern "C" int modppl_hmc_warmup_chunk_f32(
                                      part, eps_out, im_out, stream))
   MODPPL_DISPATCH_TILE(tc, MODPPL_WARMUP)
 #undef MODPPL_WARMUP
+}
+
+// u, p (n, d), eps (n,), Λ (d, d), b and inv_mass (d,), all f32; tc chains
+// per CTA -> u_out, p_out (n, d) f32 after `steps` leapfrog steps
+extern "C" int modppl_fused_leapfrog_f32(
+    const float* u, const float* p, const float* eps, const float* lam,
+    const float* b, const float* im, int n, int d, int steps, int tc,
+    float* u_out, float* p_out, cudaStream_t stream) {
+#define MODPPL_LEAPFROG(TC)                                                  \
+  static_cast<int>(launch_leapfrog<TC>(u, p, eps, lam, b, im, n, d, steps,   \
+                                       u_out, p_out, stream))
+  MODPPL_DISPATCH_TILE(tc, MODPPL_LEAPFROG)
+#undef MODPPL_LEAPFROG
 }

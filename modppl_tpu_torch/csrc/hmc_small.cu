@@ -1,8 +1,12 @@
-// Whole-phase HMC chunks for quadratic targets at d <= 12: kernels 9 and 10.
+// Whole-phase HMC chunks for quadratic targets at d <= 12: kernels 9 and 10;
+// one whole transition at d <= 7: kernel 8.
 //
 // Replaces modppl_tpu/ops/leapfrog_vpu_pallas.py:hmc_sample_chunk_small
-// (Pallas body _chunk_kernel) and :hmc_warmup_chunk_small (Pallas body
-// _warmup_kernel). The target is logp(u) = b.u - u.Λu/2, grad = b - Λu.
+// (Pallas body _chunk_kernel), :hmc_warmup_chunk_small (Pallas body
+// _warmup_kernel) and :hmc_transition_small (Pallas body _kernel over
+// _transition_core). The target is logp(u) = b.u - u.Λu/2, grad = b - Λu.
+// Kernel 8 is one launch per transition (hmc_quadratic runs one a
+// transition), so at 10^4 chains and d = 3 its time is launch latency.
 //
 // What bounds them on the card: latency. Per chain and transition the work
 // is L leapfrog steps of d^2 multiply-adds, a few hundred flops, against
@@ -89,13 +93,15 @@ __device__ __forceinline__ float kinetic(const float* im, const float (&p)[D]) {
 }
 
 // One HMC transition of one chain: u is replaced by the post-accept
-// position, p by the trajectory's end momentum.
+// position, p by the trajectory's end momentum; h0 and h1 are the
+// Hamiltonians at its start and end.
 template <int D>
 __device__ __forceinline__ void transition(const float* lam, const float* b,
                                            const float* im, float (&u)[D],
                                            float (&p)[D], float eps,
                                            float u01, int steps, float& lp,
-                                           float& ap, bool& dv) {
+                                           float& ap, bool& dv, float& h0,
+                                           float& h1) {
   float u0[D], ei[D], g[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) {
@@ -103,7 +109,7 @@ __device__ __forceinline__ void transition(const float* lam, const float* b,
     ei[j] = mul(eps, im[j]);
   }
   const float logp0 = logp<D>(lam, b, u0);
-  const float h0 = add(-logp0, kinetic<D>(im, p));
+  h0 = add(-logp0, kinetic<D>(im, p));
   const float he = mul(0.5f, eps);
   grad<D>(lam, b, u, g);
   for (int s = 0; s < steps; ++s) {
@@ -116,7 +122,7 @@ __device__ __forceinline__ void transition(const float* lam, const float* b,
     for (int j = 0; j < D; ++j) p[j] = add(p[j], mul(he, g[j]));
   }
   const float logp1 = logp<D>(lam, b, u);
-  const float h1 = add(-logp1, kinetic<D>(im, p));
+  h1 = add(-logp1, kinetic<D>(im, p));
   const float delta = sub(h0, h1);
   dv = !isfinite(delta) || delta < -1000.0f;
   ap = dv ? 0.0f : fminf(expf(fminf(delta, 0.0f)), 1.0f);
@@ -153,15 +159,63 @@ sample_small_kernel(const float* __restrict__ u0, const float* __restrict__ mom,
     float p[D];
 #pragma unroll
     for (int j = 0; j < D; ++j) p[j] = mom[r * D + j];
-    float lp, ap;
+    float lp, ap, h0, h1;
     bool dv;
-    transition<D>(lam, b, im, u, p, epsj[r], u01[r], steps, lp, ap, dv);
+    transition<D>(lam, b, im, u, p, epsj[r], u01[r], steps, lp, ap, dv, h0,
+                  h1);
 #pragma unroll
     for (int j = 0; j < D; ++j) us[r * D + j] = u[j];
     lps[r] = lp;
     aps[r] = ap;
     dvs[r] = dv;
   }
+}
+
+// One whole transition of every chain (kernel 8): one thread per chain,
+// the same transition<D> as the chunk kernels, and every output the
+// reference's single-transition kernel returns.
+template <int D>
+__global__ void __launch_bounds__(kSampleBlock)
+transition_small_kernel(const float* __restrict__ u0,
+                        const float* __restrict__ p0,
+                        const float* __restrict__ eps,
+                        const float* __restrict__ u01,
+                        const float* __restrict__ lam_g,
+                        const float* __restrict__ b_g,
+                        const float* __restrict__ im_g, int n, int steps,
+                        float* __restrict__ u_out, float* __restrict__ p_out,
+                        float* __restrict__ lps, float* __restrict__ aps,
+                        bool* __restrict__ dvs, float* __restrict__ h0s,
+                        float* __restrict__ h1s) {
+  __shared__ float lam[D * D], b[D], im[D];
+  for (int i = threadIdx.x; i < D * D; i += blockDim.x) lam[i] = lam_g[i];
+  if (threadIdx.x < D) {
+    b[threadIdx.x] = b_g[threadIdx.x];
+    im[threadIdx.x] = im_g[threadIdx.x];
+  }
+  __syncthreads();
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n) return;
+  const size_t r = static_cast<size_t>(c) * D;
+  float u[D], p[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    u[j] = u0[r + j];
+    p[j] = p0[r + j];
+  }
+  float lp, ap, h0, h1;
+  bool dv;
+  transition<D>(lam, b, im, u, p, eps[c], u01[c], steps, lp, ap, dv, h0, h1);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    u_out[r + j] = u[j];
+    p_out[r + j] = p[j];
+  }
+  lps[c] = lp;
+  aps[c] = ap;
+  dvs[c] = dv;
+  h0s[c] = h0;
+  h1s[c] = h1;
 }
 
 struct WarmupState {
@@ -229,10 +283,10 @@ warmup_small_kernel(float* __restrict__ u, const float* __restrict__ z,
           uc[j] = u[static_cast<size_t>(c) * D + j];
           p[j] = mul(z[r * D + j], rsqrtf(st.im[j]));
         }
-        float lp;
+        float lp, h0, h1;
         bool dv;
         transition<D>(lam, b, st.im, uc, p, mul(eps_t, jit[r]), u01[r],
-                      steps, lp, ap, dv);
+                      steps, lp, ap, dv, h0, h1);
 #pragma unroll
         for (int j = 0; j < D; ++j) u[static_cast<size_t>(c) * D + j] = uc[j];
       } else {
@@ -307,6 +361,20 @@ cudaError_t launch_sample(const float* u0, const float* mom, const float* epsj,
 }
 
 template <int D>
+cudaError_t launch_transition(const float* u, const float* p, const float* eps,
+                              const float* u01, const float* lam,
+                              const float* b, const float* im, int n,
+                              int steps, float* u_out, float* p_out,
+                              float* lps, float* aps, bool* dvs, float* h0s,
+                              float* h1s, cudaStream_t stream) {
+  const int grid = (n + kSampleBlock - 1) / kSampleBlock;
+  transition_small_kernel<D><<<grid, kSampleBlock, 0, stream>>>(
+      u, p, eps, u01, lam, b, im, n, steps, u_out, p_out, lps, aps, dvs, h0s,
+      h1s);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_warmup(float* u, const float* z, const float* jit,
                           const float* u01, const float* lam, const float* b,
                           int n, int num, int steps, float eps0,
@@ -373,4 +441,28 @@ extern "C" int modppl_hmc_warmup_small_f32(
                                     eps_out, im_out, stream))
   MODPPL_DISPATCH_DIM(d, MODPPL_WARMUP)
 #undef MODPPL_WARMUP
+}
+
+// u, p (n, d), eps and u01 (n,), Λ (d, d), b and inv_mass (d,), all f32,
+// d <= 7 -> u_out, p_out (n, d), lps, aps, h0s, h1s (n,) f32, dvs (n,) bool
+extern "C" int modppl_hmc_transition_small_f32(
+    const float* u, const float* p, const float* eps, const float* u01,
+    const float* lam, const float* b, const float* im, int n, int d,
+    int steps, float* u_out, float* p_out, float* lps, float* aps, bool* dvs,
+    float* h0s, float* h1s, cudaStream_t stream) {
+#define MODPPL_TRANSITION(D)                                                \
+  static_cast<int>(launch_transition<D>(u, p, eps, u01, lam, b, im, n,      \
+                                        steps, u_out, p_out, lps, aps, dvs, \
+                                        h0s, h1s, stream))
+  switch (d) {
+    case 1: return MODPPL_TRANSITION(1);
+    case 2: return MODPPL_TRANSITION(2);
+    case 3: return MODPPL_TRANSITION(3);
+    case 4: return MODPPL_TRANSITION(4);
+    case 5: return MODPPL_TRANSITION(5);
+    case 6: return MODPPL_TRANSITION(6);
+    case 7: return MODPPL_TRANSITION(7);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MODPPL_TRANSITION
 }

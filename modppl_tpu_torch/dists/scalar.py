@@ -1,5 +1,5 @@
-"""Scalar distributions: ``bernoulli``, ``uniform`` and ``normal``
-(counterpart of modppl_tpu/dists/scalar.py:30-78, 127-148)."""
+"""Scalar distributions: ``bernoulli``, ``uniform``, ``categorical`` and
+``normal`` (counterpart of modppl_tpu/dists/scalar.py:30-78, 99-148)."""
 
 import math
 
@@ -56,6 +56,48 @@ class UniformContinuous(Distribution):
         return u * (b - a) + a
 
 
+class Categorical(Distribution):
+    """An integer index distributed by a probability vector (the last axis
+    of ``probs``; leading axes are a batch, e.g. one row per particle). An
+    index outside [0, K) scores -inf. Draws are int32, by inverse CDF: one
+    uniform per draw against the row's cumulative probabilities."""
+
+    is_discrete = True
+    support = "discrete"
+
+    def batched(self, params):
+        # the probability axis is the event; a batch is any axis before it
+        (probs,) = params
+        return torch.is_tensor(probs) and probs.ndim > 1
+
+    def _logpdf(self, x, probs):
+        k = probs.shape[-1]
+        x = torch.as_tensor(x, device=probs.device)
+        inside = (x >= 0) & (x < k)
+        safe = torch.clamp(x, 0, k - 1).long()
+        batch = torch.broadcast_shapes(safe.shape, probs.shape[:-1])
+        p = torch.gather(probs.expand(*batch, k), -1,
+                         safe.expand(batch)[..., None])[..., 0]
+        return torch.where(inside, torch.log(p), -math.inf)
+
+    def _sample(self, gen, shape, dtype, probs):
+        batch = torch.broadcast_shapes(shape, probs.shape[:-1])
+        # the running sums over the K columns, one elementwise add each (a
+        # torch.cumsum over K = 3 columns of 2^20 rows is a slow scan on the
+        # card)
+        cdf = [probs[..., 0]]
+        for k in range(1, probs.shape[-1]):
+            cdf.append(cdf[-1] + probs[..., k])
+        u = torch.rand(batch, generator=gen, device=gen.device,
+                       dtype=probs.dtype) * cdf[-1]
+        # index = #{k < K - 1 : cdf_k <= u}: a zero-probability index is
+        # never drawn
+        idx = torch.zeros(batch, dtype=torch.int32, device=gen.device)
+        for c in cdf[:-1]:
+            idx += c <= u
+        return idx
+
+
 class Normal(Distribution):
     """Gaussian with (mu, std-dev) parameters: -(z^2 + ln 2pi)/2 - ln sigma."""
 
@@ -72,4 +114,5 @@ class Normal(Distribution):
 bernoulli = Bernoulli()
 uniform_continuous = UniformContinuous()
 uniform = uniform_continuous
+categorical = Categorical()
 normal = Normal()

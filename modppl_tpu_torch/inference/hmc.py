@@ -145,10 +145,11 @@ def _grad_at(logprob_flat, u):
 
 
 def detect_quadratic_target(logprob_flat, dim, dtype=torch.float32,
-                            device="cpu", num_probes=3, tol=1e-5):
+                            device="cuda", num_probes=3, tol=1e-5):
     """Detect logp(u) = -1/2 u^T Λ u + b^T u (+ const); return (Λ, b) or None.
 
-    Λ = -hessian(0) and b = grad(0), in ``dtype`` on ``device``; the target
+    Λ = -hessian(0) and b = grad(0), in ``dtype`` on ``device`` (the card
+    unless the caller passes ``device="cpu"``, as ``hmc_runner``); the target
     is quadratic when grad(u) == b - u Λ at probes of radius 1, 4 and 16
     (standard normals from ``torch.Generator``s seeded 100, 101, 102 on
     ``device``), within ``tol`` of 1 + max|grad(u)|.
@@ -314,6 +315,9 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
             "quad_check_max_dev": dev,
         }
 
+    # the detected (Λ, b), for a caller that runs fixed-step HMC
+    # (ops/leapfrog.hmc_quadratic) on the same target after this warmup
+    run.quadratic = quad
     return run
 
 

@@ -58,6 +58,16 @@ def phase_streams(z, jit, u01, device="cpu"):
             tensor(np.reshape(u01, lead), device))
 
 
+def hmm_params_from_numpy(prior, emission_matrix, transition_matrix,
+                          device="cpu"):
+    """The port's HMMParams from the reference's ``HMMParams`` arrays
+    (``np.asarray(params.prior)`` and so on), in their dtype on ``device``."""
+    from modppl_tpu_torch.models.hmm import HMMParams
+
+    return HMMParams(tensor(prior, device), tensor(emission_matrix, device),
+                     tensor(transition_matrix, device))
+
+
 def smc_state_from_numpy(key, state, log_weights, log_ml, t, device="cpu"):
     """The port's SMCState from the reference's ``state``, ``log_weights``,
     ``log_ml`` and ``t`` as numpy values. ``key`` is the port's integer

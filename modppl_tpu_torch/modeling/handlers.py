@@ -20,18 +20,23 @@ def addr_subkey(key, addr):
 
 def infer_dtype_device(args, device=None):
     """dtype and device of the first floating tensor in ``args`` (searched
-    through tuples and lists). An explicit ``device`` wins over the
-    arguments' (the dtype is then the argument's, else torch's default).
-    With neither, raise: a model without tensor arguments must be told
-    where to run rather than falling back to the CPU."""
-    stack = list(args)
+    through tuples and lists); without one, torch's default dtype on the
+    first tensor's device (an integer state, such as an HMM's). An explicit
+    ``device`` wins over the arguments'. With neither a tensor nor a
+    ``device``, raise: a model without tensor arguments must be told where
+    to run rather than falling back to the CPU."""
+    stack, first = list(args), None
     while stack:
         a = stack.pop(0)
         if torch.is_tensor(a) and a.is_floating_point():
             return a.dtype, torch.device(a.device if device is None
                                          else device)
+        if torch.is_tensor(a) and first is None:
+            first = a
         if isinstance(a, (tuple, list)):
             stack[:0] = list(a)
+    if device is None and first is not None:
+        device = first.device
     if device is None:
         raise ValueError(
             "no floating tensor argument to take a device from: pass "

@@ -13,6 +13,8 @@ signature) or (N, C) (``"nc"``, how the filter keeps it). It returns
 [0, N-1] and new_state a bitwise copy of each ancestor's columns. On a CUDA
 tensor it launches the kernel or raises; on a CPU tensor it runs the plain
 version. ``resample_fused_from_s.launches`` counts kernel launches.
+``systematic_resample_fused(key, lw, state_t)`` is the reference's
+key-taking entry: it computes S from the weights, then calls the kernel.
 """
 
 import ctypes
@@ -20,6 +22,8 @@ import ctypes
 import torch
 
 from modppl_tpu_torch.ops import _build
+from modppl_tpu_torch.ops.resample import slot_positions, uniform
+from modppl_tpu_torch.utils.numerics import normalized_cdf
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -88,3 +92,18 @@ def resample_fused_from_s(s, state, layout="cn"):
 
 
 resample_fused_from_s.launches = 0
+
+
+def systematic_resample_fused(key, log_normalized_weights, state_t,
+                              layout="cn", u=None):
+    """Systematic resampling with the fused ancestor + state copy
+    (fused_resample_pallas.py:332-356): the single uniform from ``key`` (or
+    ``u``), the normalized CDF, S = cummax(clip(ceil(N cdf - u), 0, N)),
+    then ``resample_fused_from_s``. Returns ``(new_state, parents)``;
+    parents equal ``ops.resample.systematic_parents_kernel``'s on the same
+    uniform."""
+    lw = log_normalized_weights
+    if u is None:
+        u = uniform(key, lw)
+    s = slot_positions(normalized_cdf(lw), u, lw.shape[0])
+    return resample_fused_from_s(s, state_t, layout)

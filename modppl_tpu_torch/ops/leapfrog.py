@@ -1,4 +1,6 @@
-"""Whole-phase HMC chunks for quadratic targets at d >= 13: kernels 6 and 7.
+"""HMC on quadratic targets at larger d: the whole-phase chunks at d >= 13
+(kernels 6 and 7), the leapfrog integration alone at any d that fits
+(kernel 5), and the fixed-step-size API built on it.
 
 Counterpart of modppl_tpu/ops/leapfrog_pallas.py. The target is
 logp(u) = b.u - u.Λu/2 (+ const), so grad = b - uΛ. The CUDA kernels are in
@@ -15,6 +17,15 @@ and the gradient's input clamped to +-1e30.
 - ``warmup_chunk(u0s, z, jit, u01, lam, b, eps0, num_steps,
   target_accept)``: the whole pooled windowed warmup from pre-drawn
   standard normals, jitters and uniforms; (us (N, d), eps (), inv_mass (d,)).
+- ``fused_leapfrog(u, p, eps, lam, b, inv_mass, num_steps)``: (u_L, p_L)
+  after L leapfrog steps (leapfrog_pallas.py:81-128); its gradient is
+  b - uΛ with no clamp, as the reference kernel's.
+- ``hmc_transition_quadratic`` and ``hmc_quadratic``: one transition, and
+  a run of transitions at a fixed step size, one kernel launch per
+  transition (``hmc_transition_small`` at d <= 7, ``fused_leapfrog``
+  above, with the energies and the accept as plain torch). At d >= 8 the
+  log-densities are a ``torch.matmul``, which must run in full FP32: on the
+  card the transition raises while TF32 is allowed.
 
 Each runs its kernel on CUDA tensors (float32) and its plain PyTorch version
 on CPU tensors. The plain versions take the kernels' arithmetic order: each
@@ -31,6 +42,7 @@ import functools
 
 import torch
 
+from modppl_tpu_torch.core.keys import generator, split
 from modppl_tpu_torch.inference.adaptation import _tree_sum
 from modppl_tpu_torch.ops._hmc_common import (
     accept_prob,
@@ -43,6 +55,11 @@ from modppl_tpu_torch.ops._hmc_common import (
     sample_plain,
     schedule_arrays,
     warmup_plain,
+)
+from modppl_tpu_torch.ops.leapfrog_small import (
+    MAX_DIM_VPU,
+    hmc_transition_small,
+    per_chain,
 )
 
 # shared memory a block may take on an H100 (227 KB), less room for the
@@ -57,6 +74,7 @@ _SAMPLE_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                 _P, _P, _P, _P, _P)
 _WARMUP_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                 _I, _P, _P, _I, _P, _P, _P)
+_LEAPFROG_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)
 
 
 def smem_bytes(d, tile):
@@ -86,9 +104,10 @@ def quadratic_logp(u, lam, b):
     return -0.5 * torch.sum(u * (u @ lam), dim=-1) + u @ b
 
 
-def _grad(u, lam, b):
-    """b - clip(u) Λ, each entry one multiply-add chain over k in order."""
-    uc = torch.clamp(u, -1e30, 1e30)
+def _grad(u, lam, b, clamp=True):
+    """b - clip(u) Λ (b - uΛ without ``clamp``), each entry one multiply-add
+    chain over k in order."""
+    uc = torch.clamp(u, -1e30, 1e30) if clamp else u
     acc = uc[:, 0:1] * lam[0]
     for k in range(1, u.shape[1]):
         acc = torch.addcmul(acc, uc[:, k:k + 1], lam[k])
@@ -133,6 +152,20 @@ def transition_plain(u0, p0, eps, u01, lam, b, im, num_steps):
 # plain versions of ``sample_chunk`` and ``warmup_chunk``
 sample_chunk_plain = functools.partial(sample_plain, transition_plain)
 warmup_chunk_plain = functools.partial(warmup_plain, transition_plain)
+
+
+def fused_leapfrog_plain(u, p, eps, lam, b, inv_mass, num_steps):
+    """``num_steps`` leapfrog steps of every chain (leapfrog_pallas.py:57-63):
+    u, p (N, d), eps (N,). The gradient b - uΛ is not clamped. Returns
+    (u_L, p_L)."""
+    e = eps[:, None]
+    g = _grad(u, lam, b, clamp=False)
+    for _ in range(num_steps):
+        p = p + (0.5 * e) * g
+        u = u + (e * inv_mass) * p
+        g = _grad(u, lam, b, clamp=False)
+        p = p + (0.5 * e) * g
+    return u, p
 
 
 # --------------------------------------------------------------------------
@@ -199,8 +232,30 @@ def warmup_chunk(u0s, z, jit, u01, lam, b, eps0, num_steps,
     return us, eps, im
 
 
+def fused_leapfrog(u, p, eps, lam, b, inv_mass, num_steps):
+    """(u_L, p_L) after ``num_steps`` leapfrog steps; eps (N,) or a scalar."""
+    n, d = u.shape
+    eps = per_chain(eps, n, u)
+    if u.device.type == "cpu":
+        return fused_leapfrog_plain(u, p, eps, lam, b, inv_mass, num_steps)
+    name = "fused_leapfrog"
+    tile = chain_tile(d)
+    check_quadratic(name, n, d, u.device, d, lam=lam, b=b, inv_mass=inv_mass)
+    check_f32(name, u.device, u=u, p=p)
+    require(tuple(p.shape) == (n, d), name, f"p of shape ({n}, {d})")
+    require(num_steps >= 0, name, "num_steps >= 0")
+    u_out, p_out = torch.empty_like(u), torch.empty_like(u)
+    launch("modppl_fused_leapfrog_f32", _LEAPFROG_ARGS, name, u.device,
+           u.data_ptr(), p.data_ptr(), eps.data_ptr(), lam.data_ptr(),
+           b.data_ptr(), inv_mass.data_ptr(), n, d, num_steps, tile,
+           u_out.data_ptr(), p_out.data_ptr())
+    fused_leapfrog.launches += 1
+    return u_out, p_out
+
+
 sample_chunk.launches = 0
 warmup_chunk.launches = 0
+fused_leapfrog.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -227,3 +282,87 @@ def hmc_warmup_chunk(key, u0s, eps0, lam, b, num_warmup, num_steps,
         key, num_warmup, n, d, u0s.dtype, u0s.device)
     return warmup_chunk(u0s, z, jit, u01, lam, b, eps0, num_steps,
                         target_accept)
+
+
+# --------------------------------------------------------------------------
+# one transition per launch: the fixed-step-size API
+# --------------------------------------------------------------------------
+
+def _tf32_on():
+    return bool(torch.backends.cuda.matmul.allow_tf32)
+
+
+def require_full_fp32(device):
+    """Raise if a float32 matmul on ``device`` may run in TF32: the accept
+    ratio comes from ``quadratic_logp``'s product, and TF32 would bias it
+    (the reference pins Precision.HIGHEST, leapfrog_pallas.py:143-148)."""
+    if torch.device(device).type == "cuda" and _tf32_on():
+        raise RuntimeError(
+            "hmc_transition_quadratic: torch.backends.cuda.matmul.allow_tf32 "
+            "is on; the accept ratio needs full-FP32 products (set it to "
+            "False, or torch.set_float32_matmul_precision('highest'))")
+
+
+def hmc_transition_quadratic(key, u, eps, lam, b, inv_mass, num_leapfrog,
+                             draws=None):
+    """One HMC transition of every chain on the quadratic target
+    (leapfrog_pallas.py:151-190): momenta z / sqrt(inv_mass), then at
+    d <= 7 the whole transition in one launch (``hmc_transition_small``),
+    above it ``fused_leapfrog`` with the energies, the divergence guard,
+    min(1, exp(dH)) and the select as plain torch. ``draws`` = (z (N, d),
+    u01 (N,)) replaces the streams drawn from ``split(key)``. Returns
+    (u', logp(u'), accept_prob, divergent) per chain."""
+    n, d = u.shape
+    if draws is None:
+        k_mom, k_acc = split(key)
+        z = torch.randn((n, d), generator=generator(k_mom, u.device),
+                        dtype=u.dtype, device=u.device)
+        u01 = torch.rand((n,), generator=generator(k_acc, u.device),
+                         dtype=u.dtype, device=u.device)
+    else:
+        z, u01 = draws
+    p0 = z / torch.sqrt(inv_mass)
+    if d <= MAX_DIM_VPU:
+        (u_out, _), logp_out, aprob, divergent, _, _ = hmc_transition_small(
+            u, p0, eps, u01, lam, b, inv_mass, num_leapfrog)
+        return u_out, logp_out, aprob, divergent
+    require_full_fp32(u.device)
+    u1, p1 = fused_leapfrog(u, p0, eps, lam, b, inv_mass, num_leapfrog)
+    logp0 = quadratic_logp(u, lam, b)
+    logp1 = quadratic_logp(u1, lam, b)
+    h0 = -logp0 + 0.5 * torch.sum(inv_mass * p0 * p0, dim=-1)
+    h1 = -logp1 + 0.5 * torch.sum(inv_mass * p1 * p1, dim=-1)
+    delta_h = h0 - h1
+    divergent = ~torch.isfinite(delta_h) | (delta_h < -1000.0)
+    aprob = torch.where(divergent, 0.0,
+                        torch.clamp(torch.exp(delta_h), max=1.0))
+    accept = u01 < aprob
+    u_out = torch.where(accept[:, None], u1, u)
+    logp_out = torch.where(accept, logp1, logp0)
+    return u_out, logp_out, aprob, divergent
+
+
+def hmc_quadratic(key, u0, lam, b, inv_mass, *, step_size, num_samples,
+                  num_leapfrog, draws=None):
+    """Fixed-step-size HMC on the quadratic target (leapfrog_pallas.py:
+    663-684): ``num_samples`` transitions, one ``hmc_transition_quadratic``
+    (one kernel launch) each, with per-chain step sizes step_size * jitter.
+    The streams come from ``phase_draws(key)``: momenta z (T, N, d),
+    jitters in [0.5, 1.5) and accept uniforms (T, N); ``draws`` = (z, jit,
+    u01) replaces them. Returns a dict of ``samples`` (T, N, d), ``logp``,
+    ``accept_prob`` and ``divergences`` (T, N)."""
+    n, d = u0.shape
+    z, jit, u01 = draws if draws is not None else phase_draws(
+        key, num_samples, n, d, u0.dtype, u0.device)
+    u, us, logps, aprobs, divs = u0, [], [], [], []
+    for t in range(num_samples):
+        u, logp, aprob, div = hmc_transition_quadratic(
+            None, u, step_size * jit[t], lam, b, inv_mass, num_leapfrog,
+            draws=(z[t], u01[t]))
+        us.append(u)
+        logps.append(logp)
+        aprobs.append(aprob)
+        divs.append(div)
+    return {"samples": torch.stack(us), "logp": torch.stack(logps),
+            "accept_prob": torch.stack(aprobs),
+            "divergences": torch.stack(divs)}

@@ -1,4 +1,5 @@
-"""Whole-phase HMC chunks for quadratic targets at d <= 12: kernels 9 and 10.
+"""HMC on quadratic targets at small d: the whole-phase chunks at d <= 12
+(kernels 9 and 10) and one whole transition at d <= 7 (kernel 8).
 
 Counterpart of modppl_tpu/ops/leapfrog_vpu_pallas.py. The target is
 logp(u) = b.u - u.Λu/2 (+ const), so grad = b - Λu and a whole HMC
@@ -16,6 +17,11 @@ them and how they keep the plain versions' arithmetic order.
   STANDARD normals ``z`` (the kernel scales them by the evolving
   1/sqrt(inv_mass)), step-size jitters and accept uniforms. Returns
   (us (N, d), eps (), inv_mass (d,)).
+- ``hmc_transition_small(u, p, eps, u01, lam, b, inv_mass, num_steps)``:
+  one transition from given momenta, step sizes and accept uniforms
+  (leapfrog_vpu_pallas.py:165-217); returns ((u_out, p_end), logp, aprob,
+  divergent, h0, h1). ``hmc_transition_quadratic`` (ops/leapfrog.py) calls
+  it at d <= 7, one launch per transition.
 
 Each runs its kernel on CUDA tensors (float32; it raises on what the kernel
 does not take) and its plain PyTorch version on CPU tensors (any float
@@ -44,6 +50,9 @@ from modppl_tpu_torch.ops._hmc_common import (
 )
 
 MAX_DIM = 12
+# the single-transition kernel's largest d (leapfrog_vpu_pallas.MAX_DIM_VPU):
+# hmc_transition_quadratic takes it at d <= 7 and fused_leapfrog above
+MAX_DIM_VPU = 7
 # chains per block of the warmup kernel (its in-block reduction tile), and
 # the most tiles its cross-block reduction takes
 WARMUP_TILE = 256
@@ -56,6 +65,8 @@ _SAMPLE_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                 _P, _P, _P, _P, _P)
 _WARMUP_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
                 _I, _P, _P, _P, _P, _P)
+_TRANSITION_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _P, _P, _P, _P, _P, _P, _P, _P)
 
 
 # --------------------------------------------------------------------------
@@ -93,9 +104,11 @@ def _kinetic(p, im):
     return 0.5 * _seq_sum([t[:, j] for j in range(p.shape[1])])
 
 
-def transition_plain(u0, p, eps, u01, lam, b, im, num_steps):
-    """One HMC transition of every chain: u0, p (N, d); eps, u01 (N,).
-    Returns (u_out, logp_out, aprob, divergent), u_out post-accept."""
+def transition_small_plain(u0, p, eps, u01, lam, b, im, num_steps):
+    """One HMC transition of every chain in _transition_core's order
+    (leapfrog_vpu_pallas.py:85-145): u0, p (N, d); eps, u01 (N,). Returns
+    ((u_out, p_end), logp_out, aprob, divergent, h0, h1), u_out
+    post-accept, p_end the trajectory's end momentum."""
     logp0 = _logp(u0, lam, b)
     h0 = -logp0 + _kinetic(p, im)
     e = eps[:, None]
@@ -112,8 +125,16 @@ def transition_plain(u0, p, eps, u01, lam, b, im, num_steps):
     h1 = -logp1 + _kinetic(p, im)
     aprob, div = accept_prob(h0 - h1)
     acc = u01 < aprob
-    return (torch.where(acc[:, None], u, u0), torch.where(acc, logp1, logp0),
-            aprob, div)
+    return ((torch.where(acc[:, None], u, u0), p),
+            torch.where(acc, logp1, logp0), aprob, div, h0, h1)
+
+
+def transition_plain(u0, p, eps, u01, lam, b, im, num_steps):
+    """(u_out, logp_out, aprob, divergent) of ``transition_small_plain``:
+    the transition the chunk kernels loop over."""
+    (u_out, _), lp, ap, dv, _, _ = transition_small_plain(
+        u0, p, eps, u01, lam, b, im, num_steps)
+    return u_out, lp, ap, dv
 
 
 # plain versions of ``sample_chunk_small`` and ``warmup_chunk_small``
@@ -185,8 +206,55 @@ def warmup_chunk_small(u0s, z, jit, u01, lam, b, eps0, num_steps,
     return us, eps, im
 
 
+def per_chain(eps, n, like):
+    """A step size (number, 0-dim or (N,)) as a contiguous (N,) tensor of
+    ``like``'s dtype on its device."""
+    eps = torch.as_tensor(eps, dtype=like.dtype, device=like.device)
+    return torch.broadcast_to(eps.reshape(-1), (n,)).contiguous()
+
+
+def hmc_transition_small(u, p, eps, u01, lam, b, inv_mass, num_steps):
+    """One whole HMC transition (minus the draws) at d <= 7: u, p (N, d),
+    eps (N,) or a scalar, u01 (N,). Returns ((u_out, p_end), logp_out,
+    aprob, divergent, h0, h1)."""
+    n, d = u.shape
+    eps = per_chain(eps, n, u)
+    if u.device.type == "cpu":
+        return transition_small_plain(u, p, eps, u01, lam, b, inv_mass,
+                                      num_steps)
+    name = "hmc_transition_small"
+    check_quadratic(name, n, d, u.device, MAX_DIM_VPU, lam=lam, b=b,
+                    inv_mass=inv_mass)
+    check_f32(name, u.device, u=u, p=p, u01=u01)
+    require(tuple(p.shape) == (n, d) and tuple(u01.shape) == (n,), name,
+            f"p of shape ({n}, {d}) and u01 of shape ({n},)")
+    require(num_steps >= 0, name, "num_steps >= 0")
+    u_out, p_out = torch.empty_like(u), torch.empty_like(u)
+    lps, aps, h0s, h1s = (torch.empty_like(eps) for _ in range(4))
+    dvs = torch.empty(n, dtype=torch.bool, device=u.device)
+    launch("modppl_hmc_transition_small_f32", _TRANSITION_ARGS, name,
+           u.device, u.data_ptr(), p.data_ptr(), eps.data_ptr(),
+           u01.data_ptr(), lam.data_ptr(), b.data_ptr(), inv_mass.data_ptr(),
+           n, d, num_steps, u_out.data_ptr(), p_out.data_ptr(),
+           lps.data_ptr(), aps.data_ptr(), dvs.data_ptr(), h0s.data_ptr(),
+           h1s.data_ptr())
+    hmc_transition_small.launches += 1
+    return (u_out, p_out), lps, aps, dvs, h0s, h1s
+
+
+def fused_leapfrog_small(u, p, eps, lam, b, inv_mass, num_steps):
+    """Integration only (leapfrog_vpu_pallas.py:393-405): the transition
+    with always-accepting uniforms, so u_out is the trajectory's end.
+    Returns (u_L, p_L, h0, h1)."""
+    u01 = torch.full((u.shape[0],), -1.0, dtype=u.dtype, device=u.device)
+    (uo, po), _, _, _, h0, h1 = hmc_transition_small(
+        u, p, eps, u01, lam, b, inv_mass, num_steps)
+    return uo, po, h0, h1
+
+
 sample_chunk_small.launches = 0
 warmup_chunk_small.launches = 0
+hmc_transition_small.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -1,33 +1,183 @@
-"""Resampling gathers (counterpart of modppl_tpu/parallel/resample.py:208-251).
+"""Resampling schemes and gathers (counterpart of
+modppl_tpu/parallel/resample.py).
 
-``gather_from_s`` is the counterpart of ``fused_gather_from_s_or_none``
-without the "or none": it always goes through kernel 3's wrapper, which
-launches the kernel on CUDA tensors (or raises on what the kernel does not
-take) and runs the plain version on CPU tensors.
+Every scheme maps ``(key, log_normalized_weights, num=None)`` to ``num``
+int32 ancestors through the same O(N) grid inverse as the reference:
+first-child slot positions S, one integer scatter-add, one cumsum. Each also
+takes its random numbers injected (``u`` or ``us``) so that tests can feed
+the reference's. The CDFs add in the reference's CPU order on a CPU tensor
+(``utils/numerics.ordered_cumsum``).
+
+The dispatch mirrors the reference's, with "on TPU" read as "on a CUDA
+tensor":
+- ``systematic_parents`` computes S and hands it to ``grid_rank`` (kernel 4:
+  the kernel on a CUDA tensor, its plain version on a CPU one);
+- ``fused_systematic_resample_or_none`` and ``fused_gather_from_s_or_none``
+  take the fused ancestor + state copy (kernel 3) when the state is
+  fusable: every leaf float32 on a CUDA device, at most MAX_STATE_DIM
+  columns in all. Otherwise they return None and the caller gathers with
+  ``gather_particles``.
+The other three schemes are plain torch, as the reference computes them in
+XLA outside any kernel: their integer stage is the reference's scatter-add +
+cumsum, ``grid_rank_plain``, which takes an S that need not be sorted.
 """
 
 import torch
 from torch.utils import _pytree as pytree
 
-from modppl_tpu_torch.ops.fused_resample import resample_fused_from_s
+from modppl_tpu_torch.ops.fused_resample import (
+    resample_fused_from_s,
+    systematic_resample_fused,
+)
+from modppl_tpu_torch.ops.resample import (
+    grid_rank_plain,
+    systematic_parents,
+    uniform,
+)
+from modppl_tpu_torch.utils.numerics import normalized_cdf, ordered_cumsum
+
+# the fused kernel's widest state (fused_resample_pallas.py:MAX_STATE_DIM)
+MAX_STATE_DIM = 31
+
+
+def multinomial_parents(key, log_normalized_weights, num=None, us=None):
+    """IID categorical ancestors by sorted-uniform inversion: ``num``
+    uniforms (``us``, else drawn from ``key``) sorted, each cdf_j located
+    among them, then the scatter + cumsum inverse. Ancestors come out
+    sorted."""
+    lw = log_normalized_weights
+    n_in = lw.shape[0]
+    n = n_in if num is None else num
+    cdf = normalized_cdf(lw)
+    if us is None:
+        us = uniform(key, lw, (n,))
+    us = torch.sort(us).values
+    s = torch.searchsorted(us, cdf, right=False).to(torch.int32)
+    return grid_rank_plain(s, n_in, n)
+
+
+def stratified_parents(key, log_normalized_weights, num=None, us=None):
+    """Stratified ancestors: one uniform per output stratum, positions
+    (i + u_i) / num."""
+    lw = log_normalized_weights
+    n_in = lw.shape[0]
+    n = n_in if num is None else num
+    cdf = normalized_cdf(lw)
+    if us is None:
+        us = uniform(key, lw, (n,))
+    positions = (torch.arange(n, dtype=cdf.dtype, device=cdf.device) + us) / n
+    s = torch.searchsorted(positions, cdf, right=False).to(torch.int32)
+    return grid_rank_plain(s, n_in, n)
+
+
+def residual_parents(key, log_normalized_weights, num=None, u=None):
+    """Residual-systematic resampling: floor(N w) deterministic copies, then
+    a systematic sweep of the R = N - sum(floor) remaining slots over the
+    residual weights, stitched with a shifted gather."""
+    lw = log_normalized_weights
+    n_in = lw.shape[0]
+    n = n_in if num is None else num
+    w = torch.exp(lw)
+    w = w / torch.sum(w)
+    counts = torch.floor(n * w).to(torch.int32)
+    num_det = torch.sum(counts)
+    det_parents = grid_rank_plain(ordered_cumsum(counts), n_in, n)
+    resid = n * w - counts
+    r_total = n - num_det.to(w.dtype)
+    resid_cdf = ordered_cumsum(resid)
+    resid_cdf = resid_cdf / resid_cdf[-1]
+    if u is None:
+        u = uniform(key, lw)
+    # no residual mass (N w all integers) makes resid_cdf 0/0: the int
+    # clamp sends its NaN to slot 0, as XLA's conversion does
+    s_res = torch.clamp(torch.clamp(torch.ceil(resid_cdf * r_total - u), 0, n)
+                        .to(torch.int32), 0, n)
+    res_rank = grid_rank_plain(s_res, n_in, n)
+    idx = torch.arange(n, dtype=torch.int32, device=lw.device)
+    shifted = res_rank[torch.clamp(idx - num_det, 0, n - 1).long()]
+    return torch.where(idx >= num_det, shifted, det_parents)
+
+
+RESAMPLERS = {
+    "multinomial": multinomial_parents,
+    "systematic": systematic_parents,
+    "stratified": stratified_parents,
+    "residual": residual_parents,
+}
+
+
+def gather_particles(tree, parents):
+    """tree[i] = tree[parents[i]] on every leaf's leading axis."""
+    idx = parents.long()
+    return pytree.tree_map(lambda x: torch.index_select(x, 0, idx), tree)
+
+
+def _fusable(n, tree):
+    """The state's leaves if the fused kernel takes them (every leaf a
+    float32 CUDA tensor with leading axis n, at most MAX_STATE_DIM columns
+    in all), else None."""
+    leaves, spec = pytree.tree_flatten(tree)
+    if not leaves:
+        return None
+    width = 0
+    for leaf in leaves:
+        if not (torch.is_tensor(leaf) and leaf.is_cuda
+                and leaf.dtype == torch.float32 and leaf.ndim >= 1
+                and leaf.shape[0] == n):
+            return None
+        width += leaf[0].numel()
+    if width > MAX_STATE_DIM:
+        return None
+    return leaves, spec
+
+
+def _as_block(leaves, n):
+    """The leaves' trailing axes flattened into the columns of one (N, C)
+    block, so a single launch serves the whole state."""
+    cols = [leaf.reshape(n, -1) for leaf in leaves]
+    return (cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)).contiguous()
+
+
+def _from_block(block, leaves, spec):
+    out, off = [], 0
+    for leaf in leaves:
+        k = leaf[0].numel()
+        out.append(block[:, off:off + k].reshape(leaf.shape))
+        off += k
+    return pytree.tree_unflatten(out, spec)
 
 
 def gather_from_s(s, tree):
     """Ancestors from the sorted slot positions ``s`` and every leaf of the
     particle-state pytree ``tree`` (leading axis N) copied from its
-    ancestor. Returns ``(new_tree, parents)``.
-
-    The leaves' trailing axes are flattened into the columns of one (N, C)
-    block, so a single launch serves the whole state."""
+    ancestor, through kernel 3 (which raises on a CUDA state it does not
+    take). Returns ``(new_tree, parents)``."""
     n = s.shape[0]
     leaves, spec = pytree.tree_flatten(tree)
-    cols = [leaf.reshape(n, -1) for leaf in leaves]
-    block = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
-    new_block, parents = resample_fused_from_s(s, block.contiguous(),
+    new_block, parents = resample_fused_from_s(s, _as_block(leaves, n),
                                                layout="nc")
-    out, off = [], 0
-    for leaf, col in zip(leaves, cols):
-        k = col.shape[1]
-        out.append(new_block[:, off:off + k].reshape(leaf.shape))
-        off += k
-    return pytree.tree_unflatten(out, spec), parents
+    return _from_block(new_block, leaves, spec), parents
+
+
+def fused_gather_from_s_or_none(s, tree):
+    """``gather_from_s`` when the state is fusable, else None."""
+    if _fusable(s.shape[0], tree) is None:
+        return None
+    return gather_from_s(s, tree)
+
+
+def fused_systematic_resample_or_none(key, log_normalized_weights, tree,
+                                      u=None):
+    """Systematic resampling through the fused kernel (S from the weights,
+    then kernel 3) when the state is fusable: ``(new_tree, parents)``,
+    parents equal to ``systematic_parents``' on the same uniform. Else
+    None, and the caller takes ``systematic_parents`` and
+    ``gather_particles``."""
+    n = log_normalized_weights.shape[0]
+    fus = _fusable(n, tree)
+    if fus is None:
+        return None
+    leaves, spec = fus
+    new_block, parents = systematic_resample_fused(
+        key, log_normalized_weights, _as_block(leaves, n), layout="nc", u=u)
+    return _from_block(new_block, leaves, spec), parents

@@ -212,7 +212,8 @@ def test_detect_quadratic_matches_reference():
     j_lp, _, _ = _jax_logprob(jm, ja, jo)
     t_lp, flat, _ = _port_logprob(tm, ta, to)
     j_lam, j_b = j_detect(j_lp, 3, jnp.float64)
-    lam, b = thmc.detect_quadratic_target(t_lp, 3, flat.dtype)
+    lam, b = thmc.detect_quadratic_target(t_lp, 3, flat.dtype,
+                                          device="cpu")
     np.testing.assert_allclose(lam.numpy(), np.asarray(j_lam), **TOL)
     np.testing.assert_allclose(b.numpy(), np.asarray(j_b), **TOL)
 
@@ -221,7 +222,8 @@ def test_detect_quadratic_matches_reference():
     t_lp, flat, _ = _port_logprob(make_illcond_gauss(d, 100.0, 1), (), Trie())
     assert flat.dtype == torch.float32
     j_lam, j_b = j_detect(j_lp, d, jnp.float32)
-    lam, b = thmc.detect_quadratic_target(t_lp, d, flat.dtype)
+    lam, b = thmc.detect_quadratic_target(t_lp, d, flat.dtype,
+                                          device="cpu")
     scale = np.abs(np.asarray(j_lam)).max()
     np.testing.assert_allclose(lam.numpy(), np.asarray(j_lam),
                                atol=1e-5 * scale)
@@ -251,7 +253,8 @@ def test_detect_quadratic_none_for_nonquadratic():
     t_lp, flat, _ = _port_logprob(tm, (), to)
     j_lp, _, _ = _jax_logprob(jm, (), jo)
     assert j_detect(j_lp, 1, jnp.float64) is None
-    assert thmc.detect_quadratic_target(t_lp, 1, flat.dtype) is None
+    assert thmc.detect_quadratic_target(t_lp, 1, flat.dtype,
+                                        device="cpu") is None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         thmc.hmc_runner(tm, (), to, num_chains=4, device="cpu")
 
@@ -343,6 +346,9 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch):
         thmc.hmc_runner(model, (), Trie(), num_chains=4)
     with pytest.raises(ValueError, match="device="):
         model.generate(0, (), Trie())
+    # quadratic detection runs on the card unless told otherwise
+    with pytest.raises((RuntimeError, AssertionError)):
+        thmc.detect_quadratic_target(lambda u: -(u * u).sum(), 2)
     tr, _ = model.generate(0, (), Trie(), device="cpu")
     assert tr.data.read("x").device.type == "cpu"
     assert tr.data.search("x").dist is mvnormal

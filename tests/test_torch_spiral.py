@@ -156,6 +156,8 @@ def test_port_imports_no_jax():
     repo = Path(__file__).resolve().parent.parent
     files = sorted((repo / "modppl_tpu_torch").rglob("*.py"))
     assert len(files) > 10
+    assert {"hmm.py", "numerics.py", "resample.py", "vsmc.py"} <= {
+        p.name for p in files}
     files.append(repo / "chip_smoke.py")
     bad = []
     for path in files:
