@@ -48,8 +48,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the d <= 12 pair bitwise (d = 3 at 10^4 chains over the full 500 / 300
    iterations, d = 12 over 20 / 60), the d >= 13 pair at d = 13, 64, 128
    and 160, every output to the tolerances below (and reports whether
-   bitwise); runs every kernel twice, requiring bitwise equal results, and
-   checks that a diverging chain leaves the others unchanged;
+   bitwise), the sampling kernel alone with forced accepts at d = 224,
+   the widest it takes, and the warmup alone at d = 13 over 20000 chains
+   (more tiles than the card holds at once, more than 256 tile partials);
+   runs every kernel twice, requiring bitwise equal
+   results, and checks that a diverging chain leaves the others unchanged;
 7. runs both HMC legs with the counters at 0 and requires one launch of
    each of the leg's two kernels, the fused path, ``quad_check_ok`` and
    posterior moments within the reference tests' bounds;
@@ -75,7 +78,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     (``grid_rank``) ``torch.searchsorted``.
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
-path. The last three lines are the kernels' JSON record, the card's
+path.
+
+    python3 chip_smoke.py --turns OTHER_TREE
+
+instead compares two checkouts on one card: it times the d >= 13 chunk
+kernels and ``fused_leapfrog`` at the ill-conditioned leg's shapes and the
+leg itself (``time_leg``) with each tree's own code, in turns (other, this,
+this, other; each turn a process of its own run from that tree's root),
+and prints one JSON line per turn with a digest of each kernel's outputs,
+so the turns also show whether the two trees agree bitwise.
+
+The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
@@ -461,6 +475,13 @@ DECISION_AGREEMENT = 0.999
 ADAPT_TOL = 1e-3
 WARMUP_CHAIN_AGREEMENT = 0.99
 WIDE_DIMS = ((13, 1024), (64, 1024), (128, 4096), (160, 1024))
+# the widest d the d >= 13 kernels take, sampling only with forced accepts:
+# (d, chains)
+WIDEST = (224, 1024)
+# the d >= 13 warmup with more tiles than the card holds at once (blocks
+# walk several tiles) and more than 256 tile partials (pooled through
+# shared memory): (d, chains, iterations)
+MANY_CHAINS = (13, 20_000, 60)
 # the d <= 12 pair's bitwise checks: (d, chains, sampling T, warmup T)
 SMALL_CASES = ((3, 10_000, 500, 300), (12, 10_000, 20, 60))
 
@@ -587,32 +608,60 @@ def check_hmc_kernels(device):
                 hold_close(errs, "hmc_sample_chunk", f"{what} (d={d})", x, y,
                            POS_TOL, chains=decided.all(dim=0))
             z, jit, u01 = lfs.phase_draws(100 + d, 300, n, d, f32, device)
-            args = (u0, z, jit, u01, lam, b, 0.1, 32)
-            got = _twice("hmc_warmup_chunk", lambda: lf.warmup_chunk(*args))
-            want = lf.warmup_chunk_plain(*args)
-            same &= all(torch.equal(x, y) for x, y in zip(got, want))
+            same &= hold_warmup(errs, d, lf, (u0, z, jit, u01, lam, b, 0.1,
+                                              32))
             bitwise[d] = same
-            for what, x, y in (("eps", got[1], want[1]),
-                               ("inv_mass", got[2], want[2])):
-                rel = float(((x - y).abs() / y.abs()).max())
-                errs.max["hmc_warmup_chunk"] = max(
-                    errs.max.get("hmc_warmup_chunk", 0.0),
-                    float((x - y).abs().max()))
-                if rel > ADAPT_TOL:
-                    raise AssertionError(f"hmc_warmup_chunk: {what} off by "
-                                         f"{rel} relative at d={d}")
-            err = (got[0] - want[0]).abs()
-            errs.max["hmc_warmup_chunk"] = max(errs.max["hmc_warmup_chunk"],
-                                               float(err.max()))
-            near = float((err <= ADAPT_TOL * (1 + want[0].abs())).all(dim=1)
-                         .double().mean())
-            if near < WARMUP_CHAIN_AGREEMENT:
-                raise AssertionError(f"hmc_warmup_chunk: final positions "
-                                     f"within {ADAPT_TOL} on only {near} of "
-                                     f"the chains at d={d}")
             sync(device)
+        # the widest d: 8 forced-accept transitions, within POS_TOL
+        d, n = WIDEST
+        lam, b, im, u0 = quad_problem(d, n, d, device)
+        z, jit, _ = lfs.phase_draws(d, 8, n, d, f32, device)
+        args = (u0, z / torch.sqrt(im), 0.1 * jit,
+                torch.full_like(jit, -1.0), lam, b, im, 32)
+        got = _twice("hmc_sample_chunk", lambda: lf.sample_chunk(*args))
+        want = lf.sample_chunk_plain(*args)
+        bitwise[d] = all(torch.equal(x, y) for x, y in zip(got, want))
+        for what, x, y in zip(("us", "logp", "aprob", "divergent"),
+                              got, want):
+            hold_close(errs, "hmc_sample_chunk", f"forced-accept {what} "
+                       f"(d={d})", x, y, POS_TOL)
+        sync(device)
+        d, n, t_w = MANY_CHAINS
+        lam, b, _, u0 = quad_problem(d, n, d, device)
+        z, jit, u01 = lfs.phase_draws(200 + d, t_w, n, d, f32, device)
+        bitwise[f"{d}, N={n}"] = hold_warmup(
+            errs, d, lf, (u0, z, jit, u01, lam, b, 0.1, 32))
+        sync(device)
     check_divergent_isolation(device)
     return errs.max, agree, bitwise
+
+
+def hold_warmup(errs, d, lf, args):
+    """The d >= 13 warmup, run twice, against its plain version: eps and
+    inv_mass within ADAPT_TOL relative, the final positions within ADAPT_TOL
+    on >= WARMUP_CHAIN_AGREEMENT of the chains. Returns whether all three
+    outputs are bitwise equal."""
+    got = _twice("hmc_warmup_chunk", lambda: lf.warmup_chunk(*args))
+    want = lf.warmup_chunk_plain(*args)
+    for what, x, y in (("eps", got[1], want[1]),
+                       ("inv_mass", got[2], want[2])):
+        rel = float(((x - y).abs() / y.abs()).max())
+        errs.max["hmc_warmup_chunk"] = max(
+            errs.max.get("hmc_warmup_chunk", 0.0),
+            float((x - y).abs().max()))
+        if rel > ADAPT_TOL:
+            raise AssertionError(f"hmc_warmup_chunk: {what} off by {rel} "
+                                 f"relative at d={d}")
+    err = (got[0] - want[0]).abs()
+    errs.max["hmc_warmup_chunk"] = max(errs.max["hmc_warmup_chunk"],
+                                       float(err.max()))
+    near = float((err <= ADAPT_TOL * (1 + want[0].abs())).all(dim=1)
+                 .double().mean())
+    if near < WARMUP_CHAIN_AGREEMENT:
+        raise AssertionError(f"hmc_warmup_chunk: final positions within "
+                             f"{ADAPT_TOL} on only {near} of the chains at "
+                             f"d={d}")
+    return all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def check_divergent_isolation(device):
@@ -1217,12 +1266,74 @@ SOURCES = {
 }
 
 
+# one turn of --turns, run from a tree's root with that tree's code
+TURN_CODE = r"""
+import hashlib, json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from modppl_tpu_torch.ops import _build
+from modppl_tpu_torch.ops import leapfrog as lf
+from modppl_tpu_torch.ops import leapfrog_small as lfs
+
+_build.build()
+warm, samp = cs.leg_inputs("illcond")
+lam, b, im, u0 = cs.quad_problem(128, 4096, 70, "cuda")
+z, jit, _ = lfs.phase_draws(71, 1, 4096, 128, torch.float32, "cuda")
+leap = (u0, z[0] / torch.sqrt(im), 0.1 * jit[0], lam, b, im, 32)
+digest = lambda xs: hashlib.sha256(b"".join(
+    x.cpu().numpy().tobytes() for x in xs)).hexdigest()[:16]
+out = {}
+with cs.full_fp32():
+    for name, fn, args, reps in (
+            ("hmc_warmup_chunk", lf.warmup_chunk, warm, 5),
+            ("hmc_sample_chunk", lf.sample_chunk, samp, 5),
+            ("fused_leapfrog", lf.fused_leapfrog, leap, 20)):
+        out[name + "_digest"] = digest(fn(*args))
+        out[name + "_ms"] = cs.time_ms(lambda: fn(*args), reps=reps, warmup=1)
+med, times, ess_min, _, _ = cs.time_leg("illcond")
+out.update(illcond_leg_ms=med * 1e3, illcond_leg_runs_ms=[t * 1e3
+           for t in times], illcond_ess_min=ess_min)
+print("TURN " + json.dumps(out))
+"""
+
+
+def turns(other):
+    """--turns: this tree against ``other`` on one card, in turns other,
+    this, this, other."""
+    import os
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    other = Path(other).resolve()
+    if not (other / "chip_smoke.py").exists():
+        print(f"chip_smoke: {other} holds no chip_smoke.py", file=sys.stderr)
+        return 1
+    rows = []
+    for label, tree in (("other", other), ("this", here), ("this", here),
+                        ("other", other)):
+        proc = subprocess.run([sys.executable, "-c", TURN_CODE], cwd=tree,
+                              capture_output=True, text=True,
+                              env={**os.environ, "PYTHONPATH": str(tree)})
+        lines = [x for x in proc.stdout.splitlines() if x.startswith("TURN ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"turn {label} ({tree}) failed")
+        rows.append({"turn": label, **json.loads(lines[-1][5:])})
+        print(json.dumps(rows[-1]))
+        sys.stdout.flush()
+    return 0
+
+
 def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 1
     card = card_line()
+    if argv[:1] == ["--turns"]:
+        print(f"# card: {card}")
+        return turns(argv[1])
     print(f"# card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     sys.stdout.flush()
@@ -1232,7 +1343,8 @@ def main(argv):
     path, seconds, log = _build.build()
     print(f"# build: {seconds:.2f} s -> {path.name}")
     for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line
+                or "Compiling entry" in line):
             print(f"#   {line.strip()}")
     sys.stdout.flush()
 
@@ -1267,7 +1379,9 @@ def main(argv):
     hmc_errs, agree, bitwise = check_hmc_kernels("cuda")
     print("# HMC d <= 12 kernels == plain versions on the card, bitwise "
           "(d=3 N=10^4 T=500/300, d=12 N=10^4 T=20/60); d >= 13 within "
-          f"tolerance at d in {[d for d, _ in WIDE_DIMS]}: accept decisions "
+          f"tolerance at d in {[d for d, _ in WIDE_DIMS]}, sampling with "
+          f"forced accepts at d={WIDEST[0]}, warmup at d={MANY_CHAINS[0]} "
+          f"N={MANY_CHAINS[1]}: accept decisions "
           f"agree {agree}, bitwise equal {bitwise}; max abs err {hmc_errs}; "
           "every kernel run twice, bitwise equal; a divergent chain leaves "
           "the others unchanged")

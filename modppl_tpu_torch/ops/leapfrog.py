@@ -5,10 +5,23 @@
 Counterpart of modppl_tpu/ops/leapfrog_pallas.py. The target is
 logp(u) = b.u - u.Λu/2 (+ const), so grad = b - uΛ. The CUDA kernels are in
 csrc/hmc_chunk.cu; its header says what bounds them and how they are laid
-out. Both follow the reference kernels' arithmetic: per-coordinate
+out. All follow the reference kernels' arithmetic: per-coordinate
 energies e = -u(b+g)/2 + im p^2/2, dH the sum of the finite (e0 - e1)
 terms (any non-finite term marks the chain divergent), logp = u.(b+g)/2,
-and the gradient's input clamped to +-1e30.
+and the chunk kernels' gradient input clamped to +-1e30.
+
+Two shared-memory layouts, each mirrored here so that the wrappers pick
+the tile and check the limits before a launch:
+- kernels 6 and 7 (``chunk_smem_bytes``, ``chunk_tile``,
+  ``chunk_max_chains``): Λ, two k-major buffers of the product's input
+  (which also serve as the warmup's reduction scratch), one prefetched
+  transition of streams, and per-chain scalars; each thread of the 256
+  owns a 4-chain x 4-coordinate block and keeps that block's chain state
+  in registers, so a tile of TC chains needs TC dp <= 4096 (dp = d
+  rounded up to 4). TC is 64 to d = 64, 32 to d = 128, 16 or 8 above,
+  and d = 224 is the largest that fits.
+- kernel 5 (``smem_bytes``, ``chain_tile``): Λ and the tile's positions,
+  momenta and gradients, 32 chains to d = 128, fewer above, to d = 224.
 
 - ``sample_chunk(u, mom, epsj, u01, lam, b, inv_mass, num_steps)``: the
   whole sampling phase from pre-drawn momenta (already scaled by
@@ -28,13 +41,14 @@ and the gradient's input clamped to +-1e30.
   card the transition raises while TF32 is allowed.
 
 Each runs its kernel on CUDA tensors (float32) and its plain PyTorch version
-on CPU tensors. The plain versions take the kernels' arithmetic order: each
-gradient entry is a ``torch.addcmul`` chain over k (one fused multiply-add
-per term on the card, as the kernels' FFMA chain), and sums over a chain's
-coordinates are the adjacent-pairing tree (``_tree_sum``). No matmul runs,
-so TF32 settings cannot touch them. ``<wrapper>.launches`` counts kernel
-launches. ``hmc_sample_chunk`` and
-``hmc_warmup_chunk`` are the reference's key-taking entries.
+on CPU tensors. The plain versions take the kernels' arithmetic order, and
+the kernels keep it: each gradient entry is a ``torch.addcmul`` chain over
+k (one fused multiply-add per term on the card, as the kernels' FFMA chain
+over k = 0..d-1, never split or reordered), and sums over a chain's
+coordinates are the adjacent-pairing tree (``_tree_sum``), so kernel and
+plain version agree bitwise. No matmul runs, so TF32 settings cannot touch
+them. ``<wrapper>.launches`` counts kernel launches. ``hmc_sample_chunk``
+and ``hmc_warmup_chunk`` are the reference's key-taking entries.
 """
 
 import ctypes
@@ -78,21 +92,63 @@ _LEAPFROG_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)
 
 
 def smem_bytes(d, tile):
-    """Dynamic shared memory of a CTA holding Λ and ``tile`` chains
-    (csrc/hmc_chunk.cu:tile_floats)."""
+    """Dynamic shared memory of kernel 5's CTA holding Λ and ``tile``
+    chains (csrc/hmc_chunk.cu:tile_floats)."""
     dp = -(-d // 4) * 4
     return 4 * (dp * dp + 6 * dp + 1 + 7 * tile * dp + 6 * tile)
 
 
 def chain_tile(d):
-    """The most chains per CTA (of CHAIN_TILES) whose tiles fit beside Λ in
-    shared memory; raises above the largest d that fits (224)."""
+    """Kernel 5's most chains per CTA (of CHAIN_TILES) whose tiles fit
+    beside Λ in shared memory; raises above the largest d that fits (224)."""
     for tile in CHAIN_TILES:
         if smem_bytes(d, tile) <= MAX_SMEM:
             return tile
     raise ValueError(f"hmc chunk kernels: d={d} does not fit in shared "
                      f"memory ({MAX_SMEM} bytes a block); the largest d is "
                      f"224")
+
+
+# kernels 6 and 7: chains per CTA, threads per CTA (each owns 4 x 4 of the
+# tile's chains x coordinates)
+CHUNK_TILES = (64, 32, 16, 8)
+CHUNK_THREADS = 256
+CHUNK_MAX_DIM = 224
+
+
+def chunk_smem_bytes(d, tile):
+    """Dynamic shared memory of kernel 6's or 7's CTA holding Λ (rows 64
+    floats apart at tile 64, 128 at tile 32, else dp), two k-major
+    (dp, tile) input buffers (rows padded by 4 floats at tile >= 32), one
+    prefetched (tile, dp) stream and the per-chain scalars
+    (csrc/hmc_chunk.cu:chunk_floats)."""
+    dp = -(-d // 4) * 4
+    row = tile + 4 if tile >= 32 else tile
+    lam_row = {64: 64, 32: 128}.get(tile, dp)
+    return 4 * (dp * lam_row + 2 * dp * row + tile * dp + 6 * dp + 4
+                + 7 * tile)
+
+
+def chunk_tile(d):
+    """Kernels 6 and 7's most chains per CTA (of CHUNK_TILES) whose 4 x 4
+    blocks the CTA's threads cover and whose buffers fit beside Λ in shared
+    memory; raises above the largest d that fits (224)."""
+    dp = -(-d // 4) * 4
+    for tile in CHUNK_TILES:
+        if (tile * dp <= 16 * CHUNK_THREADS
+                and chunk_smem_bytes(d, tile) <= MAX_SMEM):
+            return tile
+    raise ValueError(f"hmc chunk kernels: d={d} does not fit in shared "
+                     f"memory ({MAX_SMEM} bytes a block); the largest d is "
+                     f"{CHUNK_MAX_DIM}")
+
+
+def chunk_max_chains(d):
+    """The most chains ``warmup_chunk`` takes at d: its tile partials are
+    summed by a tree over a power of two of tiles (``ptiles``) in the two
+    input buffers, 2 tile dp floats."""
+    tile, dp = chunk_tile(d), -(-d // 4) * 4
+    return tile * (1 << ((2 * tile * dp).bit_length() - 1))
 
 
 # --------------------------------------------------------------------------
@@ -180,7 +236,7 @@ def sample_chunk(u, mom, epsj, u01, lam, b, inv_mass, num_steps):
     name = "hmc_sample_chunk"
     n, d = u.shape
     num = mom.shape[0]
-    tile = chain_tile(d)
+    tile = chunk_tile(d)
     check_quadratic(name, n, d, u.device, d, lam=lam, b=b, inv_mass=inv_mass)
     check_f32(name, u.device, u=u, mom=mom, epsj=epsj, u01=u01)
     check_streams(name, num, n, d, mom, epsj, u01)
@@ -207,16 +263,14 @@ def warmup_chunk(u0s, z, jit, u01, lam, b, eps0, num_steps,
     name = "hmc_warmup_chunk"
     n, d = u0s.shape
     num = z.shape[0]
-    tile = chain_tile(d)
+    tile = chunk_tile(d)
     check_quadratic(name, n, d, u0s.device, d, lam=lam, b=b)
     check_f32(name, u0s.device, u0s=u0s, z=z, jit=jit, u01=u01)
     check_streams(name, num, n, d, z, jit, u01)
     require(num_steps >= 0 and eps0 > 0, name, "num_steps >= 0, eps0 > 0")
-    ntiles = -(-n // tile)
-    ptiles = 1 << (ntiles - 1).bit_length()
-    dp = -(-d // 4) * 4
-    require(ptiles <= 5 * tile * dp, name,
-            f"at most {5 * tile * dp * tile} chains at d={d}")
+    ptiles = 1 << (-(-n // tile) - 1).bit_length()
+    require(n <= chunk_max_chains(d), name,
+            f"at most {chunk_max_chains(d)} chains at d={d}")
     sch, nwin = schedule_arrays(num, u0s.device)
     us = u0s.clone()
     part = torch.zeros(2, 1 + 2 * d, ptiles, dtype=torch.float32,

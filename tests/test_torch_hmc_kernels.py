@@ -195,6 +195,34 @@ def test_chain_tile_and_shared_memory_limit():
         leapfrog.chain_tile(232)
 
 
+@pytest.mark.parametrize("d,tile", [(13, 64), (64, 64), (128, 32),
+                                    (160, 16), (224, 8)])
+def test_chunk_tile_and_shared_memory_limit(d, tile):
+    """Kernels 6 and 7 hold Λ, two input buffers and a prefetched stream
+    in shared memory, and each of the 256 threads owns 4 x 4 of the tile:
+    the mirror picks the largest tile that fits both, the warmup's tile
+    partials at the chain limit fit its reduction scratch, and the kernels
+    stop at d = 224."""
+    dp = -(-d // 4) * 4
+    assert leapfrog.chunk_tile(d) == tile
+    assert leapfrog.chunk_smem_bytes(d, tile) <= leapfrog.MAX_SMEM
+    assert (tile // 4) * (dp // 4) <= leapfrog.CHUNK_THREADS
+    bigger = [t for t in leapfrog.CHUNK_TILES if t > tile]
+    if bigger:
+        t = min(bigger)
+        assert (leapfrog.chunk_smem_bytes(d, t) > leapfrog.MAX_SMEM
+                or t * dp > 16 * leapfrog.CHUNK_THREADS)
+    n = leapfrog.chunk_max_chains(d)
+    ptiles = 1 << (-(-n // tile) - 1).bit_length()
+    assert ptiles <= 2 * tile * dp < 2 * ptiles   # the scratch, fully used
+    assert n >= 4096   # the ill-conditioned leg's chains, at every width
+    if d == leapfrog.CHUNK_MAX_DIM:
+        with pytest.raises(ValueError, match="largest d is 224"):
+            leapfrog.chunk_tile(d + 1)
+    else:
+        assert leapfrog.chunk_tile(d + 1) in leapfrog.CHUNK_TILES
+
+
 @pytest.mark.parametrize("d", [5, 40])
 def test_quadratic_logp_matches_reference(d):
     lam, b, rng = _target(d, 200 + d)
