@@ -46,7 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    events, L2 flushed before each launch; median of 20);
 6. holds the four HMC kernels against their plain versions on the card:
    the d <= 12 pair bitwise (d = 3 at 10^4 chains over the full 500 / 300
-   iterations, d = 12 over 20 / 60), the d >= 13 pair at d = 13, 64, 128
+   iterations, d = 12 over 20 / 60; the warmup also over more than 256
+   tile partials, ``MANY_SMALL``), the d >= 13 pair at d = 13, 64, 128
    and 160, every output to the tolerances below (and reports whether
    bitwise), the sampling kernel alone with forced accepts at d = 224,
    the widest it takes, and the warmup alone at d = 13 over 20000 chains
@@ -62,8 +63,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. holds the three slice-3 kernels against their plain versions on the
    card: ``grid_rank`` bitwise at N = 2^20, 2^16 and 100003 with the three
    weight kinds, ``hmc_transition_small`` bitwise on all seven outputs at
-   d = 3 and 7 (10^4 chains), ``fused_leapfrog`` within POS_TOL at
-   d = 8, 64, 128 (one call of 32 steps; bitwise reported); each twice;
+   d = 3 and 7 (10^4 chains), ``fused_leapfrog`` bitwise at
+   d = 3, 8, 13, 64, 128 and 224 (one call of 32 steps); each twice;
 10. runs the HMM leg with the counters at 0 and requires 9 launches of
     ``grid_rank`` and none of kernel 3, a log-ML within 0.03 of the exact
     forward algorithm's, sorted ancestors, and every output bitwise equal
@@ -78,16 +79,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     (``grid_rank``) ``torch.searchsorted``.
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
-path.
+path; a profile that lacks a kernel the launch counters saw says so and
+gives no idle share.
 
     python3 chip_smoke.py --turns OTHER_TREE
 
 instead compares two checkouts on one card: it times the d >= 13 chunk
-kernels and ``fused_leapfrog`` at the ill-conditioned leg's shapes and the
-leg itself (``time_leg``) with each tree's own code, in turns (other, this,
-this, other; each turn a process of its own run from that tree's root),
-and prints one JSON line per turn with a digest of each kernel's outputs,
-so the turns also show whether the two trees agree bitwise.
+kernels and ``fused_leapfrog`` at the ill-conditioned leg's shapes,
+``hmc_warmup_chunk_small`` at the hierarchical leg's, both legs
+(``time_leg``) and ``hmc_quadratic`` at d = 128 (``time_quad``) with each
+tree's own code, in turns (other, this, this, other; each turn a process
+of its own run from that tree's root), and prints one JSON line per turn
+with a digest of each kernel's outputs, so the turns also show whether
+the two trees agree bitwise.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -420,22 +424,42 @@ def time_kernels(n=N):
 
 def profile_run(label, fn, median_s):
     """Device time of one run of ``fn`` by kernel and copy, and the
-    device's idle share of the unprofiled median wall time ``median_s``."""
+    device's idle share of the unprofiled median wall time ``median_s``.
+    Each kernel the launch counters saw in the run is looked up in the
+    profile by its CUDA symbol (``KERNEL_SYMBOLS``) and printed with its
+    device time per profiled launch. If one has no row, the trace is
+    incomplete: the line names it and gives no idle share."""
+    import re
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+        _, launches = counted(fn)
     rows = [(e.key, e.device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    print(f"# profile {label}: {sum(r[2] for r in rows)} device ops, busy "
-          f"{busy_ms:.3f} ms of a {median_s * 1e3:.3f} ms run: idle share "
-          f"{1 - busy_ms / (median_s * 1e3):.3f}")
+    found = {name: [r for r in rows
+                    if re.search(rf"\b{KERNEL_SYMBOLS[name]}\b", r[0])]
+             for name, count in launches.items() if count}
+    missing = [f"{KERNEL_SYMBOLS[name]} ({name}, {launches[name]} launches)"
+               for name, hits in found.items() if not hits]
+    head = (f"# profile {label}: {sum(r[2] for r in rows)} device ops, busy "
+            f"{busy_ms:.3f} ms of a {median_s * 1e3:.3f} ms run")
+    if missing:
+        print(f"{head}; trace incomplete, no rows for {', '.join(missing)}: "
+              f"no idle share")
+    else:
+        print(f"{head}: idle share {1 - busy_ms / (median_s * 1e3):.3f}")
+    for name, hits in found.items():
+        ms, count = sum(r[1] for r in hits), sum(r[2] for r in hits)
+        if count:
+            print(f"#   kernel {name}: {launches[name]} launches counted, "
+                  f"{count} profiled, {ms:.3f} ms, {ms / count * 1e3:.2f} us "
+                  f"a launch")
     for key, ms, count in rows[:15]:
         print(f"#   {ms:8.3f} ms  x{count:<4d} {key[:100]}")
 
@@ -484,6 +508,11 @@ WIDEST = (224, 1024)
 MANY_CHAINS = (13, 20_000, 60)
 # the d <= 12 pair's bitwise checks: (d, chains, sampling T, warmup T)
 SMALL_CASES = ((3, 10_000, 500, 300), (12, 10_000, 20, 60))
+# the d <= 12 warmup over more than 256 tile partials of 256 chains, pooled
+# through shared memory (reduce_partials), bitwise: (d, chains, warmup T).
+# At d = 12 there are more tiles than blocks fit on the card at once, so
+# blocks walk several tiles and the positions go through device memory.
+MANY_SMALL = ((3, 100_000, 60), (12, 200_000, 20))
 
 
 def hmc_wrappers():
@@ -574,6 +603,17 @@ def check_hmc_kernels(device):
         for what, x, y in zip(("us", "eps", "inv_mass"), got, want):
             errs.same("hmc_warmup_chunk_small", f"{what} (d={d}, T={t_w})",
                       x, y)
+        sync(device)
+    for d, n, t_w in MANY_SMALL:
+        lam, b, _, u0 = quad_problem(d, n, 300 + d, device)
+        z, jit, u01 = lfs.phase_draws(400 + d, t_w, n, d, f32, device)
+        args = (u0, z, jit, u01, lam, b, 0.1, 8)
+        got = _twice("hmc_warmup_chunk_small",
+                     lambda: lfs.warmup_chunk_small(*args))
+        want = lfs.warmup_chunk_small_plain(*args)
+        for what, x, y in zip(("us", "eps", "inv_mass"), got, want):
+            errs.same("hmc_warmup_chunk_small", f"{what} (d={d}, N={n}, "
+                      f"T={t_w})", x, y)
         sync(device)
 
     # d >= 13: every output to the stated tolerances, at the illcond leg's
@@ -888,9 +928,12 @@ QUAD_KERNEL = {"hierarchical": "hmc_transition_small",
                "illcond": "fused_leapfrog"}
 # hmc_transition_small's bitwise checks: (d, chains)
 TRANSITION_CASES = ((3, 10_000), (7, 10_000))
-# fused_leapfrog vs its plain version, one call of L = 32 steps each, every
-# output within POS_TOL * (1 + |y|) (also reported as bitwise or not)
-LEAPFROG_DIMS = ((8, 4096), (64, 4096), (128, 4096))
+# fused_leapfrog vs its plain version, bitwise, one call of L = 32 steps
+# each: (d, chains). d = 3 is below the chunk kernels' range (the wrapper
+# is public), d = 13 has padded coordinates and a partial last tile, and
+# d = 224 is the widest d.
+LEAPFROG_DIMS = ((3, 4096), (8, 4096), (13, 1000), (64, 4096),
+                 (128, 4096), (224, 1024))
 
 
 def hmm_arrays():
@@ -1023,7 +1066,6 @@ def check_slice3_kernels(device):
                                "h0", "h1"), got, want):
             errs.same("hmc_transition_small", f"{what} (d={d}, N={n})", x, y)
         sync(device)
-    bitwise = {}
     with full_fp32():
         for d, n in LEAPFROG_DIMS:
             lam, b, im, u0 = quad_problem(d, n, 50 + d, device)
@@ -1031,14 +1073,12 @@ def check_slice3_kernels(device):
             args = (u0, z[0] / torch.sqrt(im), 0.1 * jit[0], lam, b, im, 32)
             got = _twice("fused_leapfrog", lambda: lf.fused_leapfrog(*args))
             want = lf.fused_leapfrog_plain(*args)
-            bitwise[d] = all(torch.equal(x, y) for x, y in zip(got, want))
             for what, x, y in zip(("u_L", "p_L"), got, want):
                 if not bool(torch.isfinite(x).all()):
                     raise AssertionError(f"fused_leapfrog: non-finite {what}")
-                hold_close(errs, "fused_leapfrog", f"{what} (d={d})", x, y,
-                           POS_TOL)
+                errs.same("fused_leapfrog", f"{what} (d={d}, N={n})", x, y)
             sync(device)
-    return errs.max, bitwise
+    return errs.max
 
 
 def _flat(out):
@@ -1265,6 +1305,20 @@ SOURCES = {
                              "modppl_tpu/ops/leapfrog_vpu_pallas.py:165"),
 }
 
+# each wrapper's kernel as the profiler names it (the CUDA symbol)
+KERNEL_SYMBOLS = {
+    "stats_cumsum": "stats_cumsum_kernel",
+    "positions_cummax": "positions_cummax_kernel",
+    "resample_fused_from_s": "resample_from_s_kernel",
+    "hmc_warmup_chunk_small": "warmup_small_kernel",
+    "hmc_sample_chunk_small": "sample_small_kernel",
+    "hmc_warmup_chunk": "warmup_kernel",
+    "hmc_sample_chunk": "sample_kernel",
+    "grid_rank": "grid_rank_kernel",
+    "fused_leapfrog": "leapfrog_kernel",
+    "hmc_transition_small": "transition_small_kernel",
+}
+
 
 # one turn of --turns, run from a tree's root with that tree's code
 TURN_CODE = r"""
@@ -1277,6 +1331,7 @@ from modppl_tpu_torch.ops import leapfrog as lf
 from modppl_tpu_torch.ops import leapfrog_small as lfs
 
 _build.build()
+warm_small, _ = cs.leg_inputs("hierarchical")
 warm, samp = cs.leg_inputs("illcond")
 lam, b, im, u0 = cs.quad_problem(128, 4096, 70, "cuda")
 z, jit, _ = lfs.phase_draws(71, 1, 4096, 128, torch.float32, "cuda")
@@ -1288,12 +1343,18 @@ with cs.full_fp32():
     for name, fn, args, reps in (
             ("hmc_warmup_chunk", lf.warmup_chunk, warm, 5),
             ("hmc_sample_chunk", lf.sample_chunk, samp, 5),
-            ("fused_leapfrog", lf.fused_leapfrog, leap, 20)):
+            ("fused_leapfrog", lf.fused_leapfrog, leap, 20),
+            ("hmc_warmup_chunk_small", lfs.warmup_chunk_small, warm_small,
+             5)):
         out[name + "_digest"] = digest(fn(*args))
         out[name + "_ms"] = cs.time_ms(lambda: fn(*args), reps=reps, warmup=1)
-med, times, ess_min, _, _ = cs.time_leg("illcond")
-out.update(illcond_leg_ms=med * 1e3, illcond_leg_runs_ms=[t * 1e3
-           for t in times], illcond_ess_min=ess_min)
+for leg in ("illcond", "hierarchical"):
+    med, times, ess_min, _, _ = cs.time_leg(leg)
+    out.update({leg + "_leg_ms": med * 1e3, leg + "_ess_min": ess_min,
+                leg + "_leg_runs_ms": [t * 1e3 for t in times]})
+med, times, _, _ = cs.time_quad("illcond", cs.quad_leg("illcond"))
+out.update(quad_illcond_ms=med * 1e3,
+           quad_illcond_runs_ms=[t * 1e3 for t in times])
 print("TURN " + json.dumps(out))
 """
 
@@ -1378,7 +1439,8 @@ def main(argv):
 
     hmc_errs, agree, bitwise = check_hmc_kernels("cuda")
     print("# HMC d <= 12 kernels == plain versions on the card, bitwise "
-          "(d=3 N=10^4 T=500/300, d=12 N=10^4 T=20/60); d >= 13 within "
+          "(d=3 N=10^4 T=500/300, d=12 N=10^4 T=20/60; warmup (d, N, T) in "
+          f"{list(MANY_SMALL)}); d >= 13 within "
           f"tolerance at d in {[d for d, _ in WIDE_DIMS]}, sampling with "
           f"forced accepts at d={WIDEST[0]}, warmup at d={MANY_CHAINS[0]} "
           f"N={MANY_CHAINS[1]}: accept decisions "
@@ -1409,13 +1471,12 @@ def main(argv):
               f"{b_ms:.4f} ms at its leg's shapes")
     sys.stdout.flush()
 
-    s3_errs, leap_bitwise = check_slice3_kernels("cuda")
+    s3_errs = check_slice3_kernels("cuda")
     print(f"# slice 3 kernels on the card: grid_rank == plain bitwise (N in "
           f"{list(RANK_SIZES)}, weights {list(KINDS)}); hmc_transition_small "
           f"== plain bitwise on all outputs (d, N in {list(TRANSITION_CASES)})"
-          f"; fused_leapfrog within {POS_TOL} relative at d in "
-          f"{[d for d, _ in LEAPFROG_DIMS]}, bitwise equal {leap_bitwise}; "
-          f"max abs err {s3_errs}; every kernel run twice, bitwise equal")
+          f"; fused_leapfrog == plain bitwise (d, N in "
+          f"{list(LEAPFROG_DIMS)}); every kernel run twice, bitwise equal")
     sys.stdout.flush()
     rank_launches, hmm_seen = check_hmm_leg("cuda")
     print(f"# main path: HMM leg N={N} T={T} (int32 state) through "

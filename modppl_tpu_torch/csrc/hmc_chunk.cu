@@ -1,5 +1,6 @@
 // Whole-phase HMC chunks for quadratic targets at d >= 13: kernels 6 and 7;
-// the leapfrog integration alone, at any d that fits: kernel 5.
+// the leapfrog integration alone, at any d to 224: kernel 5. All three run
+// one product, block_gradient.
 //
 // Replaces modppl_tpu/ops/leapfrog_pallas.py:hmc_sample_chunk (Pallas body
 // _chunk_kernel_mxu), :hmc_warmup_chunk (Pallas body _warmup_kernel_mxu) and
@@ -19,15 +20,16 @@
 // G = 128/s lane packing, its block-diagonal Λ and the B/Bt/C 0/1 matrices
 // are not carried over: a chain owns its row, so nothing needs them.
 //
-// Kernels 6 and 7 (sample_kernel, warmup_kernel): one CTA of 256 threads
-// per tile of TC chains (64 at d <= 64, 32 to d = 128, 16 or 8 above),
-// with Λ (64 KB at d = 128) in dynamic shared memory. The columns are split
-// across threads, not the chains: each thread owns a 4-chain x 4-coordinate
-// block, and a warp owns all TC chains of 32 / (TC / 4) column groups (at
-// TC = 32, 16 columns). The product's input is kept k-major in shared
-// memory (uT[k][chain]); per k a thread reads one float4 of uT (its 4
-// chains) and one float4 of Λ's row (its 4 columns) and does 16 FFMA, so
-// the SM reads Λ once per gradient, not once per warp. What is left to
+// Kernels 6, 7 and 5 (sample_kernel, warmup_kernel, leapfrog_kernel): one
+// CTA of 256 threads per tile of TC chains (64 at d <= 64, 32 to d = 128,
+// 16 or 8 above), with Λ (64 KB at d = 128) in dynamic shared memory. The
+// columns are split across threads, not the chains: each thread owns a
+// 4-chain x 4-coordinate block, and a warp owns all TC chains of
+// 32 / (TC / 4) column groups (at TC = 32, 16 columns). The product's
+// input is kept k-major in shared memory (uT[k][chain]); per k a thread
+// reads one float4 of uT (its 4 chains) and one float4 of Λ's row (its 4
+// columns) and does 16 FFMA, so the SM reads Λ once per gradient, not once
+// per warp. What is left to
 // bound the product is shared memory's return path: on the H100 an
 // LDS.128 costs a warp about 2.5 SM cycles when each quarter warp reads at
 // most 64 distinct bytes, about 4 when it reads 128 (equal addresses merge
@@ -49,17 +51,19 @@
 // warp a row (warp_rows), and when every block holds one tile its chains
 // stay in registers between iterations.
 //
-// Kernel 5 (leapfrog_kernel) keeps the earlier layout: the tile's
-// positions, momenta and gradients in shared memory (struct Tile), warps
-// split over chains (gradient_kick), two syncs a step (leapfrog_steps); its
-// product's input is the position itself, not clamped.
+// Kernel 5 runs the same leapfrog steps (block_leapfrog) from given momenta
+// and step sizes, its block's u, p and g in registers across all L steps,
+// and stores u_L and p_L at the end; its product's input is the position
+// itself, not clamped (write_input<TC, false>), as the reference kernel's.
+// It takes the chunk kernels' tile and carve-up (chunk_floats) and leaves
+// their stream and per-chain regions unused.
 //
 // Per-chain energies follow the reference kernel: elementwise
 // e = -u(b+g)/2 + im p^2/2, dH the sum of finite (e0 - e1) terms with any
 // non-finite term flagging the chain divergent, logp by the identity
-// u.(b+g)/2 (leapfrog_pallas.py:357), and the product's input clamped to
-// +-1e30. Chains never share a product row, so a diverging chain leaves
-// every other chain's results bitwise unchanged.
+// u.(b+g)/2 (leapfrog_pallas.py:357), and (kernels 6 and 7) the product's
+// input clamped to +-1e30. Chains never share a product row, so a
+// diverging chain leaves every other chain's results bitwise unchanged.
 //
 // Arithmetic order, so that the plain versions in ops/leapfrog.py can
 // reproduce it bitwise: each gradient entry is one FFMA chain over
@@ -96,14 +100,27 @@ __device__ __forceinline__ float energy(float u, float b, float g, float im,
 }
 
 // Λ, b (and im, when given) into shared memory, zero-padded to dp; Λ's
-// rows ls >= dp floats apart.
+// rows ls >= dp floats apart. Each thread has 16 loads of Λ in flight at a
+// time: kernel 5's whole launch is only L + 1 products long, so a load a
+// round trip would show in it.
 template <typename Smem>
 __device__ void load_quadratic(const Smem& s, const float* lam,
                                const float* b, const float* im, int d,
                                int dp, int ls) {
-  for (int i = threadIdx.x; i < dp * dp; i += blockDim.x) {
-    const int k = i / dp, j = i - k * dp;
-    s.lam[k * ls + j] = (k < d && j < d) ? lam[k * d + j] : 0.0f;
+  constexpr int kBatch = 16;
+  const int m = dp * dp;
+  for (int i0 = threadIdx.x; i0 < m; i0 += kBatch * blockDim.x) {
+    float v[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = i0 + q * blockDim.x, k = i / dp, j = i - k * dp;
+      v[q] = (i < m && k < d && j < d) ? lam[k * d + j] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int i = i0 + q * blockDim.x, k = i / dp, j = i - k * dp;
+      if (i < m) s.lam[k * ls + j] = v[q];
+    }
   }
   for (int j = threadIdx.x; j < dp; j += blockDim.x) {
     s.b[j] = j < d ? b[j] : 0.0f;
@@ -275,17 +292,54 @@ __device__ __forceinline__ void block_gradient(const Chunk& s, int buf, int d,
   }
 }
 
-// clip(u) of the block into the k-major uT buffer `buf`
-template <int TC>
+// The product's input, clip(u) of the block (u itself without kClamp),
+// into the k-major uT buffer `buf`
+template <int TC, bool kClamp>
 __device__ __forceinline__ void write_input(const Chunk& s, int buf, int dp,
                                             const float (&u)[4][4], int c0,
                                             int j0) {
   constexpr int S = ut_row(TC);
   float* ut = s.ut + buf * dp * S;
+  const auto in = [](float v) { return kClamp ? clip(v) : v; };
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj) {
     *reinterpret_cast<float4*>(&ut[(j0 + jj) * S + c0]) = make_float4(
-        clip(u[0][jj]), clip(u[1][jj]), clip(u[2][jj]), clip(u[3][jj]));
+        in(u[0][jj]), in(u[1][jj]), in(u[2][jj]), in(u[3][jj]));
+  }
+}
+
+// `steps` leapfrog steps of each owner's block from r.u, r.p and their
+// gradient r.g, whose input is in uT buffer 0: half kick, drift, gradient,
+// half kick, in the reference's order. Step s writes and then reads buffer
+// (s + 1) & 1, so a step costs one __syncthreads. The whole block calls it.
+template <int TC, bool kClamp>
+__device__ __forceinline__ void block_leapfrog(const Chunk& s, Block& r,
+                                               int d, int dp, int steps,
+                                               bool own, int cgi, int jg) {
+  const int c0 = 4 * cgi, j0 = 4 * jg;
+  for (int step = 0; step < steps; ++step) {
+    const int cur = (step + 1) & 1;
+    if (own) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          r.p[i][jj] = add(r.p[i][jj], mul(r.he[i], r.g[i][jj]));
+          r.u[i][jj] = add(r.u[i][jj], mul(r.ei[i][jj], r.p[i][jj]));
+        }
+      }
+      write_input<TC, kClamp>(s, cur, dp, r.u, c0, j0);
+    }
+    __syncthreads();
+    if (own) {
+      block_gradient<TC>(s, cur, d, dp, cgi, jg, r);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          r.p[i][jj] = add(r.p[i][jj], mul(r.he[i], r.g[i][jj]));
+      }
+    }
   }
 }
 
@@ -297,7 +351,7 @@ template <int TC>
 __device__ void chunk_transition(const Chunk& s, Block& r, int d, int dp,
                                  int steps, bool own, int cgi, int jg) {
   const int c0 = 4 * cgi, j0 = 4 * jg;
-  if (own) write_input<TC>(s, 0, dp, r.u0, c0, j0);
+  if (own) write_input<TC, true>(s, 0, dp, r.u0, c0, j0);
   __syncthreads();
   if (own) {
     block_gradient<TC>(s, 0, d, dp, cgi, jg, r);
@@ -312,32 +366,7 @@ __device__ void chunk_transition(const Chunk& s, Block& r, int d, int dp,
       }
     }
   }
-  // leapfrog steps: half kick, drift, gradient, half kick, in the
-  // reference's order; step s writes and then reads buffer (s + 1) & 1
-  for (int step = 0; step < steps; ++step) {
-    const int cur = (step + 1) & 1;
-    if (own) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          r.p[i][jj] = add(r.p[i][jj], mul(r.he[i], r.g[i][jj]));
-          r.u[i][jj] = add(r.u[i][jj], mul(r.ei[i][jj], r.p[i][jj]));
-        }
-      }
-      write_input<TC>(s, cur, dp, r.u, c0, j0);
-    }
-    __syncthreads();
-    if (own) {
-      block_gradient<TC>(s, cur, d, dp, cgi, jg, r);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          r.p[i][jj] = add(r.p[i][jj], mul(r.he[i], r.g[i][jj]));
-      }
-    }
-  }
+  block_leapfrog<TC, true>(s, r, d, dp, steps, own, cgi, jg);
   // the per-coordinate terms go over the uT buffers, rows of S floats
   const int S = dp + 4;
   float* const st = s.ut;
@@ -420,87 +449,34 @@ __device__ __forceinline__ bool owner(int dp, int& cgi, int& jg) {
   return jg < dp / 4;
 }
 
-// The block's start positions from u (n, d) of the tile at chain cb.
-__device__ __forceinline__ void load_positions(Block& r, const float* u,
-                                               int cb, int live, int d,
-                                               int c0, int j0) {
+// The block's 4 x 4 of x (n, d) of the tile at chain cb (0 past the last
+// chain and coordinate).
+__device__ __forceinline__ void load_block(float (&v)[4][4], const float* x,
+                                           int cb, int live, int d, int c0,
+                                           int j0) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int c = c0 + i, j = j0 + jj;
-      r.u0[i][jj] = (c < live && j < d)
-                        ? u[static_cast<size_t>(cb + c) * d + j] : 0.0f;
+      v[i][jj] = (c < live && j < d)
+                     ? x[static_cast<size_t>(cb + c) * d + j] : 0.0f;
     }
   }
 }
 
-// The block's positions r.u0 into u (n, d) of the tile at chain cb.
-__device__ __forceinline__ void store_positions(const Block& r, float* u,
-                                                int cb, int live, int d,
-                                                int c0, int j0) {
+// The block's 4 x 4 into x (n, d) of the tile at chain cb.
+__device__ __forceinline__ void store_block(const float (&v)[4][4], float* x,
+                                            int cb, int live, int d, int c0,
+                                            int j0) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int c = c0 + i, j = j0 + jj;
-      if (c < live && j < d)
-        u[static_cast<size_t>(cb + c) * d + j] = r.u0[i][jj];
+      if (c < live && j < d) x[static_cast<size_t>(cb + c) * d + j] = v[i][jj];
     }
   }
-}
-
-// Row totals of `rows` rows of x ([rows][P], P a power of two <= 256) by
-// the adjacent-pairing tree, tree_rows' order, one warp a row: lane l sums
-// entries [l E, (l + 1) E) (E = P / 32) by the tree, then the lanes pair up
-// by shuffles (over the first P lanes when P < 32). Row r's total goes to
-// out[r * ostride]. Rows go 4 at a time, so that a warp has 4 E loads in
-// flight. The whole block calls it.
-__device__ void warp_rows(const float* x, int rows, int P, float* out,
-                          int ostride) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int E = P > 32 ? P / 32 : 1;
-  const int span = P < 32 ? P : 32;
-  for (int r0 = 4 * warp; r0 < rows; r0 += 4 * kWarps) {
-    float v[4][8];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int t = lane * E + m;
-        v[q][m] = (r0 + q < rows && m < E && t < P)
-                      ? x[static_cast<size_t>(r0 + q) * P + t] : 0.0f;
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-#pragma unroll
-      for (int st = 1; st < 8; st <<= 1) {
-        if (st < E) {
-#pragma unroll
-          for (int m = 0; m < 8; m += 2 * st)
-            v[q][m] = add(v[q][m], v[q][m + st]);
-        }
-      }
-      float t = v[q][0];
-      for (int st = 1; st < span; st <<= 1)
-        t = add(t, __shfl_down_sync(0xffffffffu, t, st));
-      if (lane == 0 && r0 + q < rows)
-        out[static_cast<size_t>(r0 + q) * ostride] = t;
-    }
-  }
-  __syncthreads();
-}
-
-// Totals over tiles of tile partials into out (reduce_partials' result,
-// bit for bit): by warps when ptiles <= 256, else through the shared
-// scratch `red` of `cap` floats.
-__device__ inline void pooled_totals(const float* part, int rows, int ptiles,
-                                     float* red, int cap, float* out) {
-  if (ptiles <= 256)
-    warp_rows(part, rows, ptiles, out, 1);
-  else
-    reduce_partials(part, rows, ptiles, red, cap, out);
 }
 
 template <int TC>
@@ -520,7 +496,7 @@ sample_kernel(const float* __restrict__ u0, const float* __restrict__ mom,
   const bool own = owner<TC>(dp, cgi, jg);
   const int c0 = 4 * cgi, j0 = 4 * jg;
   Block r;
-  if (own) load_positions(r, u0, cb, live, d, c0, j0);
+  if (own) load_block(r.u0, u0, cb, live, d, c0, j0);
   __syncthreads();
   if (own) {
 #pragma unroll
@@ -554,7 +530,7 @@ sample_kernel(const float* __restrict__ u0, const float* __restrict__ mom,
     if (t + 1 < num)
       prefetch_streams<TC>(s, mom, epsj, u01, row + n, live, d, dp);
     chunk_transition<TC>(s, r, d, dp, steps, own, cgi, jg);
-    if (own) store_positions(r, us + row * d, 0, live, d, c0, j0);
+    if (own) store_block(r.u0, us + row * d, 0, live, d, c0, j0);
     for (int c = threadIdx.x; c < live; c += blockDim.x) {
       lps[row + c] = s.lp[c];
       aps[row + c] = s.ap[c];
@@ -627,7 +603,7 @@ warmup_kernel(float* __restrict__ u, const float* __restrict__ z,
       cp_async_wait_all();
       __syncthreads();
       if (own) {
-        if (!resident || t == 0) load_positions(r, u, cb, live, d, c0, j0);
+        if (!resident || t == 0) load_block(r.u0, u, cb, live, d, c0, j0);
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) r.im[jj] = s.im[j0 + jj];
 #pragma unroll
@@ -661,7 +637,7 @@ warmup_kernel(float* __restrict__ u, const float* __restrict__ z,
       chunk_transition<TC>(s, r, d, dp, steps, own, cgi, jg);
       // red rows: [0] aprob, [1 + j] coordinate j, each over the TC chains
       if (own) {
-        store_positions(r, u, cb, live, d, c0, j0);
+        store_block(r.u0, u, cb, live, d, c0, j0);
         if (in_slow) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -737,6 +713,55 @@ warmup_kernel(float* __restrict__ u, const float* __restrict__ z,
   }
 }
 
+// fused_leapfrog (kernel 5): `steps` leapfrog steps of a tile of TC chains
+// from the given momenta and per-chain step sizes, returning (u_L, p_L).
+// The product's input is the position itself, not clamped. No energies, no
+// accept: those run as plain torch around it, as XLA runs them around the
+// reference kernel.
+template <int TC>
+__global__ void __launch_bounds__(kThreads)
+leapfrog_kernel(const float* __restrict__ u0, const float* __restrict__ p0,
+                const float* __restrict__ eps, const float* __restrict__ lam,
+                const float* __restrict__ b, const float* __restrict__ im,
+                int n, int d, int dp, int steps, float* __restrict__ u_out,
+                float* __restrict__ p_out) {
+  extern __shared__ float4 smem4[];
+  const Chunk s = carve_chunk(reinterpret_cast<float*>(smem4), dp, TC);
+  const int cb = blockIdx.x * TC, live = min(TC, n - cb);
+  int cgi, jg;
+  const bool own = owner<TC>(dp, cgi, jg);
+  const int c0 = 4 * cgi, j0 = 4 * jg;
+  Block r;
+  if (own) {
+    load_block(r.u, u0, cb, live, d, c0, j0);
+    load_block(r.p, p0, cb, live, d, c0, j0);
+  }
+  load_quadratic(s, lam, b, im, d, dp, lam_row(TC, dp));
+  __syncthreads();
+  if (own) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      r.b[jj] = s.b[j0 + jj];
+      r.im[jj] = s.im[j0 + jj];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float e = c0 + i < live ? eps[cb + c0 + i] : 0.0f;
+      r.he[i] = mul(0.5f, e);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) r.ei[i][jj] = mul(e, r.im[jj]);
+    }
+    write_input<TC, false>(s, 0, dp, r.u, c0, j0);
+  }
+  __syncthreads();
+  if (own) block_gradient<TC>(s, 0, d, dp, cgi, jg, r);
+  block_leapfrog<TC, false>(s, r, d, dp, steps, own, cgi, jg);
+  if (own) {
+    store_block(r.u, u_out, cb, live, d, c0, j0);
+    store_block(r.p, p_out, cb, live, d, c0, j0);
+  }
+}
+
 // A tile of TC chains fits the block's threads (TC dp / 16 blocks of 4x4)
 // and shared memory.
 template <int TC>
@@ -793,160 +818,18 @@ cudaError_t launch_warmup(float* u, const float* z, const float* jit,
                             stream);
 }
 
-// --------------------------------------------------------------------------
-// kernel 5: the tile in shared memory, warps split over chains
-// --------------------------------------------------------------------------
-
-// Shared-memory carve-up, in floats; ops/leapfrog.py:smem_bytes mirrors
-// its size. Rows of the (TC, dp) tiles are chains, dp = d rounded up to 4;
-// padded coordinates are 0 in Λ, b, im, u and p, so they stay 0.
-struct Tile {
-  float *lam, *b, *im, *mean, *m2, *sums;
-  float *u0, *u, *uc, *p, *g, *e0, *lpe;
-  float *eps, *u01, *lp, *ap, *dv;
-};
-
-__host__ __device__ inline size_t tile_floats(int dp, int tc) {
-  return static_cast<size_t>(dp) * dp + 6 * dp + 1 +
-         7 * static_cast<size_t>(tc) * dp + 6 * tc;
-}
-
-__device__ inline Tile carve(float* s, int dp, int tc) {
-  Tile t;
-  const int m = tc * dp;
-  t.lam = s;
-  t.b = t.lam + dp * dp;
-  t.im = t.b + dp;
-  t.mean = t.im + dp;
-  t.m2 = t.mean + dp;
-  t.sums = t.m2 + dp;              // 1 + 2 dp
-  t.u0 = t.sums + 2 * dp + 1;
-  t.u = t.u0 + m;
-  t.uc = t.u + m;
-  t.p = t.uc + m;
-  t.g = t.p + m;
-  t.e0 = t.g + m;
-  t.lpe = t.e0 + m;
-  t.eps = t.lpe + m;
-  t.u01 = t.eps + tc;
-  t.lp = t.u01 + tc;
-  t.ap = t.lp + tc;
-  t.dv = t.ap + tc;
-  return t;
-}
-
-// g = b - clip(u) Λ for the thread's 4x4 blocks, then p += he * g there.
-template <int TC>
-__device__ void gradient_kick(const Tile& s, int d, int dp, bool kick) {
-  const int njg = dp / 4;
-  for (int tt = threadIdx.x; tt < (TC / 4) * njg; tt += blockDim.x) {
-    const int c0 = (tt / njg) * 4, j0 = (tt % njg) * 4;
-    float acc[4][4] = {};
-    for (int k = 0; k < d; ++k) {
-      const float4 l = *reinterpret_cast<const float4*>(&s.lam[k * dp + j0]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float uk = s.uc[(c0 + i) * dp + k];
-        acc[i][0] = fmaf(uk, l.x, acc[i][0]);
-        acc[i][1] = fmaf(uk, l.y, acc[i][1]);
-        acc[i][2] = fmaf(uk, l.z, acc[i][2]);
-        acc[i][3] = fmaf(uk, l.w, acc[i][3]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = c0 + i;
-      const float he = mul(0.5f, s.eps[c]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int idx = c * dp + j0 + jj;
-        const float gv = sub(s.b[j0 + jj], acc[i][jj]);
-        s.g[idx] = gv;
-        if (kick) s.p[idx] = add(s.p[idx], mul(he, gv));
-      }
-    }
-  }
-}
-
-// The product's input: the position itself in kernel 5 (fused_leapfrog's
-// gradient is b - uΛ, unclamped), or clamped to +-1e30 as the chunk
-// kernels clamp theirs (kernels 6 and 7 no longer run this loop; the next
-// change folds kernel 5 onto their product and drops it).
-template <bool kClamp>
-__device__ __forceinline__ float product_input(float v) {
-  return kClamp ? clip(v) : v;
-}
-
-// `steps` leapfrog steps of the tile from s.u, s.p and their gradient s.g:
-// half kick, drift, gradient, half kick, in the reference's order.
-template <int TC, bool kClamp>
-__device__ void leapfrog_steps(const Tile& s, int d, int dp, int steps) {
-  const int m = TC * dp;
-  for (int step = 0; step < steps; ++step) {
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      const int c = i / dp, j = i - c * dp;
-      const float e = s.eps[c];
-      const float p = add(s.p[i], mul(mul(0.5f, e), s.g[i]));
-      const float u = add(s.u[i], mul(mul(e, s.im[j]), p));
-      s.p[i] = p;
-      s.u[i] = u;
-      s.uc[i] = product_input<kClamp>(u);
-    }
-    __syncthreads();
-    gradient_kick<TC>(s, d, dp, true);
-    __syncthreads();
-  }
-}
-
-// fused_leapfrog (kernel 5): L leapfrog steps of a tile of chains with Λ
-// and the tile resident in shared memory, returning (u_L, p_L). No clamp,
-// no energies, no accept: those run as plain torch around it, as XLA runs
-// them around the reference kernel.
-template <int TC>
-__global__ void __launch_bounds__(kThreads)
-leapfrog_kernel(const float* __restrict__ u0, const float* __restrict__ p0,
-                const float* __restrict__ eps, const float* __restrict__ lam,
-                const float* __restrict__ b, const float* __restrict__ im,
-                int n, int d, int dp, int steps, float* __restrict__ u_out,
-                float* __restrict__ p_out) {
-  extern __shared__ float4 smem4[];
-  const Tile s = carve(reinterpret_cast<float*>(smem4), dp, TC);
-  load_quadratic(s, lam, b, im, d, dp, dp);
-  const int cb = blockIdx.x * TC;
-  for (int i = threadIdx.x; i < TC * dp; i += blockDim.x) {
-    const int c = i / dp, j = i - c * dp;
-    const bool live = cb + c < n && j < d;
-    const size_t g = static_cast<size_t>(cb + c) * d + j;
-    s.u[i] = live ? u0[g] : 0.0f;
-    s.uc[i] = s.u[i];
-    s.p[i] = live ? p0[g] : 0.0f;
-  }
-  for (int c = threadIdx.x; c < TC; c += blockDim.x)
-    s.eps[c] = cb + c < n ? eps[cb + c] : 0.0f;
-  __syncthreads();
-  gradient_kick<TC>(s, d, dp, false);
-  __syncthreads();
-  leapfrog_steps<TC, false>(s, d, dp, steps);
-  for (int i = threadIdx.x; i < TC * dp; i += blockDim.x) {
-    const int c = i / dp, j = i - c * dp;
-    if (cb + c < n && j < d) {
-      const size_t g = static_cast<size_t>(cb + c) * d + j;
-      u_out[g] = s.u[i];
-      p_out[g] = s.p[i];
-    }
-  }
-}
-
 template <int TC>
 cudaError_t launch_leapfrog(const float* u, const float* p, const float* eps,
                             const float* lam, const float* b, const float* im,
                             int n, int d, int steps, float* u_out,
                             float* p_out, cudaStream_t stream) {
   const int dp = (d + 3) / 4 * 4;
-  const size_t smem = tile_floats(dp, TC) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      leapfrog_kernel<TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  size_t smem;
+  cudaError_t e = chunk_smem<TC>(dp, smem);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(leapfrog_kernel<TC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const int grid = (n + TC - 1) / TC;
   leapfrog_kernel<TC><<<grid, kThreads, smem, stream>>>(
@@ -956,23 +839,13 @@ cudaError_t launch_leapfrog(const float* u, const float* p, const float* eps,
 
 }  // namespace
 
-// chain tiles of kernels 6 and 7 (ops/leapfrog.py:CHUNK_TILES)
+// chain tiles of kernels 5, 6 and 7 (ops/leapfrog.py:CHUNK_TILES)
 #define MODPPL_DISPATCH_CHUNK(tc, CALL) \
   switch (tc) {                         \
     case 64: return CALL(64);           \
     case 32: return CALL(32);           \
     case 16: return CALL(16);           \
     case 8: return CALL(8);             \
-    default: return static_cast<int>(cudaErrorInvalidValue); \
-  }
-
-// chain tiles of kernel 5 (ops/leapfrog.py:CHAIN_TILES)
-#define MODPPL_DISPATCH_TILE(tc, CALL) \
-  switch (tc) {                        \
-    case 32: return CALL(32);          \
-    case 16: return CALL(16);          \
-    case 8: return CALL(8);            \
-    case 4: return CALL(4);            \
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
@@ -1018,6 +891,6 @@ extern "C" int modppl_fused_leapfrog_f32(
 #define MODPPL_LEAPFROG(TC)                                                  \
   static_cast<int>(launch_leapfrog<TC>(u, p, eps, lam, b, im, n, d, steps,   \
                                        u_out, p_out, stream))
-  MODPPL_DISPATCH_TILE(tc, MODPPL_LEAPFROG)
+  MODPPL_DISPATCH_CHUNK(tc, MODPPL_LEAPFROG)
 #undef MODPPL_LEAPFROG
 }

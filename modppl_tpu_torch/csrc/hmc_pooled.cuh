@@ -1,6 +1,9 @@
 // Pieces both whole-warmup kernels share (hmc_small.cu, hmc_chunk.cu): the
 // round-to-nearest arithmetic helpers, the fixed-order tree sums that pool
-// statistics over chains, and the dual-averaging step-size update.
+// statistics over chains (tile rows and tile partials one warp a row,
+// warp_rows; more than 256 partials through shared memory, reduce_partials;
+// both in the adjacent-pairing tree's order), and the dual-averaging
+// step-size update.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +48,60 @@ __device__ inline void reduce_partials(const float* part, int rows, int ptiles,
       out[r0 + r] = red[r * ptiles];
     __syncthreads();
   }
+}
+
+// Row totals of `rows` rows of x ([rows][P], P a power of two <= 256) by
+// the adjacent-pairing tree, tree_rows' order, one warp a row: lane l sums
+// entries [l E, (l + 1) E) (E = P / 32) by the tree, then the lanes pair up
+// by shuffles (over the first P lanes when P < 32). Row r's total goes to
+// out[r * ostride]. Rows go 4 at a time, so that a warp has 4 E loads in
+// flight. The whole block calls it; one __syncthreads at the end.
+__device__ inline void warp_rows(const float* x, int rows, int P, float* out,
+                                 int ostride) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int E = P > 32 ? P / 32 : 1;
+  const int span = P < 32 ? P : 32;
+  for (int r0 = 4 * warp; r0 < rows; r0 += 4 * warps) {
+    float v[4][8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int t = lane * E + m;
+        v[q][m] = (r0 + q < rows && m < E && t < P)
+                      ? x[static_cast<size_t>(r0 + q) * P + t] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int st = 1; st < 8; st <<= 1) {
+        if (st < E) {
+#pragma unroll
+          for (int m = 0; m < 8; m += 2 * st)
+            v[q][m] = add(v[q][m], v[q][m + st]);
+        }
+      }
+      float t = v[q][0];
+      for (int st = 1; st < span; st <<= 1)
+        t = add(t, __shfl_down_sync(0xffffffffu, t, st));
+      if (lane == 0 && r0 + q < rows)
+        out[static_cast<size_t>(r0 + q) * ostride] = t;
+    }
+  }
+  __syncthreads();
+}
+
+// Totals over tiles of tile partials into out (reduce_partials' result,
+// bit for bit): by warps when ptiles <= 256, else through the shared
+// scratch `red` of `cap` floats.
+__device__ inline void pooled_totals(const float* part, int rows, int ptiles,
+                                     float* red, int cap, float* out) {
+  if (ptiles <= 256)
+    warp_rows(part, rows, ptiles, out, 1);
+  else
+    reduce_partials(part, rows, ptiles, red, cap, out);
 }
 
 // Whether iteration t lies in a slow window, and whether a slow window ends

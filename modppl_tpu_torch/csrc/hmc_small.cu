@@ -28,7 +28,9 @@
 // PyTorch's CUDA kernels call them. Pooled sums over chains are the
 // adjacent-pairing tree over the chain axis zero-padded to a power of two
 // (the plain versions' _tree_sum): a tree inside each 256-chain tile, then
-// the same tree over the tile totals.
+// the same tree over the tile totals. The tree over 2^k entries splits at
+// any aligned power-of-two boundary, so that is the one tree over all
+// chains.
 //
 // The warmup pools statistics over ALL chains every iteration (the accept
 // mean for dual averaging; in slow windows the batch mean, then the
@@ -39,7 +41,16 @@
 // order and updates its own copy of the dual-averaging, Welford and
 // inverse-mass state, so no scalar is ever broadcast and no float atomic
 // is used: a run repeats bitwise. Partials are double-buffered by
-// iteration parity, so one sync per reduction suffices.
+// iteration parity, so one sync per reduction suffices, and a slow
+// iteration's squared deviations are pooled after the next iteration's
+// grid.sync() (merge_batch): one grid.sync() an iteration, plus one at the
+// end of each slow window, where the inverse mass needs them at once. The
+// tile sums and the sums over tile partials are each one warp a row
+// (hmc_pooled.cuh: warp_rows, one __syncthreads; reduce_partials above 256
+// tiles), not a __syncthreads a tree level. When every block holds one
+// tile, each chain's position stays in its thread's registers for the
+// whole warmup, and the next iteration's streams are loaded before the
+// grid.sync().
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -224,6 +235,38 @@ struct WarmupState {
   float sums[kRedRows];   // this iteration's pooled sums
 };
 
+// One chain's streams of warmup iteration t: standard normals z, the step
+// size's jitter and the accept uniform.
+template <int D>
+__device__ __forceinline__ void load_streams(const float* z, const float* jit,
+                                             const float* u01, int n, int t,
+                                             int c, float (&zc)[D], float& jc,
+                                             float& uc01) {
+  const size_t r = static_cast<size_t>(t) * n + c;
+#pragma unroll
+  for (int j = 0; j < D; ++j) zc[j] = z[r * D + j];
+  jc = jit[r];
+  uc01 = u01[r];
+}
+
+// A slow iteration's batch into the window's Chan-Welford moments, after a
+// grid.sync(): the pooled squared deviations from partials buffer pbuf
+// ([row][ptiles], rows 1 + D .. 2 D), with the batch's mean still in
+// st.sums[1 .. D]. The whole block calls it.
+template <int D>
+__device__ void merge_batch(const float* pbuf, int ptiles, float* red,
+                            WarmupState& st, float c_live) {
+  pooled_totals(pbuf + (1 + D) * ptiles, D, ptiles, red, kRedRows * kTile,
+                st.sums + 1 + D);
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < D; ++j)
+      welford_merge(st.mean[j], st.m2[j], st.sums[1 + j], st.sums[1 + D + j],
+                    st.da.nw, c_live);
+    st.da.nw = add(st.da.nw, c_live);
+  }
+  __syncthreads();
+}
+
 template <int D>
 __global__ void __launch_bounds__(kTile)
 warmup_small_kernel(float* __restrict__ u, const float* __restrict__ z,
@@ -249,9 +292,25 @@ warmup_small_kernel(float* __restrict__ u, const float* __restrict__ z,
       st.im[j] = 1.0f;
     }
   }
-  __syncthreads();
   const float c_live = static_cast<float>(n);
   const int rows = 1 + 2 * D;
+  // One tile a block: each thread keeps its chain's position in registers
+  // from one iteration to the next (written to u at the end), and loads the
+  // next iteration's streams before the grid.sync(), which hides their
+  // latency. Otherwise blocks walk several tiles, each chain's position
+  // goes through u, and its streams are loaded where they are used.
+  const bool resident = gridDim.x >= ntiles;
+  float uc[D], zc[D], jc = 0.0f, uc01 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < D; ++j) uc[j] = zc[j] = 0.0f;
+  const int c_res = blockIdx.x * kTile + tid;
+  bool pending = false;   // a merge_batch waits for the next grid.sync()
+  if (resident && c_res < n) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) uc[j] = u[static_cast<size_t>(c_res) * D + j];
+    load_streams<D>(z, jit, u01, n, 0, c_res, zc, jc, uc01);
+  }
+  __syncthreads();
 
   for (int t = 0; t < num; ++t) {
     bool in_slow, at_end;
@@ -273,22 +332,26 @@ warmup_small_kernel(float* __restrict__ u, const float* __restrict__ z,
     // pass 1: every chain's transition; tile sums of aprob (and of u)
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int c = tile * kTile + tid;
-      float uc[D];
       float ap = 0.0f;
       if (c < n) {
-        const size_t r = static_cast<size_t>(t) * n + c;
+        if (!resident) {
+#pragma unroll
+          for (int j = 0; j < D; ++j) uc[j] = u[static_cast<size_t>(c) * D + j];
+          load_streams<D>(z, jit, u01, n, t, c, zc, jc, uc01);
+        }
         float p[D];
 #pragma unroll
-        for (int j = 0; j < D; ++j) {
-          uc[j] = u[static_cast<size_t>(c) * D + j];
-          p[j] = mul(z[r * D + j], rsqrtf(st.im[j]));
-        }
+        for (int j = 0; j < D; ++j) p[j] = mul(zc[j], rsqrtf(st.im[j]));
         float lp, h0, h1;
         bool dv;
-        transition<D>(lam, b, st.im, uc, p, mul(eps_t, jit[r]), u01[r],
-                      steps, lp, ap, dv, h0, h1);
+        transition<D>(lam, b, st.im, uc, p, mul(eps_t, jc), uc01, steps, lp,
+                      ap, dv, h0, h1);
+        if (!resident) {
 #pragma unroll
-        for (int j = 0; j < D; ++j) u[static_cast<size_t>(c) * D + j] = uc[j];
+          for (int j = 0; j < D; ++j) u[static_cast<size_t>(c) * D + j] = uc[j];
+        } else if (t + 1 < num) {
+          load_streams<D>(z, jit, u01, n, t + 1, c, zc, jc, uc01);
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < D; ++j) uc[j] = 0.0f;
@@ -299,12 +362,15 @@ warmup_small_kernel(float* __restrict__ u, const float* __restrict__ z,
         for (int j = 0; j < D; ++j) red[(1 + j) * kTile + tid] = uc[j];
       }
       __syncthreads();
-      tree_rows(red, r1, kTile);
-      if (tid < r1) pb[tid * ptiles + tile] = red[tid * kTile];
-      __syncthreads();
+      warp_rows(red, r1, kTile, pb + tile, ptiles);
     }
     grid.sync();
-    reduce_partials(pb, r1, ptiles, red, kRedRows * kTile, st.sums);
+    if (pending) {
+      merge_batch<D>(part + static_cast<size_t>((t - 1) & 1) * rows * ptiles,
+                     ptiles, red, st, c_live);
+      pending = false;
+    }
+    pooled_totals(pb, r1, ptiles, red, kRedRows * kTile, st.sums);
 
     if (tid == 0) {
       st.da.update(quo(st.sums[0], c_live), target);
@@ -320,27 +386,31 @@ warmup_small_kernel(float* __restrict__ u, const float* __restrict__ z,
       for (int j = 0; j < D; ++j) {
         float sq = 0.0f;
         if (c < n) {
-          const float dv = sub(u[static_cast<size_t>(c) * D + j],
-                               st.sums[1 + j]);
+          const float x = resident ? uc[j] : u[static_cast<size_t>(c) * D + j];
+          const float dv = sub(x, st.sums[1 + j]);
           sq = mul(dv, dv);
         }
         red[j * kTile + tid] = sq;
       }
       __syncthreads();
-      tree_rows(red, D, kTile);
-      if (tid < D) pb[(1 + D + tid) * ptiles + tile] = red[tid * kTile];
-      __syncthreads();
+      warp_rows(red, D, kTile, pb + (1 + D) * ptiles + tile, ptiles);
     }
-    grid.sync();
-    reduce_partials(pb + (1 + D) * ptiles, D, ptiles, red, kRedRows * kTile,
-                    st.sums + 1 + D);
-    if (tid == 0) {
-      for (int j = 0; j < D; ++j)
-        welford_merge(st.mean[j], st.m2[j], st.sums[1 + j],
-                      st.sums[1 + D + j], st.da.nw, c_live);
-      st.da.nw = add(st.da.nw, c_live);
+    // These partials ride on the next iteration's grid.sync() and are
+    // merged right after it, before that iteration's totals overwrite this
+    // batch mean. At a window's last iteration (the next one takes the
+    // inverse mass from m2) and at the warmup's last, they merge at once.
+    bool next_slow, next_end;
+    window_flags(sch, nwin, t + 1, next_slow, next_end);
+    if (next_end || t + 1 == num) {
+      grid.sync();
+      merge_batch<D>(pb, ptiles, red, st, c_live);
+    } else {
+      pending = true;
     }
-    __syncthreads();
+  }
+  if (resident && c_res < n) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) u[static_cast<size_t>(c_res) * D + j] = uc[j];
   }
   if (blockIdx.x == 0 && tid == 0) {
     *eps_out = expf(st.da.leb);

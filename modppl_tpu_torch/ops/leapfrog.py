@@ -1,5 +1,5 @@
 """HMC on quadratic targets at larger d: the whole-phase chunks at d >= 13
-(kernels 6 and 7), the leapfrog integration alone at any d that fits
+(kernels 6 and 7), the leapfrog integration alone at any d to 224
 (kernel 5), and the fixed-step-size API built on it.
 
 Counterpart of modppl_tpu/ops/leapfrog_pallas.py. The target is
@@ -10,18 +10,16 @@ energies e = -u(b+g)/2 + im p^2/2, dH the sum of the finite (e0 - e1)
 terms (any non-finite term marks the chain divergent), logp = u.(b+g)/2,
 and the chunk kernels' gradient input clamped to +-1e30.
 
-Two shared-memory layouts, each mirrored here so that the wrappers pick
-the tile and check the limits before a launch:
-- kernels 6 and 7 (``chunk_smem_bytes``, ``chunk_tile``,
-  ``chunk_max_chains``): Λ, two k-major buffers of the product's input
-  (which also serve as the warmup's reduction scratch), one prefetched
-  transition of streams, and per-chain scalars; each thread of the 256
-  owns a 4-chain x 4-coordinate block and keeps that block's chain state
-  in registers, so a tile of TC chains needs TC dp <= 4096 (dp = d
-  rounded up to 4). TC is 64 to d = 64, 32 to d = 128, 16 or 8 above,
-  and d = 224 is the largest that fits.
-- kernel 5 (``smem_bytes``, ``chain_tile``): Λ and the tile's positions,
-  momenta and gradients, 32 chains to d = 128, fewer above, to d = 224.
+All three kernels run one product on one shared-memory carve-up, mirrored
+here (``chunk_smem_bytes``, ``chunk_tile``, ``chunk_max_chains``) so that
+the wrappers pick the tile and check the limits before a launch: Λ, two
+k-major buffers of the product's input (which also serve as the warmup's
+reduction scratch), one prefetched transition of streams, and per-chain
+scalars (kernel 5 leaves the last two unused). Each thread of the 256
+owns a 4-chain x 4-coordinate block and keeps that block's chain state in
+registers, so a tile of TC chains needs TC dp <= 4096 (dp = d rounded up
+to 4). TC is 64 to d = 64, 32 to d = 128, 16 or 8 above, and d = 224 is
+the largest that fits.
 
 - ``sample_chunk(u, mom, epsj, u01, lam, b, inv_mass, num_steps)``: the
   whole sampling phase from pre-drawn momenta (already scaled by
@@ -79,7 +77,6 @@ from modppl_tpu_torch.ops.leapfrog_small import (
 # shared memory a block may take on an H100 (227 KB), less room for the
 # kernels' static shared variables
 MAX_SMEM = 232448 - 1024
-CHAIN_TILES = (32, 16, 8, 4)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,25 +88,7 @@ _WARMUP_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
 _LEAPFROG_ARGS = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P)
 
 
-def smem_bytes(d, tile):
-    """Dynamic shared memory of kernel 5's CTA holding Λ and ``tile``
-    chains (csrc/hmc_chunk.cu:tile_floats)."""
-    dp = -(-d // 4) * 4
-    return 4 * (dp * dp + 6 * dp + 1 + 7 * tile * dp + 6 * tile)
-
-
-def chain_tile(d):
-    """Kernel 5's most chains per CTA (of CHAIN_TILES) whose tiles fit
-    beside Λ in shared memory; raises above the largest d that fits (224)."""
-    for tile in CHAIN_TILES:
-        if smem_bytes(d, tile) <= MAX_SMEM:
-            return tile
-    raise ValueError(f"hmc chunk kernels: d={d} does not fit in shared "
-                     f"memory ({MAX_SMEM} bytes a block); the largest d is "
-                     f"224")
-
-
-# kernels 6 and 7: chains per CTA, threads per CTA (each owns 4 x 4 of the
+# kernels 5, 6 and 7: chains per CTA, threads per CTA (each owns 4 x 4 of the
 # tile's chains x coordinates)
 CHUNK_TILES = (64, 32, 16, 8)
 CHUNK_THREADS = 256
@@ -117,7 +96,7 @@ CHUNK_MAX_DIM = 224
 
 
 def chunk_smem_bytes(d, tile):
-    """Dynamic shared memory of kernel 6's or 7's CTA holding Λ (rows 64
+    """Dynamic shared memory of kernel 5's, 6's or 7's CTA holding Λ (rows 64
     floats apart at tile 64, 128 at tile 32, else dp), two k-major
     (dp, tile) input buffers (rows padded by 4 floats at tile >= 32), one
     prefetched (tile, dp) stream and the per-chain scalars
@@ -130,7 +109,7 @@ def chunk_smem_bytes(d, tile):
 
 
 def chunk_tile(d):
-    """Kernels 6 and 7's most chains per CTA (of CHUNK_TILES) whose 4 x 4
+    """Kernels 5, 6 and 7's most chains per CTA (of CHUNK_TILES) whose 4 x 4
     blocks the CTA's threads cover and whose buffers fit beside Λ in shared
     memory; raises above the largest d that fits (224)."""
     dp = -(-d // 4) * 4
@@ -293,7 +272,7 @@ def fused_leapfrog(u, p, eps, lam, b, inv_mass, num_steps):
     if u.device.type == "cpu":
         return fused_leapfrog_plain(u, p, eps, lam, b, inv_mass, num_steps)
     name = "fused_leapfrog"
-    tile = chain_tile(d)
+    tile = chunk_tile(d)
     check_quadratic(name, n, d, u.device, d, lam=lam, b=b, inv_mass=inv_mass)
     check_f32(name, u.device, u=u, p=p)
     require(tuple(p.shape) == (n, d), name, f"p of shape ({n}, {d})")

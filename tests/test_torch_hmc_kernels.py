@@ -185,14 +185,23 @@ def test_divergent_chain_leaves_others_bitwise_unchanged():
 
 
 def test_chain_tile_and_shared_memory_limit():
-    """The d >= 13 kernels hold Λ and a chain tile in shared memory: 32
-    chains to d = 128, fewer above, and a clear error past d = 224."""
-    assert leapfrog.chain_tile(128) == 32
-    assert leapfrog.chain_tile(160) == 16
-    assert leapfrog.smem_bytes(160, 16) <= leapfrog.MAX_SMEM
-    assert leapfrog.chain_tile(224) == 4
+    """Kernel 5 (fused_leapfrog) takes kernels 6 and 7's tile and carve-up:
+    a tile fits the CTA's threads and shared memory at d = 13, 128 and 224
+    (and at d = 3, which only kernel 5 takes), d = 128 keeps its 32 chains
+    a CTA, and at d = 232 the wrapper raises before a launch."""
+    for d in (3, 13, 128, 224):
+        dp = -(-d // 4) * 4
+        tile = leapfrog.chunk_tile(d)
+        assert tile * dp <= 16 * leapfrog.CHUNK_THREADS
+        assert leapfrog.chunk_smem_bytes(d, tile) <= leapfrog.MAX_SMEM
+    assert leapfrog.chunk_tile(128) == 32
     with pytest.raises(ValueError, match="shared memory"):
-        leapfrog.chain_tile(232)
+        leapfrog.chunk_tile(232)
+    # off the CPU the wrapper picks the tile first (a meta tensor reaches
+    # the kernel path without a card)
+    u = torch.empty(4, 232, device="meta")
+    with pytest.raises(ValueError, match="largest d is 224"):
+        leapfrog.fused_leapfrog(u, u, 0.1, None, None, None, 8)
 
 
 @pytest.mark.parametrize("d,tile", [(13, 64), (64, 64), (128, 32),
@@ -231,3 +240,80 @@ def test_quadratic_logp_matches_reference(d):
         leapfrog.quadratic_logp(tensor(u), tensor(lam), tensor(b)).numpy(),
         np.asarray(jmxu.quadratic_logp(jnp.asarray(u), jnp.asarray(lam),
                                        jnp.asarray(b))), **TOL)
+
+
+def _spread_f32(n, seed):
+    """float32 values over many binades and both signs, so that any change
+    of add order shows in the bits."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n) * np.exp(rng.uniform(-12, 12, n))
+    return x.astype(np.float32)
+
+
+def _warp_rows_model(x):
+    """One row's total in csrc/hmc_pooled.cuh:warp_rows' order, P = len(x)
+    a power of two <= 256: lane l sums its chunk [l E, (l + 1) E),
+    E = max(1, P / 32), by the adjacent-pairing tree, then lane l adds
+    lane l + s's partial for s = 1, 2, 4, ... < min(P, 32) (a shuffle down
+    past lane 31 returns the lane's own value); lane 0 holds the total."""
+    P = x.shape[0]
+    E, span = max(1, P // 32), min(P, 32)
+    v = np.zeros((32, 8), np.float32)
+    for lane in range(32):
+        for m in range(min(E, 8)):
+            if lane * E + m < P:
+                v[lane, m] = x[lane * E + m]
+    st = 1
+    while st < E:
+        for m in range(0, 8, 2 * st):
+            v[:, m] = v[:, m] + v[:, m + st]
+        st *= 2
+    t = v[:, 0].copy()
+    st = 1
+    while st < span:
+        t = t + np.concatenate([t[st:], t[32 - st:]])
+        st *= 2
+    return t[0]
+
+
+@pytest.mark.parametrize("P", [4, 32, 64, 256])
+def test_warp_rows_order_is_the_tree(P):
+    """The warmups pool one warp a row (warp_rows); its order is the
+    adjacent-pairing tree, so the sum is bitwise the port's and the
+    reference's _tree_sum in float32."""
+    from modppl_tpu.inference.adaptation import _tree_sum as j_tree_sum
+    from modppl_tpu_torch.inference.adaptation import _tree_sum
+
+    for seed in range(5):
+        x = _spread_f32(P, 1000 * P + seed)
+        got = _warp_rows_model(x)
+        want = _tree_sum(torch.from_numpy(x))
+        assert want.dtype == torch.float32
+        assert got.tobytes() == want.numpy().tobytes()
+        assert got.tobytes() == np.asarray(j_tree_sum(jnp.asarray(x))).tobytes()
+
+
+@pytest.mark.parametrize("n", [10_000, 100_000])
+@pytest.mark.parametrize("tile", [64, 128, 256])
+def test_tile_trees_then_partials_tree_is_one_tree(tile, n):
+    """The warmups' pooled sum: a tree inside each tile of chains (the last
+    one zero-padded), then a tree over the tile totals zero-padded to a
+    power of two. For a power-of-two tile that is one tree over the chains
+    zero-padded to the next power of two, whatever the tile: the bits of
+    _tree_sum over all chains, which the plain versions take."""
+    from modppl_tpu_torch.inference.adaptation import _tree_sum
+
+    x = _spread_f32(n, tile + n)
+    ntiles = -(-n // tile)
+    padded = np.zeros(ntiles * tile, np.float32)
+    padded[:n] = x
+    tiles = torch.from_numpy(padded.reshape(ntiles, tile))
+    partials = _tree_sum(tiles.T)                 # (ntiles,) tile totals
+    for i in (0, ntiles - 1):
+        assert partials[i].numpy().tobytes() == _warp_rows_model(
+            tiles[i].numpy()).tobytes()
+    got = _tree_sum(partials)                     # pads to ptiles
+    want = _tree_sum(torch.from_numpy(x))
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+    ptiles = 1 << (ntiles - 1).bit_length()
+    assert ptiles * tile == 1 << (n - 1).bit_length()
