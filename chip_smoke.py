@@ -46,8 +46,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    events, L2 flushed before each launch; median of 20);
 6. holds the four HMC kernels against their plain versions on the card:
    the d <= 12 pair bitwise (d = 3 at 10^4 chains over the full 500 / 300
-   iterations, d = 12 over 20 / 60; the warmup also over more than 256
-   tile partials, ``MANY_SMALL``), the d >= 13 pair at d = 13, 64, 128
+   iterations, d = 12 over 20 / 60; the sampling kernel also at d = 1, 3,
+   5, 8 and 12 over 10 007 chains, a partial last block, and T shorter
+   than its stream ring or wrapping it, ``SAMPLE_CASES``; the warmup also
+   over more than 256 tile partials, ``MANY_SMALL``), the d >= 13 pair at
+   d = 13, 64, 128
    and 160, every output to the tolerances below (and reports whether
    bitwise), the sampling kernel alone with forced accepts at d = 224,
    the widest it takes, and the warmup alone at d = 13 over 20000 chains
@@ -63,7 +66,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. holds the three slice-3 kernels against their plain versions on the
    card: ``grid_rank`` bitwise at N = 2^20, 2^16 and 100003 with the three
    weight kinds, ``hmc_transition_small`` bitwise on all seven outputs at
-   d = 3 and 7 (10^4 chains), ``fused_leapfrog`` bitwise at
+   d = 3 and 7 (10^4 chains) and d = 1 and 5 (10 007 chains),
+   ``fused_leapfrog`` bitwise at
    d = 3, 8, 13, 64, 128 and 224 (one call of 32 steps); each twice;
 10. runs the HMM leg with the counters at 0 and requires 9 launches of
     ``grid_rank`` and none of kernel 3, a log-ML within 0.03 of the exact
@@ -84,14 +88,17 @@ gives no idle share.
 
     python3 chip_smoke.py --turns OTHER_TREE
 
-instead compares two checkouts on one card: it times the d >= 13 chunk
-kernels and ``fused_leapfrog`` at the ill-conditioned leg's shapes,
-``hmc_warmup_chunk_small`` at the hierarchical leg's, both legs
-(``time_leg``) and ``hmc_quadratic`` at d = 128 (``time_quad``) with each
-tree's own code, in turns (other, this, this, other; each turn a process
-of its own run from that tree's root), and prints one JSON line per turn
-with a digest of each kernel's outputs, so the turns also show whether
-the two trees agree bitwise.
+instead compares two checkouts on one card: it times kernels 5-10 (the
+d >= 13 chunk kernels and ``fused_leapfrog`` at the ill-conditioned leg's
+shapes, the d <= 12 chunk kernels at the hierarchical leg's,
+``hmc_transition_small`` at (10^4, 3) with L = 8), both legs
+(``time_leg``) and ``hmc_quadratic`` on both legs' targets (d = 128 and
+d = 3, ``time_quad``; at d = 3 also one profiled run: the card's busy ms
+and ``hmc_transition_small``'s us a launch on its path) with each tree's
+own code, in turns (other, this, this, other; each turn a process of its
+own run from that tree's root), and prints one JSON line per turn with a
+digest of each kernel's outputs, so the turns also show whether the two
+trees agree bitwise.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -508,6 +515,12 @@ WIDEST = (224, 1024)
 MANY_CHAINS = (13, 20_000, 60)
 # the d <= 12 pair's bitwise checks: (d, chains, sampling T, warmup T)
 SMALL_CASES = ((3, 10_000, 500, 300), (12, 10_000, 20, 60))
+# the d <= 12 sampling kernel alone, bitwise, at the edges of its launch
+# (csrc/hmc_small.cu): (d, chains, T). 10 007 chains leave a partial last
+# block; T = 1 and 3 are shorter than its stream ring, T = 40 wraps it
+# several times; d = 8 is the widest with Λ in registers, d = 12 the widest.
+SAMPLE_CASES = ((1, 10_007, 40), (3, 10_007, 1), (5, 10_007, 40),
+                (8, 10_007, 3), (8, 10_007, 40), (12, 10_007, 40))
 # the d <= 12 warmup over more than 256 tile partials of 256 chains, pooled
 # through shared memory (reduce_partials), bitwise: (d, chains, warmup T).
 # At d = 12 there are more tiles than blocks fit on the card at once, so
@@ -603,6 +616,18 @@ def check_hmc_kernels(device):
         for what, x, y in zip(("us", "eps", "inv_mass"), got, want):
             errs.same("hmc_warmup_chunk_small", f"{what} (d={d}, T={t_w})",
                       x, y)
+        sync(device)
+    for d, n, t_s in SAMPLE_CASES:
+        lam, b, im, u0 = quad_problem(d, n, 500 + d, device)
+        z, jit, u01 = lfs.phase_draws(600 + 10 * d + t_s, t_s, n, d, f32,
+                                      device)
+        args = (u0, z / torch.sqrt(im), 0.3 * jit, u01, lam, b, im, 8)
+        got = _twice("hmc_sample_chunk_small",
+                     lambda: lfs.sample_chunk_small(*args))
+        want = lfs.sample_chunk_small_plain(*args)
+        for what, x, y in zip(("us", "logp", "aprob", "divergent"), got, want):
+            errs.same("hmc_sample_chunk_small", f"{what} (d={d}, N={n}, "
+                      f"T={t_s})", x, y)
         sync(device)
     for d, n, t_w in MANY_SMALL:
         lam, b, _, u0 = quad_problem(d, n, 300 + d, device)
@@ -926,8 +951,9 @@ RANK_SIZES = (1 << 20, 1 << 16, 100_003)
 # kernel each transition launches
 QUAD_KERNEL = {"hierarchical": "hmc_transition_small",
                "illcond": "fused_leapfrog"}
-# hmc_transition_small's bitwise checks: (d, chains)
-TRANSITION_CASES = ((3, 10_000), (7, 10_000))
+# hmc_transition_small's bitwise checks: (d, chains); 10 007 chains leave a
+# partial last block
+TRANSITION_CASES = ((3, 10_000), (7, 10_000), (1, 10_007), (5, 10_007))
 # fused_leapfrog vs its plain version, bitwise, one call of L = 32 steps
 # each: (d, chains). d = 3 is below the chunk kernels' range (the wrapper
 # is public), d = 13 has padded coordinates and a partial last tile, and
@@ -1331,11 +1357,15 @@ from modppl_tpu_torch.ops import leapfrog as lf
 from modppl_tpu_torch.ops import leapfrog_small as lfs
 
 _build.build()
-warm_small, _ = cs.leg_inputs("hierarchical")
+warm_small, samp_small = cs.leg_inputs("hierarchical")
 warm, samp = cs.leg_inputs("illcond")
 lam, b, im, u0 = cs.quad_problem(128, 4096, 70, "cuda")
 z, jit, _ = lfs.phase_draws(71, 1, 4096, 128, torch.float32, "cuda")
 leap = (u0, z[0] / torch.sqrt(im), 0.1 * jit[0], lam, b, im, 32)
+lam, b, im, u0 = cs.quad_problem(3, 10_000, 70, "cuda")
+z, jit, u01 = lfs.phase_draws(71, 1, 10_000, 3, torch.float32, "cuda")
+trans = (u0, z[0] / torch.sqrt(im), 0.1 * jit[0], u01[0], lam, b, im, 8)
+flat = lambda out: (*out[0], *out[1:])
 digest = lambda xs: hashlib.sha256(b"".join(
     x.cpu().numpy().tobytes() for x in xs)).hexdigest()[:16]
 out = {}
@@ -1345,16 +1375,37 @@ with cs.full_fp32():
             ("hmc_sample_chunk", lf.sample_chunk, samp, 5),
             ("fused_leapfrog", lf.fused_leapfrog, leap, 20),
             ("hmc_warmup_chunk_small", lfs.warmup_chunk_small, warm_small,
-             5)):
+             5),
+            ("hmc_sample_chunk_small", lfs.sample_chunk_small, samp_small,
+             5),
+            ("hmc_transition_small",
+             lambda *a: flat(lfs.hmc_transition_small(*a)), trans, 20)):
         out[name + "_digest"] = digest(fn(*args))
         out[name + "_ms"] = cs.time_ms(lambda: fn(*args), reps=reps, warmup=1)
 for leg in ("illcond", "hierarchical"):
     med, times, ess_min, _, _ = cs.time_leg(leg)
     out.update({leg + "_leg_ms": med * 1e3, leg + "_ess_min": ess_min,
                 leg + "_leg_runs_ms": [t * 1e3 for t in times]})
-med, times, _, _ = cs.time_quad("illcond", cs.quad_leg("illcond"))
-out.update(quad_illcond_ms=med * 1e3,
-           quad_illcond_runs_ms=[t * 1e3 for t in times])
+for leg in ("illcond", "hierarchical"):
+    quad = cs.quad_leg(leg)
+    med, times, ess_min, _ = cs.time_quad(leg, quad)
+    out.update({f"quad_{leg}_ms": med * 1e3, f"quad_{leg}_ess_min": ess_min,
+                f"quad_{leg}_runs_ms": [t * 1e3 for t in times]})
+# one profiled hmc_quadratic run at d = 3: kernel 8's us a launch on its
+# path, and the card's busy ms
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+with cs.full_fp32(), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+    cs.run_quad("hierarchical", quad, 41)
+    torch.cuda.synchronize()
+rows = [e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+hits = [e for e in rows if "transition_small_kernel" in e.key]
+out["quad_hierarchical_busy_ms"] = sum(e.device_time_total for e in rows) / 1e3
+out["hmc_transition_small_path_us"] = (
+    sum(e.device_time_total for e in hits) / sum(e.count for e in hits)
+    if hits else None)
 print("TURN " + json.dumps(out))
 """
 
@@ -1439,7 +1490,8 @@ def main(argv):
 
     hmc_errs, agree, bitwise = check_hmc_kernels("cuda")
     print("# HMC d <= 12 kernels == plain versions on the card, bitwise "
-          "(d=3 N=10^4 T=500/300, d=12 N=10^4 T=20/60; warmup (d, N, T) in "
+          "(d=3 N=10^4 T=500/300, d=12 N=10^4 T=20/60; sampling (d, N, T) "
+          f"in {list(SAMPLE_CASES)}; warmup (d, N, T) in "
           f"{list(MANY_SMALL)}); d >= 13 within "
           f"tolerance at d in {[d for d, _ in WIDE_DIMS]}, sampling with "
           f"forced accepts at d={WIDEST[0]}, warmup at d={MANY_CHAINS[0]} "

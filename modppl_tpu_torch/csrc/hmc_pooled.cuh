@@ -1,9 +1,9 @@
-// Pieces both whole-warmup kernels share (hmc_small.cu, hmc_chunk.cu): the
-// round-to-nearest arithmetic helpers, the fixed-order tree sums that pool
-// statistics over chains (tile rows and tile partials one warp a row,
-// warp_rows; more than 256 partials through shared memory, reduce_partials;
-// both in the adjacent-pairing tree's order), and the dual-averaging
-// step-size update.
+// Pieces hmc_small.cu and hmc_chunk.cu share: the round-to-nearest
+// arithmetic helpers, the 4-byte cp.async their stream prefetches use, the
+// fixed-order tree sums that pool statistics over chains in both whole
+// warmups (tile rows and tile partials one warp a row, warp_rows; more than
+// 256 partials through shared memory, reduce_partials; both in the
+// adjacent-pairing tree's order), and the dual-averaging step-size update.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,6 +16,15 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
+
+// 4 bytes from device memory into shared memory, asynchronously (cp.async,
+// cached in L1); zero-filled where !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a),
+               "l"(src), "r"(valid ? 4 : 0));
+}
 
 // In-place adjacent-pairing tree sums of `rows` rows of x ([rows][P], P a
 // power of two): row r's total ends in x[r * P]. The whole block calls it.

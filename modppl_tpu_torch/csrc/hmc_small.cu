@@ -5,20 +5,45 @@
 // (Pallas body _chunk_kernel), :hmc_warmup_chunk_small (Pallas body
 // _warmup_kernel) and :hmc_transition_small (Pallas body _kernel over
 // _transition_core). The target is logp(u) = b.u - u.Λu/2, grad = b - Λu.
-// Kernel 8 is one launch per transition (hmc_quadratic runs one a
-// transition), so at 10^4 chains and d = 3 its time is launch latency.
 //
 // What bounds them on the card: latency. Per chain and transition the work
 // is L leapfrog steps of d^2 multiply-adds, a few hundred flops, against
 // (2d + 5) floats of traffic, and the T transitions of a chain are a strict
-// sequence; at N = 10^4 chains there are fewer threads than the card holds.
-// The design keeps every chain's whole phase in one thread's registers
-// (positions, momenta, gradients), with Λ, b and the inverse mass in
-// shared memory, a template on d so the d^2 gradient terms unroll, and a
-// loop over all T transitions inside the kernel: one launch per phase,
-// device memory touched only to read each transition's pre-drawn randoms
-// and write its outputs. The TPU kernel's (8d, N/8) sublane packing and its
-// parameter tile have no counterpart: a thread per chain needs neither.
+// sequence; at N = 10^4 chains there are fewer threads than the card holds,
+// one warp a scheduler at most, so nothing hides one chain's latency behind
+// another's. Every chain is one thread, its state (positions, momenta,
+// gradients) in registers, with a template on d so the d^2 gradient terms
+// unroll. The TPU kernel's (8d, N/8) sublane packing and its parameter tile
+// have no counterpart: a thread per chain needs neither.
+//
+// Kernel 9 loops over all T transitions in one launch. A transition's
+// dependent chain is ~450-600 cycles at d = 3, L = 8 (eight steps of about
+// ten dependent FP32 operations, the Hamiltonians, expf, the select), so a
+// load issued when the transition starts would stall it for a whole DRAM
+// round trip (~0.6-0.8 us: the streams are new each transition and never
+// in L2). So each thread copies its own chain's streams (the momenta, the
+// step size, the accept uniform) into a ring of kStages slots in shared
+// memory with cp.async, kStages - 1 transitions ahead of the one it
+// computes. A thread only ever reads the slots it filled, so
+// cp.async.wait_group alone guards a slot, and no block barrier does; the
+// slot refilled at transition t was read at t - 1, before t's wait (a
+// compiler memory barrier), and its values fed t - 1's arithmetic. Three
+// transitions ahead (kStages = 4, ~1 us of arithmetic at the measured
+// ~0.35 us a transition) cover the round trip: at the hierarchical leg's
+// shapes a ring of 4 or 8 gives the same time, 1.24x that of the same loop
+// with no DRAM traffic at all, and a ring of 2 is 37% slower. 32 chains a
+// block run ~30% faster than 64 or 128, and ~25% faster with no DRAM
+// traffic, though no SM holds more than four warps, one for each of its
+// schedulers, either way (csrc/probes/small_cost.py; PERF.md §6). Λ, b and
+// the inverse mass are read once into registers (__ldg, every lane the same
+// address): at d = 12 that is 168 floats and the kernel takes 241
+// registers, with no spills.
+//
+// Kernel 8 is one launch per transition (hmc_quadratic runs one a
+// transition), so at 10^4 chains and d = 3 its time is launch latency plus
+// one chain's transition. It makes one memory round trip: every load (u, p,
+// eps, u01 and the coefficients into registers) is issued at entry, with
+// no shared-memory staging and no block barrier.
 //
 // Exactness contract, so that results are bitwise those of the plain
 // versions in ops/leapfrog_small.py on the same inputs: every add, multiply
@@ -63,7 +88,24 @@ namespace {
 using namespace modppl;
 
 constexpr int kMaxDim = 12;
-constexpr int kSampleBlock = 128;
+// Kernel 9's chains a block and ring depth, kernel 8's chains a block
+// (ops/leapfrog_small.SAMPLE_BLOCK, SAMPLE_STAGES, TRANSITION_BLOCK). The
+// probe csrc/probes/small_cost.py builds this file with other values to
+// time them; the kernel library never does.
+#ifndef MODPPL_SAMPLE_BLOCK
+#define MODPPL_SAMPLE_BLOCK 32
+#endif
+#ifndef MODPPL_SAMPLE_STAGES
+#define MODPPL_SAMPLE_STAGES 4
+#endif
+#ifndef MODPPL_TRANSITION_BLOCK
+#define MODPPL_TRANSITION_BLOCK 128
+#endif
+constexpr int kSampleBlock = MODPPL_SAMPLE_BLOCK;
+constexpr int kStages = MODPPL_SAMPLE_STAGES;
+constexpr int kTransitionBlock = MODPPL_TRANSITION_BLOCK;
+static_assert(kStages >= 2 && (kStages & (kStages - 1)) == 0,
+              "kStages is a power of two, at least 2");
 constexpr int kTile = 256;        // ops/leapfrog_small.WARMUP_TILE
 constexpr int kMaxTiles = 1024;   // ops/leapfrog_small.MAX_WARMUP_TILES
 constexpr int kRedRows = 2 * kMaxDim + 1;
@@ -143,6 +185,58 @@ __device__ __forceinline__ void transition(const float* lam, const float* b,
   lp = acc ? logp1 : logp0;
 }
 
+// Λ, b and the inverse mass of dimension D packed as [Λ | b | im].
+template <int D>
+constexpr int kQuad = D * D + 2 * D;
+
+// The packed coefficients into q, every load issued before any is used;
+// all lanes of a warp read the same address, one broadcast a load.
+template <int D>
+__device__ __forceinline__ void load_coefficients(const float* lam,
+                                                  const float* b,
+                                                  const float* im, float* q) {
+#pragma unroll
+  for (int i = 0; i < D * D; ++i) q[i] = __ldg(lam + i);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    q[D * D + j] = __ldg(b + j);
+    q[D * D + D + j] = __ldg(im + j);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Kernel 9's ring: slot s holds one transition's streams of the block's
+// chains, field f (momenta 0..D-1, step size D, accept uniform D + 1) of
+// thread i at ring[(s * (D + 2) + f) * kSampleBlock + i].
+template <int D>
+__device__ __forceinline__ float* ring_slot(float* ring, int t) {
+  return ring + (t & (kStages - 1)) * (D + 2) * kSampleBlock + threadIdx.x;
+}
+
+// Transition t's streams of chain c into its ring slot, asynchronously.
+template <int D>
+__device__ __forceinline__ void fetch_streams(float* ring, const float* mom,
+                                              const float* epsj,
+                                              const float* u01, int n, int t,
+                                              int c) {
+  const size_t r = static_cast<size_t>(t) * n + c;
+  float* slot = ring_slot<D>(ring, t);
+#pragma unroll
+  for (int j = 0; j < D; ++j)
+    cp_async4(slot + j * kSampleBlock, mom + r * D + j, true);
+  cp_async4(slot + D * kSampleBlock, epsj + r, true);
+  cp_async4(slot + (D + 1) * kSampleBlock, u01 + r, true);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kSampleBlock)
 sample_small_kernel(const float* __restrict__ u0, const float* __restrict__ mom,
@@ -153,27 +247,38 @@ sample_small_kernel(const float* __restrict__ u0, const float* __restrict__ mom,
                     const float* __restrict__ im_g, int n, int num, int steps,
                     float* __restrict__ us, float* __restrict__ lps,
                     float* __restrict__ aps, bool* __restrict__ dvs) {
-  __shared__ float lam[D * D], b[D], im[D];
-  for (int i = threadIdx.x; i < D * D; i += blockDim.x) lam[i] = lam_g[i];
-  if (threadIdx.x < D) {
-    b[threadIdx.x] = b_g[threadIdx.x];
-    im[threadIdx.x] = im_g[threadIdx.x];
-  }
-  __syncthreads();
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ float ring[];
+  const int c = blockIdx.x * kSampleBlock + threadIdx.x;
   if (c >= n) return;
+  float q[kQuad<D>];
+  load_coefficients<D>(lam_g, b_g, im_g, q);
+  // one commit group a transition, empty past the last: before transition
+  // t's wait, groups 0 .. t + kStages - 2 are committed, so group t is
+  // complete once at most kStages - 2 are pending
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < num) fetch_streams<D>(ring, mom, epsj, u01, n, t, c);
+    cp_async_commit();
+  }
   float u[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) u[j] = u0[static_cast<size_t>(c) * D + j];
   for (int t = 0; t < num; ++t) {
-    const size_t r = static_cast<size_t>(t) * n + c;
+    cp_async_wait<kStages - 2>();
+    const float* slot = ring_slot<D>(ring, t);
     float p[D];
 #pragma unroll
-    for (int j = 0; j < D; ++j) p[j] = mom[r * D + j];
+    for (int j = 0; j < D; ++j) p[j] = slot[j * kSampleBlock];
+    const float e = slot[D * kSampleBlock], a01 = slot[(D + 1) * kSampleBlock];
+    // refills the slot read at t - 1, before this wait
+    if (t + kStages - 1 < num)
+      fetch_streams<D>(ring, mom, epsj, u01, n, t + kStages - 1, c);
+    cp_async_commit();
     float lp, ap, h0, h1;
     bool dv;
-    transition<D>(lam, b, im, u, p, epsj[r], u01[r], steps, lp, ap, dv, h0,
-                  h1);
+    transition<D>(q, q + D * D, q + D * D + D, u, p, e, a01, steps, lp, ap,
+                  dv, h0, h1);
+    const size_t r = static_cast<size_t>(t) * n + c;
 #pragma unroll
     for (int j = 0; j < D; ++j) us[r * D + j] = u[j];
     lps[r] = lp;
@@ -186,7 +291,7 @@ sample_small_kernel(const float* __restrict__ u0, const float* __restrict__ mom,
 // the same transition<D> as the chunk kernels, and every output the
 // reference's single-transition kernel returns.
 template <int D>
-__global__ void __launch_bounds__(kSampleBlock)
+__global__ void __launch_bounds__(kTransitionBlock)
 transition_small_kernel(const float* __restrict__ u0,
                         const float* __restrict__ p0,
                         const float* __restrict__ eps,
@@ -198,25 +303,21 @@ transition_small_kernel(const float* __restrict__ u0,
                         float* __restrict__ lps, float* __restrict__ aps,
                         bool* __restrict__ dvs, float* __restrict__ h0s,
                         float* __restrict__ h1s) {
-  __shared__ float lam[D * D], b[D], im[D];
-  for (int i = threadIdx.x; i < D * D; i += blockDim.x) lam[i] = lam_g[i];
-  if (threadIdx.x < D) {
-    b[threadIdx.x] = b_g[threadIdx.x];
-    im[threadIdx.x] = im_g[threadIdx.x];
-  }
-  __syncthreads();
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int c = blockIdx.x * kTransitionBlock + threadIdx.x;
   if (c >= n) return;
   const size_t r = static_cast<size_t>(c) * D;
-  float u[D], p[D];
+  float q[kQuad<D>], u[D], p[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) {
     u[j] = u0[r + j];
     p[j] = p0[r + j];
   }
+  const float e = eps[c], a01 = u01[c];
+  load_coefficients<D>(lam_g, b_g, im_g, q);
   float lp, ap, h0, h1;
   bool dv;
-  transition<D>(lam, b, im, u, p, eps[c], u01[c], steps, lp, ap, dv, h0, h1);
+  transition<D>(q, q + D * D, q + D * D + D, u, p, e, a01, steps, lp, ap, dv,
+                h0, h1);
 #pragma unroll
   for (int j = 0; j < D; ++j) {
     u_out[r + j] = u[j];
@@ -424,8 +525,15 @@ cudaError_t launch_sample(const float* u0, const float* mom, const float* epsj,
                           const float* im, int n, int num, int steps,
                           float* us, float* lps, float* aps, bool* dvs,
                           cudaStream_t stream) {
+  const int ring = kStages * (D + 2) * kSampleBlock * sizeof(float);
+  if (ring > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sample_small_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ring);
+    if (e != cudaSuccess) return e;
+  }
   const int grid = (n + kSampleBlock - 1) / kSampleBlock;
-  sample_small_kernel<D><<<grid, kSampleBlock, 0, stream>>>(
+  sample_small_kernel<D><<<grid, kSampleBlock, ring, stream>>>(
       u0, mom, epsj, u01, lam, b, im, n, num, steps, us, lps, aps, dvs);
   return cudaGetLastError();
 }
@@ -437,8 +545,8 @@ cudaError_t launch_transition(const float* u, const float* p, const float* eps,
                               int steps, float* u_out, float* p_out,
                               float* lps, float* aps, bool* dvs, float* h0s,
                               float* h1s, cudaStream_t stream) {
-  const int grid = (n + kSampleBlock - 1) / kSampleBlock;
-  transition_small_kernel<D><<<grid, kSampleBlock, 0, stream>>>(
+  const int grid = (n + kTransitionBlock - 1) / kTransitionBlock;
+  transition_small_kernel<D><<<grid, kTransitionBlock, 0, stream>>>(
       u, p, eps, u01, lam, b, im, n, steps, u_out, p_out, lps, aps, dvs, h0s,
       h1s);
   return cudaGetLastError();

@@ -18,8 +18,9 @@ import torch
 from modppl_tpu_torch.core.keys import fold_in, generator, split
 from modppl_tpu_torch.inference.transforms import transform_for
 
-GENERIC_PATH_TODO = ("not ported yet (ROADMAP Queue 2: the generic pooled "
-                     "HMC path, _pooled_chains / _single_chain)")
+GENERIC_PATH_TODO = ("not ported yet (ROADMAP Queue 1 item 10a: the "
+                     "generic pooled HMC path, _pooled_chains / "
+                     "_single_chain)")
 
 # below this dimension the d <= 12 kernels run (ops/leapfrog_small.py),
 # from it the d >= 13 kernels (ops/leapfrog.py), as in the reference
@@ -264,7 +265,11 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
         return logprob(unravel(u_flat))
 
     quad = None
-    if use_fused_quadratic is not False and num_warmup >= 1:
+    # automatic dispatch needs num_warmup >= 1 (a zero-length warmup kernel
+    # cannot launch); an explicit use_fused_quadratic=True always detects,
+    # and _quadratic_chains raises on num_warmup=0, as the reference does
+    if use_fused_quadratic or (use_fused_quadratic is None
+                               and num_warmup >= 1):
         quad = detect_quadratic_target(logprob_flat, dim, u0_flat.dtype,
                                        device)
         if quad is None and use_fused_quadratic:
@@ -272,7 +277,8 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                 "use_fused_quadratic=True but the target's log-density is "
                 "not quadratic in the unconstrained latents")
     if quad is None:
-        # a non-quadratic target, use_fused_quadratic=False or num_warmup=0
+        # a non-quadratic target, use_fused_quadratic=False or automatic
+        # dispatch with num_warmup=0
         (_pooled_chains if num_chains > 1 else _single_chain)()
 
     def run(k_run):

@@ -57,6 +57,14 @@ MAX_DIM_VPU = 7
 # the most tiles its cross-block reduction takes
 WARMUP_TILE = 256
 MAX_WARMUP_TILES = 1024
+# the sampling kernel's chains a block and the depth of its ring of stream
+# slots, and the single-transition kernel's chains a block
+# (csrc/hmc_small.cu: kSampleBlock, kStages, kTransitionBlock)
+SAMPLE_BLOCK = 32
+SAMPLE_STAGES = 4
+TRANSITION_BLOCK = 128
+# shared memory a block may hold on the card (dynamic above 48 KB)
+MAX_SMEM = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -146,6 +154,16 @@ warmup_chunk_small_plain = functools.partial(warmup_plain, transition_plain)
 # kernel wrappers
 # --------------------------------------------------------------------------
 
+def sample_layout(d):
+    """The sampling kernel's launch at dimension d: (chains a block, ring
+    depth, shared bytes). Each thread keeps its chain's next
+    ``stages - 1`` transitions' streams (d momenta, the step size, the
+    accept uniform) in a ring of ``stages`` slots of dynamic shared memory
+    (the launch opts in above 48 KB); Λ, b and inv_mass sit in registers."""
+    return (SAMPLE_BLOCK, SAMPLE_STAGES,
+            4 * SAMPLE_STAGES * (d + 2) * SAMPLE_BLOCK)
+
+
 def sample_chunk_small(u, mom, epsj, u01, lam, b, inv_mass, num_steps):
     """(us (T, N, d), logp (T, N), aprob (T, N), divergent (T, N) bool)."""
     if u.device.type == "cpu":
@@ -159,6 +177,9 @@ def sample_chunk_small(u, mom, epsj, u01, lam, b, inv_mass, num_steps):
     check_f32(name, u.device, u=u, mom=mom, epsj=epsj, u01=u01)
     check_streams(name, num, n, d, mom, epsj, u01)
     require(num_steps >= 0, name, "num_steps >= 0")
+    _, _, smem = sample_layout(d)
+    require(smem <= MAX_SMEM, name, f"at most {MAX_SMEM} bytes of shared "
+            f"memory a block, got {smem}")
     us = torch.empty(num, n, d, dtype=torch.float32, device=u.device)
     lps = torch.empty(num, n, dtype=torch.float32, device=u.device)
     aps = torch.empty_like(lps)

@@ -337,6 +337,33 @@ def test_zero_warmup_raises_not_ported():
                         device="cpu")
 
 
+def test_explicit_fused_request_with_zero_warmup_raises():
+    """use_fused_quadratic=True with num_warmup=0: both packages detect the
+    quadratic target, then raise ValueError when the run starts
+    (modppl_tpu/inference/hmc.py _quadratic_chains), rather than take the
+    generic path."""
+    from modppl_tpu.inference.hmc import hmc_runner as j_hmc_runner
+
+    @j_gen
+    def j_conjugate(h):
+        mu = h.sample(j_normal, (0.0, 1.0), "mu")
+        h.sample(j_normal, (mu, 0.5), "x")
+        return mu
+
+    j_run = j_hmc_runner(j_conjugate, (), JTrie.from_dict({"x": 1.0}),
+                         num_samples=10, num_warmup=0, num_chains=4,
+                         use_fused_quadratic=True)
+    with pytest.raises(ValueError, match="num_warmup >= 1"):
+        j_run(jax.random.PRNGKey(0))
+    model, args, obs = _conjugate()
+    run = thmc.hmc_runner(model, args, obs, num_samples=10, num_warmup=0,
+                          num_chains=4, use_fused_quadratic=True,
+                          device="cpu")
+    assert run.quadratic is not None
+    with pytest.raises(ValueError, match="num_warmup >= 1"):
+        run(0)
+
+
 def test_entry_points_do_not_fall_back_to_cpu(monkeypatch):
     """With no CUDA device, hmc_runner's default device raises instead of
     running on the CPU; a model without tensor arguments needs a device."""

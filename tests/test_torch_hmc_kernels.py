@@ -232,6 +232,67 @@ def test_chunk_tile_and_shared_memory_limit(d, tile):
         assert leapfrog.chunk_tile(d + 1) in leapfrog.CHUNK_TILES
 
 
+def _ring_schedule(num, stages):
+    """The sampling kernel's stream ring (csrc/hmc_small.cu:
+    sample_small_kernel) as a list of events, one thread's program order:
+    ("load", t, slot) issues transition t's cp.async copies into a slot,
+    ("commit",) closes a group, ("wait", k) returns once at most k groups
+    are pending, ("read", t, slot) reads transition t's streams."""
+    ev = []
+    for t in range(stages - 1):
+        if t < num:
+            ev.append(("load", t, t % stages))
+        ev.append(("commit",))
+    for t in range(num):
+        ev.append(("wait", stages - 2))
+        ev.append(("read", t, t % stages))
+        if t + stages - 1 < num:
+            ev.append(("load", t + stages - 1, (t + stages - 1) % stages))
+        ev.append(("commit",))
+    return ev
+
+
+def _check_ring(num, stages):
+    """Every transition's slot is loaded once, its copy has landed before
+    it is read, and no slot is refilled before its transition was read."""
+    groups, open_group = [], []     # loads by group, in commit order
+    landed = 0                      # groups known complete
+    slot_holds, loaded, read = {}, [], []
+    for e in _ring_schedule(num, stages):
+        if e[0] == "load":
+            _, t, slot = e
+            held = slot_holds.get(slot)
+            assert held is None or held in read, (num, stages, t, slot)
+            slot_holds[slot] = t
+            loaded.append(t)
+            open_group.append(t)
+        elif e[0] == "commit":
+            groups.append(open_group)
+            open_group = []
+        elif e[0] == "wait":
+            landed = max(landed, len(groups) - e[1])
+        else:
+            _, t, slot = e
+            assert slot_holds[slot] == t
+            assert any(t in g for g in groups[:landed]), (num, stages, t)
+            read.append(t)
+    assert loaded == list(range(num)) and read == list(range(num))
+
+
+@pytest.mark.parametrize("d", range(1, leapfrog_small.MAX_DIM + 1))
+def test_sample_layout_and_ring_schedule(d):
+    """Kernel 9 (hmc_sample_chunk_small) at every d it takes: its stream
+    ring fits a block's shared memory (dynamic: the launch opts in above
+    48 KB), and the ring loads every transition's slot once, before the
+    read, and never overwrites a slot not yet read, at T = 1, T < stages,
+    T = stages and T = 500 (the hierarchical leg's sampling phase)."""
+    block, stages, smem = leapfrog_small.sample_layout(d)
+    assert block % 32 == 0 and stages >= 2
+    assert smem == 4 * stages * (d + 2) * block <= leapfrog_small.MAX_SMEM
+    for num in (1, stages - 1, stages, 500):
+        _check_ring(num, stages)
+
+
 @pytest.mark.parametrize("d", [5, 40])
 def test_quadratic_logp_matches_reference(d):
     lam, b, rng = _target(d, 200 + d)
