@@ -33,7 +33,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. holds each kernel against its plain PyTorch version on the card, at
    N = 2^20 and 2^16 with uniform, concentrated and degenerate weights:
    the scan, the positions S, the ancestors and the copied states must all
-   be bitwise equal;
+   be bitwise equal; kernel 3 also at N = 100003 (no multiple of its
+   tile), each time at C = 1, 2, 7 and 31 in both layouts, run twice;
 4. runs the main path with the launch counters at 0 and requires 9 launches
    of each kernel, a finite log-ML, finite states and sorted ancestors;
    reruns it on the card through the plain versions, fed the same draws,
@@ -65,7 +66,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    leg's shapes;
 9. holds the three slice-3 kernels against their plain versions on the
    card: ``grid_rank`` bitwise at N = 2^20, 2^16 and 100003 with the three
-   weight kinds, ``hmc_transition_small`` bitwise on all seven outputs at
+   weight kinds and on S all 0 and all N (where kernel 3 is held too, as
+   in phase 3), ``hmc_transition_small`` bitwise on all seven outputs at
    d = 3 and 7 (10^4 chains) and d = 1 and 5 (10 007 chains),
    ``fused_leapfrog`` bitwise at
    d = 3, 8, 13, 64, 128 and 224 (one call of 32 steps); each twice;
@@ -86,19 +88,24 @@ Phases, in order; any failure raises and the script exits non-zero:
 path; a profile that lacks a kernel the launch counters saw says so and
 gives no idle share.
 
-    python3 chip_smoke.py --turns OTHER_TREE
+    python3 chip_smoke.py --turns OTHER_TREE [hmc] [resample]
 
-instead compares two checkouts on one card: it times kernels 5-10 (the
-d >= 13 chunk kernels and ``fused_leapfrog`` at the ill-conditioned leg's
-shapes, the d <= 12 chunk kernels at the hierarchical leg's,
-``hmc_transition_small`` at (10^4, 3) with L = 8), both legs
-(``time_leg``) and ``hmc_quadratic`` on both legs' targets (d = 128 and
-d = 3, ``time_quad``; at d = 3 also one profiled run: the card's busy ms
-and ``hmc_transition_small``'s us a launch on its path) with each tree's
-own code, in turns (other, this, this, other; each turn a process of its
-own run from that tree's root), and prints one JSON line per turn with a
-digest of each kernel's outputs, so the turns also show whether the two
-trees agree bitwise.
+instead compares two checkouts on one card, with each tree's own code, in
+turns (other, this, this, other; each turn a process of its own run from
+that tree's root), and prints one JSON line per turn with a digest of each
+kernel's outputs, so the turns also show whether the two trees agree
+bitwise. The groups (both when none is named):
+
+- ``hmc``: kernels 5-10 (the d >= 13 chunk kernels and ``fused_leapfrog``
+  at the ill-conditioned leg's shapes, the d <= 12 chunk kernels at the
+  hierarchical leg's, ``hmc_transition_small`` at (10^4, 3) with L = 8),
+  both legs (``time_leg``) and ``hmc_quadratic`` on both legs' targets
+  (d = 128 and d = 3, ``time_quad``; at d = 3 also one profiled run: the
+  card's busy ms and ``hmc_transition_small``'s us a launch on its path);
+- ``resample``: kernels 1-4 at N = 2^20 (kernels 3 and 4 digested on all
+  three weight kinds), both filters' median wall ms, and one profiled run
+  of each: the card's busy ms and each of its kernels' us a launch on its
+  path.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -119,6 +126,10 @@ N = 1 << 20
 T = 10
 CHECK_SIZES = (1 << 20, 1 << 16)
 KINDS = ("uniform", "concentrated", "degenerate")
+# kernel 3 is also held at an N that is no multiple of its tile, and at
+# each C below in both layouts (31 is the widest the filters fuse)
+GATHER_ODD_N = 100_003
+GATHER_COLUMNS = (1, 2, 7, 31)
 # GPU vs CPU on the same draws: CUDA's and the CPU's exp, cos and sin round
 # differently, and a particle whose ancestor flips moves every later slot of
 # the systematic grid, so the two runs part after the first resample or two.
@@ -174,7 +185,6 @@ class Errors:
 
 def check_kernels(device, sizes=CHECK_SIZES, kinds=KINDS):
     """Phase 3: every kernel against its plain version on ``device``."""
-    from modppl_tpu_torch.ops import fused_resample as fr
     from modppl_tpu_torch.ops import grid_positions as gp
     from modppl_tpu_torch.parallel import sharded_smc as smc
 
@@ -209,25 +219,49 @@ def check_kernels(device, sizes=CHECK_SIZES, kinds=KINDS):
             errs.same("positions_cummax", f"S (N={n}, {kind})", s, s_plain)
             sync(device)
 
-            g = torch.Generator(device=device).manual_seed(seed)
-            for c in (1, 2, 7):
-                state = torch.randn(c, n, generator=g, device=device)
-                got = fr.resample_fused_from_s(s, state)
-                want = fr.resample_fused_plain(s, state)
-                errs.same("resample_fused_from_s", f"states (N={n}, C={c}, "
-                          f"{kind})", got[0], want[0])
-                errs.same("resample_fused_from_s", f"parents (N={n}, C={c}, "
-                          f"{kind})", got[1], want[1])
-            state_nc = torch.randn(n, 2, generator=g, device=device)
-            got = fr.resample_fused_from_s(s, state_nc, layout="nc")
-            want = fr.resample_fused_plain(s, state_nc, layout="nc")
-            errs.same("resample_fused_from_s", f"(N, C) states (N={n}, "
-                      f"{kind})", got[0], want[0])
+            check_gather(errs, s, kind, seed, device)
+    for seed, kind in enumerate(kinds):
+        check_gather(errs, rank_s(kind, GATHER_ODD_N, seed, device), kind,
+                     seed, device)
+    return errs.max
+
+
+def rank_s(kind, n, seed, device):
+    """S (n,) for ``kind`` weights as the systematic resamplers compute it;
+    ``"zeros"`` and ``"all_num"`` give S all 0 and all n."""
+    from modppl_tpu_torch.ops import resample as rs
+    from modppl_tpu_torch.utils.numerics import logsumexp, normalized_cdf
+
+    if kind in ("zeros", "all_num"):
+        return torch.full((n,), 0 if kind == "zeros" else n,
+                          dtype=torch.int32, device=device)
+    lw = make_lw(kind, n, seed, device)
+    cdf = normalized_cdf(lw - logsumexp(lw))
+    return rs.slot_positions(cdf, torch.tensor(0.37, device=device), n)
+
+
+def check_gather(errs, s, kind, seed, device):
+    """Kernel 3 against its plain version on S, twice, at every C of
+    GATHER_COLUMNS in both layouts: parents and states bitwise."""
+    from modppl_tpu_torch.ops import fused_resample as fr
+
+    n = s.shape[0]
+    g = torch.Generator(device=device).manual_seed(seed)
+    for c in GATHER_COLUMNS:
+        for layout, shape in (("cn", (c, n)), ("nc", (n, c))):
+            state = torch.randn(*shape, generator=g, device=device)
+            got = _twice("resample_fused_from_s", lambda: (
+                fr.resample_fused_from_s(s, state, layout=layout)))
+            want = fr.resample_fused_plain(s, state, layout=layout)
+            where = f"(N={n}, C={c}, {layout}, {kind})"
+            errs.same("resample_fused_from_s", f"states {where}", got[0],
+                      want[0])
+            errs.same("resample_fused_from_s", f"parents {where}", got[1],
+                      want[1])
             if kind == "degenerate" and int(got[1].unique().numel()) != 1:
                 raise AssertionError("degenerate weights: expected a single "
                                      "ancestor")
-            sync(device)
-    return errs.max
+        sync(device)
 
 
 def run_filter(device, n, seed, **kwargs):
@@ -945,8 +979,10 @@ HMM_EMISSION = ((0.1, 0.2, 0.7), (0.2, 0.7, 0.1), (0.7, 0.2, 0.1))  # .T
 HMM_TRANSITION = ((0.4, 0.4, 0.2), (0.2, 0.3, 0.5), (0.9, 0.05, 0.05))  # .T
 HMM_LOG_ML_GAP = 0.03
 HMM_ADAPTIVE_GAP = 0.05
-# grid_rank's bitwise checks; 100003 is not a multiple of 1024
+# grid_rank's bitwise checks; 100003 is not a multiple of 1024. On the
+# edge S (all 0, all N) both rank kernels are held
 RANK_SIZES = (1 << 20, 1 << 16, 100_003)
+EDGE_S = ("zeros", "all_num")
 # hmc_quadratic on each leg's target, after its hmc_runner warmup: the
 # kernel each transition launches
 QUAD_KERNEL = {"hierarchical": "hmc_transition_small",
@@ -1062,24 +1098,23 @@ def plain_grid_rank():
 
 def check_slice3_kernels(device):
     """Phase (a): the three new kernels against their plain versions on the
-    card, each run twice (bitwise equal)."""
+    card, each run twice (bitwise equal); kernel 3 too on the edge S."""
     from modppl_tpu_torch.ops import leapfrog as lf
     from modppl_tpu_torch.ops import leapfrog_small as lfs
     from modppl_tpu_torch.ops import resample as rs
-    from modppl_tpu_torch.utils.numerics import logsumexp, normalized_cdf
 
     errs, f32 = Errors(), torch.float32
     for n in RANK_SIZES:
-        for seed, kind in enumerate(KINDS):
-            lw = make_lw(kind, n, seed, device)
-            cdf = normalized_cdf(lw - logsumexp(lw))
-            s = rs.slot_positions(cdf, torch.tensor(0.37, device=device), n)
+        for seed, kind in enumerate(KINDS + EDGE_S):
+            s = rank_s(kind, n, seed, device)
             got = _twice("grid_rank", lambda: (rs.grid_rank(s, n),))[0]
             errs.same("grid_rank", f"parents (N={n}, {kind})", got,
                       rs.grid_rank_plain(s, n))
             if kind == "degenerate" and int(got.unique().numel()) != 1:
                 raise AssertionError("grid_rank: degenerate weights, expected "
                                      "a single ancestor")
+            if kind in EDGE_S:
+                check_gather(errs, s, kind, seed, device)
         sync(device)
     for d, n in TRANSITION_CASES:
         lam, b, im, u0 = quad_problem(d, n, 30 + d, device)
@@ -1346,17 +1381,46 @@ KERNEL_SYMBOLS = {
 }
 
 
-# one turn of --turns, run from a tree's root with that tree's code
-TURN_CODE = r"""
+# one turn of --turns, run from a tree's root with that tree's code: the
+# head, then each group asked for (TURN_GROUPS), then the tail
+TURN_HEAD = r"""
 import hashlib, json, sys
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from modppl_tpu_torch.ops import _build
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+_build.build()
+digest = lambda xs: hashlib.sha256(b"".join(
+    x.cpu().numpy().tobytes() for x in xs)).hexdigest()[:16]
+
+
+def on_path(fn, symbols):
+    # one profiled run of fn: the card's busy ms, and each symbol's us a
+    # launch (None when the profiler lost it)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    per = {}
+    for name, symbol in symbols.items():
+        hits = [e for e in rows if symbol in e.key]
+        per[name] = (sum(e.device_time_total for e in hits)
+                     / sum(e.count for e in hits) if hits else None)
+    return sum(e.device_time_total for e in rows) / 1e3, per
+
+
+out = {}
+"""
+
+TURN_GROUPS = {"hmc": r"""
 from modppl_tpu_torch.ops import leapfrog as lf
 from modppl_tpu_torch.ops import leapfrog_small as lfs
 
-_build.build()
 warm_small, samp_small = cs.leg_inputs("hierarchical")
 warm, samp = cs.leg_inputs("illcond")
 lam, b, im, u0 = cs.quad_problem(128, 4096, 70, "cuda")
@@ -1366,9 +1430,6 @@ lam, b, im, u0 = cs.quad_problem(3, 10_000, 70, "cuda")
 z, jit, u01 = lfs.phase_draws(71, 1, 10_000, 3, torch.float32, "cuda")
 trans = (u0, z[0] / torch.sqrt(im), 0.1 * jit[0], u01[0], lam, b, im, 8)
 flat = lambda out: (*out[0], *out[1:])
-digest = lambda xs: hashlib.sha256(b"".join(
-    x.cpu().numpy().tobytes() for x in xs)).hexdigest()[:16]
-out = {}
 with cs.full_fp32():
     for name, fn, args, reps in (
             ("hmc_warmup_chunk", lf.warmup_chunk, warm, 5),
@@ -1393,26 +1454,71 @@ for leg in ("illcond", "hierarchical"):
                 f"quad_{leg}_runs_ms": [t * 1e3 for t in times]})
 # one profiled hmc_quadratic run at d = 3: kernel 8's us a launch on its
 # path, and the card's busy ms
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
-with cs.full_fp32(), profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-    cs.run_quad("hierarchical", quad, 41)
-    torch.cuda.synchronize()
-rows = [e for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-hits = [e for e in rows if "transition_small_kernel" in e.key]
-out["quad_hierarchical_busy_ms"] = sum(e.device_time_total for e in rows) / 1e3
-out["hmc_transition_small_path_us"] = (
-    sum(e.device_time_total for e in hits) / sum(e.count for e in hits)
-    if hits else None)
+with cs.full_fp32():
+    busy, per = on_path(lambda: cs.run_quad("hierarchical", quad, 41),
+                        {"k8": "transition_small_kernel"})
+out["quad_hierarchical_busy_ms"] = busy
+out["hmc_transition_small_path_us"] = per["k8"]
+""", "resample": r"""
+# kernels 1-4 at N = 2^20 (kernel 3 on the filter's (N, 2) state, digests
+# also on concentrated and degenerate weights and in the (C, N) layout at
+# C = 7), then one profiled run of each filter: busy ms and each kernel's
+# us a launch on its path, beside the filters' median wall ms
+from modppl_tpu_torch.ops import fused_resample as fr
+from modppl_tpu_torch.ops import grid_positions as gp
+from modppl_tpu_torch.ops import resample as rs
+from modppl_tpu_torch.parallel import sharded_smc as smc
+
+n = cs.N
+u = torch.tensor(0.37, dtype=torch.float32, device="cuda")
+gen = torch.Generator(device="cuda").manual_seed(0)
+state = torch.randn(n, 2, generator=gen, device="cuda")
+state_cn = torch.randn(7, n, generator=gen, device="cuda")
+for kind in cs.KINDS:
+    lw = cs.make_lw(kind, n, 0, "cuda")
+    s, _, _ = smc._det_grid_positions(u, lw, n)
+    out[f"rank_{kind}_digest"] = digest(
+        (*fr.resample_fused_from_s(s, state, layout="nc"),
+         *fr.resample_fused_from_s(s, state_cn), rs.grid_rank(s, n)))
+    if kind == "uniform":
+        rows, m = lw.reshape(-1, smc._cdf_block(n)), lw.max()
+        cum, totals, _ = gp.stats_cumsum_plain(rows, m)
+        offs_incl = gp.doubling_cumsum(totals[None, :])[0]
+        offs = torch.cat([totals.new_zeros(1), offs_incl[:-1]])
+        total = offs_incl[-1]
+        cases = (
+            ("stats_cumsum", lambda: gp.stats_cumsum(rows, m)),
+            ("positions_cummax",
+             lambda: gp.positions_cummax(cum, offs, total, u, n)),
+            ("resample_fused_from_s",
+             lambda: fr.resample_fused_from_s(s, state, layout="nc")),
+            ("grid_rank", lambda: (rs.grid_rank(s, n),)))
+        for name, fn in cases:
+            out[name + "_digest"] = digest(fn())
+            out[name + "_ms"] = cs.time_ms(fn)
+for label, run, symbols in (
+        ("spiral", lambda: cs.run_filter("cuda", n, 201,
+                                         store_ancestry=False),
+         {k: cs.KERNEL_SYMBOLS[k] for k in ("stats_cumsum",
+                                            "positions_cummax",
+                                            "resample_fused_from_s")}),
+        ("hmm", lambda: cs.run_hmm("cuda", n, 201),
+         {"grid_rank": cs.KERNEL_SYMBOLS["grid_rank"]})):
+    med, _ = (cs.time_filter if label == "spiral" else cs.time_hmm)()
+    busy, per = on_path(run, symbols)
+    out[f"{label}_wall_ms"] = med * 1e3
+    out[f"{label}_busy_ms"] = busy
+    out.update({f"{k}_path_us": v for k, v in per.items()})
+"""}
+
+TURN_TAIL = r"""
 print("TURN " + json.dumps(out))
 """
 
 
-def turns(other):
+def turns(other, groups=tuple(TURN_GROUPS)):
     """--turns: this tree against ``other`` on one card, in turns other,
-    this, this, other."""
+    this, this, other; each turn runs the ``groups`` of TURN_GROUPS."""
     import os
     from pathlib import Path
 
@@ -1421,10 +1527,11 @@ def turns(other):
     if not (other / "chip_smoke.py").exists():
         print(f"chip_smoke: {other} holds no chip_smoke.py", file=sys.stderr)
         return 1
+    code = TURN_HEAD + "".join(TURN_GROUPS[g] for g in groups) + TURN_TAIL
     rows = []
     for label, tree in (("other", other), ("this", here), ("this", here),
                         ("other", other)):
-        proc = subprocess.run([sys.executable, "-c", TURN_CODE], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
                               capture_output=True, text=True,
                               env={**os.environ, "PYTHONPATH": str(tree)})
         lines = [x for x in proc.stdout.splitlines() if x.startswith("TURN ")]
@@ -1445,7 +1552,7 @@ def main(argv):
     card = card_line()
     if argv[:1] == ["--turns"]:
         print(f"# card: {card}")
-        return turns(argv[1])
+        return turns(argv[1], tuple(argv[2:]) or tuple(TURN_GROUPS))
     print(f"# card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     sys.stdout.flush()

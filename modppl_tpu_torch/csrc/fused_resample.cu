@@ -8,53 +8,146 @@
 // for C f32 columns. Identical to the reference's integer scatter+cumsum
 // (sharded_smc._parents_from_s) followed by a take.
 //
-// What bounds it on the card: bytes. It reads C*N*4 bytes of state and
-// writes C*N*4 + N*4; S (4 MB at N = 2^20) is read by binary search and
-// stays in the 50 MB L2. The TPU kernel avoided binary search because its
-// gathers serialise on the scalar core, and contracted one-hot matrices on
-// the MXU instead (with bf16 splits to keep copies exact). None of that
-// applies here: one thread per output slot runs an upper_bound of its slot
-// index over S and copies its ancestor's C values. No atomics, no scan, one
-// launch; a copy through registers is exact.
-//
-// Strides make one kernel serve both layouts: (C, N) as the JAX entry takes
-// it (particle stride 1, column stride N) and (N, C) as the filter keeps its
-// state (particle stride C, column stride 1). With C = 0 it writes parents
-// only; the port of grid_rank (csrc/grid_rank.cu) is a kernel of its own that
-// shares rank_upper_bound (rank.cuh).
+// What bounds it on the card: bytes. It reads S (N * 4) and C*N*4 bytes of
+// state and writes N * 4 + C*N*4. The TPU kernel avoided gathers, which
+// serialise on its scalar core, and contracted one-hot matrices on the MXU
+// instead (with bf16 splits to keep copies exact). None of that applies
+// here. Each CTA ranks its tile of the merged slots and S entries
+// (rank.cuh's merge path, shared with grid_rank.cu), which leaves each
+// thread the parents of a group of kRankItems output rows in registers; it
+// writes them out as 16-byte words and puts them back in shared memory,
+// then the CTA's threads copy its output rows [b0, b0 + nb) through
+// registers (exact), with coalesced stores:
+// - "nc", the filter's (N, C) state: those rows are one contiguous range
+//   of out, so the threads stride it, as float2 / float4 where C and the
+//   pointers' alignment allow; the reads state[parents[i]] climb with i
+//   (ancestors never decrease), so they too fall on few lines;
+// - "cn", the JAX entry's (C, N): the same, one column at a time.
+// Copying each thread's own group of rows from registers instead (stores
+// of whole 16-byte words, but a group apart across a warp) is slower at
+// C = 2 (csrc/probes/rank_cost.py: group_copy_kernel). No atomics, one
+// launch.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 #include "rank.cuh"
 
 namespace {
 
-using modppl::rank_upper_bound;
+using modppl::kRankItems;
+using modppl::kRankThreads;
+using modppl::padded;
 
-__global__ void resample_from_s_kernel(const int* __restrict__ s,
-                                       const float* __restrict__ state,
-                                       float* __restrict__ out,
-                                       int* __restrict__ parents, int n, int c,
-                                       long long sp, long long sc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int p = min(rank_upper_bound(s, n, i), n - 1);
-  parents[i] = p;
-  const float* src = state + p * sp;
-  float* dst = out + i * sp;
-  for (int k = 0; k < c; ++k) dst[k * sc] = src[k * sc];
+// out rows [b0, b0 + nb) of w vectors V each (W = 1 for the filter's
+// rows of one float2, else 0: w at run time), the parents staged in shared
+// memory (par(r) = par[padded(r + off)]). At W = 1 (nb < kRankThreads x
+// kRankItems) each thread issues all its loads before its stores.
+template <typename V, int W>
+__device__ __forceinline__ void copy_rows(const V* __restrict__ state,
+                                          V* __restrict__ out,
+                                          const int* par, int off, int b0,
+                                          int nb, int w) {
+  if constexpr (W == 1) {
+    V v[kRankItems];
+#pragma unroll
+    for (int r = 0; r < kRankItems; ++r) {
+      const int e = threadIdx.x + r * kRankThreads;
+      if (e < nb) v[r] = __ldg(state + par[padded(e + off)]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRankItems; ++r) {
+      const int e = threadIdx.x + r * kRankThreads;
+      if (e < nb) out[b0 + e] = v[r];
+    }
+  } else {
+    V* dst = out + static_cast<long long>(b0) * w;
+    const int count = nb * w;
+    for (int e = threadIdx.x; e < count; e += kRankThreads) {
+      const int r = e / w;
+      const int k = e - r * w;
+      dst[e] = __ldg(state + static_cast<long long>(par[padded(r + off)]) * w
+                     + k);
+    }
+  }
+}
+
+// out[k, b0 + r] = state[k, par(r)] for each of the c columns of length n
+__device__ __forceinline__ void copy_columns(const float* __restrict__ state,
+                                             float* __restrict__ out,
+                                             const int* par, int off, int b0,
+                                             int nb, int n, int c) {
+  for (int k = 0; k < c; ++k) {
+    const float* src = state + static_cast<long long>(k) * n;
+    float* dst = out + static_cast<long long>(k) * n + b0;
+    for (int r = threadIdx.x; r < nb; r += kRankThreads) {
+      dst[r] = __ldg(src + par[padded(r + off)]);
+    }
+  }
+}
+
+// kColumns: the (C, N) layout, one column at a time; else (N, C) rows of
+// w vectors V.
+template <typename V, int W, bool kColumns>
+__global__ void __launch_bounds__(kRankThreads, modppl::kRankBlocksPerSm)
+resample_from_s_kernel(const int* __restrict__ s,
+                       const float* __restrict__ state,
+                       float* __restrict__ out, int* __restrict__ parents,
+                       int n, int c, int w) {
+  __shared__ __align__(16) int buf[modppl::kRankPadded];
+  int par[kRankItems];
+  const modppl::RankTile t = modppl::rank_tile(s, n, n, n, buf, par);
+  const int g = t.base + threadIdx.x * kRankItems;
+  modppl::write_run(parents + g, par, t.b0 - g, t.b0 + t.nb - g);
+  // each thread's group back over its own marks, for the whole tile's rows
+  modppl::stage_group(buf, par);
+  __syncthreads();
+  const int off = t.b0 - t.base;
+  if constexpr (kColumns) {
+    copy_columns(state, out, buf, off, t.b0, t.nb, n, c);
+  } else {
+    copy_rows<V, W>(reinterpret_cast<const V*>(state),
+                    reinterpret_cast<V*>(out), buf, off, t.b0, t.nb, w);
+  }
+}
+
+template <typename V>
+bool aligned(const void* a, const void* b) {
+  return reinterpret_cast<std::uintptr_t>(a) % sizeof(V) == 0 &&
+         reinterpret_cast<std::uintptr_t>(b) % sizeof(V) == 0;
 }
 
 }  // namespace
 
-// s (n,) int32 sorted; state/new_state with element (particle p, column k)
-// at p*sp + k*sc; parents (n,) int32.
+// s (n,) int32 sorted; state/new_state (C, n) when nc == 0 or (n, C) when
+// nc != 0; parents (n,) int32. threads, items: the tile the caller laid out
+// for, which must be the one compiled in.
 extern "C" int modppl_resample_from_s_f32(const int* s, const float* state,
                                           float* new_state, int* parents,
-                                          int n, int c, long long sp,
-                                          long long sc, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  resample_from_s_kernel<<<blocks, kThreads, 0, stream>>>(
-      s, state, new_state, parents, n, c, sp, sc);
+                                          int n, int c, int nc, int threads,
+                                          int items, cudaStream_t stream) {
+  if (n <= 0 || c < 0 || threads != kRankThreads || items != kRankItems) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(modppl::rank_blocks(n, n)));
+  const dim3 block(kRankThreads);
+  const float* in = state;
+  float* out = new_state;
+  if (!nc && c > 1) {
+    resample_from_s_kernel<float, 0, true>
+        <<<grid, block, 0, stream>>>(s, in, out, parents, n, c, c);
+  } else if (c == 2 && aligned<float2>(in, out)) {
+    resample_from_s_kernel<float2, 1, false>
+        <<<grid, block, 0, stream>>>(s, in, out, parents, n, c, 1);
+  } else if (c % 4 == 0 && aligned<float4>(in, out)) {
+    resample_from_s_kernel<float4, 0, false>
+        <<<grid, block, 0, stream>>>(s, in, out, parents, n, c, c / 4);
+  } else if (c % 2 == 0 && aligned<float2>(in, out)) {
+    resample_from_s_kernel<float2, 0, false>
+        <<<grid, block, 0, stream>>>(s, in, out, parents, n, c, c / 2);
+  } else {
+    resample_from_s_kernel<float, 0, false>
+        <<<grid, block, 0, stream>>>(s, in, out, parents, n, c, c);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,15 +8,17 @@
 // Identical to the reference's integer scatter-add + cumsum
 // (parallel/resample.py:_grid_parents) on the same S: pure integer counting.
 //
-// What bounds it on the card: bytes. It writes num * 4 bytes of parents and
-// reads S (4 MB at N = 2^20) by binary search, so S stays in the 50 MB L2
-// and is fetched from device memory about once. The TPU kernel searched
-// only the block boundaries (one searchsorted outside the kernel), then
-// streamed each block's S entries through VMEM by manual DMA and counted
-// them with (W x 128) vector compares, because a scatter or a gather
-// serialises on the TPU's scalar core. None of that applies here: one
-// thread per output slot runs an upper_bound of its slot index over S and
-// writes its ancestor. No atomics, no scan, one launch, any N (the
+// What bounds it on the card: bytes, M * 4 read and num * 4 written. The
+// TPU kernel searched only the block boundaries (one searchsorted outside
+// the kernel, passed as scalar prefetch), then streamed each block's S
+// entries through VMEM and counted them with vector compares, because a
+// scatter or a gather serialises on the TPU's scalar core. Its partition by
+// blocks of slots would hand one CTA a whole run of equal S. Here the rank
+// step is rank.cuh's merge path: each CTA takes an equal share of the
+// merged slots and S entries, finds its split with one warp a diagonal,
+// marks the ends of its window's runs of equal S in shared memory and
+// turns them into ranks by a running maximum; each thread writes its group
+// of parents as 16-byte words. No atomics, one launch, any N (the
 // reference's N % 1024 == 0 was its tiling's).
 #include <cuda_runtime.h>
 
@@ -24,26 +26,33 @@
 
 namespace {
 
-using modppl::rank_upper_bound;
+using modppl::kRankItems;
+using modppl::kRankThreads;
 
-__global__ void grid_rank_kernel(const int* __restrict__ s, int m, int num,
-                                 int n_in, int* __restrict__ parents) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= num) return;
-  parents[i] = max(0, min(rank_upper_bound(s, m, i), n_in - 1));
+__global__ void __launch_bounds__(kRankThreads, modppl::kRankBlocksPerSm)
+grid_rank_kernel(const int* __restrict__ s, int m, int num, int n_in,
+                 int* __restrict__ parents) {
+  __shared__ __align__(16) int buf[modppl::kRankPadded];
+  int par[kRankItems];
+  const modppl::RankTile t = modppl::rank_tile(s, m, num, n_in, buf, par);
+  const int g = t.base + threadIdx.x * kRankItems;
+  modppl::write_run(parents + g, par, t.b0 - g, t.b0 + t.nb - g);
 }
 
 }  // namespace
 
 // s (m,) int32 sorted in [0, num] -> parents (num,) int32 clipped to
-// [0, n_in - 1].
+// [0, n_in - 1]. threads, items: the tile the caller laid out for, which
+// must be the one compiled in.
 extern "C" int modppl_grid_rank_i32(const int* s, int m, int num, int n_in,
-                                    int* parents, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  if (num <= 0 || m < 0 || n_in <= 0) {
+                                    int* parents, int threads, int items,
+                                    cudaStream_t stream) {
+  if (num <= 0 || m < 0 || n_in <= 0 || threads != kRankThreads ||
+      items != kRankItems) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int blocks = (num + kThreads - 1) / kThreads;
-  grid_rank_kernel<<<blocks, kThreads, 0, stream>>>(s, m, num, n_in, parents);
+  const long long blocks = modppl::rank_blocks(num, m);
+  grid_rank_kernel<<<static_cast<unsigned>(blocks), kRankThreads, 0,
+                     stream>>>(s, m, num, n_in, parents);
   return static_cast<int>(cudaGetLastError());
 }

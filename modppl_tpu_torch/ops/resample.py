@@ -2,8 +2,10 @@
 
 Counterpart of modppl_tpu/ops/resample_pallas.py (Pallas kernel
 ``grid_rank``, entry ``systematic_parents_pallas``). The CUDA kernel is in
-csrc/grid_rank.cu; its header says what bounds it and why it searches
-instead of streaming blocks of S through vector compares.
+csrc/grid_rank.cu and its rank step, shared with kernel 3, in
+csrc/rank.cuh: a merge path over the slots and S, each CTA an equal tile
+of ``RANK_THREADS x RANK_ITEMS`` items with its window of S in shared
+memory; the headers say what bounds it.
 
 - ``grid_rank(s, n_in, num=None)``: parents[i] = #{j : S_j <= i} for the
   ``num`` output slots (default ``s.shape[0]``), clipped to [0, n_in - 1],
@@ -11,6 +13,10 @@ instead of streaming blocks of S through vector compares.
   kernel or raises; on a CPU tensor it runs ``grid_rank_plain``, the
   reference's integer scatter-add + cumsum (parallel/resample.py:44-46).
   ``grid_rank.launches`` counts kernel launches.
+- ``rank_layout(num, m)``: the rank step's launch (threads a block, items a
+  thread, blocks), which both kernels' wrappers pass to their C entries;
+  ``merge_path_parents(s, n_in, num)`` models in torch the splits, run
+  marks and scan each CTA computes from it, for the CPU tests.
 - ``slot_positions(cdf, u, num)``: S = cummax(clip(ceil(num cdf - u), 0,
   num)), the sorted first-child slot of each particle.
 - ``systematic_parents(key, lw, num=None, u=None)``: the counterpart of
@@ -29,7 +35,16 @@ from modppl_tpu_torch.utils.numerics import normalized_cdf
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = (_P, _I, _I, _I, _P, _P)
+_ARGS = (_P, _I, _I, _I, _P, _I, _I, _P)
+
+# The rank step's tile (csrc/rank.cuh: kRankThreads, kRankItems): each CTA of
+# kernels 3 and 4 covers RANK_THREADS groups of RANK_ITEMS slots and takes
+# one group fewer items of the merged sequence of slots and S entries
+# (kRankTile). The wrappers pass both to the C entries, which refuse a tile
+# other than the one compiled in.
+RANK_THREADS = 256
+RANK_ITEMS = 8
+RANK_TILE = (RANK_THREADS - 1) * RANK_ITEMS
 
 
 def uniform(key, like, shape=()):
@@ -76,6 +91,77 @@ def grid_rank_plain(s, n_in, num=None):
     return torch.clamp(torch.cumsum(z[:num], 0), 0, n_in - 1).to(torch.int32)
 
 
+def rank_layout(num, m):
+    """(threads a block, items a thread, blocks) of the rank step over
+    ``num`` slots and ``m`` entries of S."""
+    return RANK_THREADS, RANK_ITEMS, -(-(num + m) // RANK_TILE)
+
+
+def _warp_split(g, num, d):
+    """``merge_split`` (csrc/rank.cuh) for each diagonal in ``d``:
+    #{j : g_j < d} for the strictly increasing g_j = S_j + j, by rounds of
+    32 probes over [lo, hi), keeping the gap between the last probe that
+    passes and the first that fails."""
+    m = g.shape[0]
+    lo = torch.clamp(d - num, min=0)
+    hi = torch.clamp(d, max=m)
+    lanes = torch.arange(1, 33)
+    while bool((lo < hi).any()):
+        live = lo < hi
+        step = (hi - lo + 31) // 32
+        p = lo[:, None] + lanes * step[:, None] - 1
+        before = (p < hi[:, None]) & (g[p.clamp(0, m - 1)] < d[:, None])
+        c = before.sum(1)
+        lo, hi = (torch.where(live, lo + c * step, lo),
+                  torch.where(live, torch.minimum(hi, lo + (c + 1) * step - 1),
+                              hi))
+    return lo
+
+
+def merge_path_parents(s, n_in, num=None):
+    """The rank step as kernels 3 and 4 compute it (csrc/rank.cuh),
+    modelled in torch: each CTA's split of S at its tile's two diagonals
+    (the 32-way warp search), the run ends of its window of S marking their
+    slots with their counts within the window, and the running maximum of
+    the marks (each thread's ``RANK_ITEMS`` slots, then across threads).
+    Raises unless the tiles' slots cover [0, num) once and every mark has
+    one writer; returns parents (num,) int32, which must equal
+    ``grid_rank_plain``."""
+    num = s.shape[0] if num is None else num
+    m = s.shape[0]
+    _, _, blocks = rank_layout(num, m)
+    tile = RANK_TILE
+    g = s.long() + torch.arange(m)
+    d0 = torch.arange(blocks) * tile
+    d1 = torch.clamp(d0 + tile, max=num + m)
+    a0, a1 = _warp_split(g, num, d0), _warp_split(g, num, d1)
+    b0, b1 = d0 - a0, d1 - a1
+    if not (bool((b0[1:] == b1[:-1]).all()) and int(b0[0]) == 0
+            and int(b1[-1]) == num and bool((b1 - b0 + a1 - a0 <= tile).all())):
+        raise AssertionError("merge path: the tiles do not cover the slots "
+                             "once")
+    marks = torch.zeros(blocks, tile, dtype=torch.long)
+    x = torch.arange(tile)
+    if m:
+        na, nb = (a1 - a0)[:, None], (b1 - b0)[:, None]
+        j = (a0[:, None] + x).clamp(max=m - 1)
+        v = s.long()[j]
+        nxt = s.long()[(j + 1).clamp(max=m - 1)]
+        y = v - b0[:, None]
+        ends = (x < na) & ((x + 1 == na) | (nxt != v)) & (y < nb)
+        rows, cols = ends.nonzero(as_tuple=True)
+        slot = y[rows, cols]
+        if torch.unique(rows * tile + slot).numel() != slot.numel():
+            raise AssertionError("merge path: two run ends mark one slot")
+        marks[rows, slot] = cols + 1
+    ranks = torch.cummax(marks, 1).values
+    parents = torch.clamp(a0[:, None] + ranks, 0, n_in - 1)
+    mine = x < (b1 - b0)[:, None]
+    out = torch.empty(num, dtype=torch.int32)
+    out[(b0[:, None] + x)[mine]] = parents[mine].to(torch.int32)
+    return out
+
+
 def grid_rank(s, n_in, num=None):
     if s.device.type == "cpu":
         return grid_rank_plain(s, n_in, num)
@@ -89,12 +175,13 @@ def grid_rank(s, n_in, num=None):
     if not (0 < num < 2 ** 31 and 0 < n_in < 2 ** 31 and s.shape[0] < 2 ** 31):
         raise ValueError(f"{name}: the CUDA kernel needs 0 < num, n_in < "
                          f"2^31, got num={num}, n_in={n_in}")
+    threads, items, _ = rank_layout(num, s.shape[0])
     parents = torch.empty(num, dtype=torch.int32, device=s.device)
     fn = _build.entry("modppl_grid_rank_i32", _ARGS)
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(s.data_ptr(), s.shape[0], num, n_in, parents.data_ptr(),
-                 stream)
+                 threads, items, stream)
     _build.check(err, name)
     grid_rank.launches += 1
     return parents

@@ -8,6 +8,9 @@ versions, which must agree bitwise (the scan, S, ancestors, gathered states)
 or, where torch's and XLA's exp may differ by an ulp, at a stated tolerance.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,11 +28,12 @@ from modppl_tpu.inference.adaptation import _tree_sum as j_tree_sum
 from modppl_tpu.parallel import sharded_smc as jsmc
 from modppl_tpu_torch.inference.adaptation import _tree_sum
 from modppl_tpu_torch.interop import tensor
-from modppl_tpu_torch.ops import fused_resample, grid_positions
+from modppl_tpu_torch.ops import fused_resample, grid_positions, resample
 from modppl_tpu_torch.parallel import sharded_smc as tsmc
 from modppl_tpu_torch.parallel.resample import gather_from_s
 
 N_SCAN = 64 * 1024
+CSRC = Path(resample.__file__).resolve().parents[1] / "csrc"
 
 
 def _lw(kind, n, seed, dtype=np.float32):
@@ -235,3 +239,63 @@ def test_det_logsumexp_matches_reference(n):
 @pytest.mark.parametrize("n", [1 << 10, 1 << 16, 1 << 20])
 def test_cdf_block_matches_reference(n):
     assert tsmc._cdf_block(n) == jsmc._cdf_block(n)
+
+
+def _merge_s(kind, m, num, seed):
+    """S (m,) int32 sorted in [0, num]: the systematic grid of num slots
+    against the CDF of m weights (numpy, float64), or all 0, or all num."""
+    if kind == "zeros":
+        return np.zeros(m, np.int32)
+    if kind == "all_num":
+        return np.full(m, num, np.int32)
+    lw = _lw(kind, m, seed, np.float64)
+    w = np.exp(lw - lw.max())
+    cdf = np.cumsum(w) / w.sum()
+    s = np.clip(np.ceil(cdf * num - 0.61), 0, num).astype(np.int32)
+    return np.maximum.accumulate(s)
+
+
+@pytest.mark.parametrize("kind,m,num", [
+    ("uniform", 4096, 4096), ("concentrated", 4096, 4096),
+    ("degenerate", 4096, 4096), ("zeros", 4096, 4096),
+    ("all_num", 4096, 4096), ("uniform", 3000, 5000),
+    ("concentrated", 7000, 2500), ("degenerate", 2048, 6000),
+    ("zeros", 700, 2100), ("all_num", 2100, 700), ("uniform", 1, 1),
+    ("zeros", 1, 1), ("all_num", 1, 1), ("uniform", 100_003, 100_003),
+    ("concentrated", 100_003, 100_003), ("degenerate", 100_003, 100_003)])
+def test_merge_path_model_bitwise(kind, m, num):
+    """The rank step as kernels 3 and 4 split it (resample.
+    merge_path_parents: each CTA's warp search, window of S, each thread's
+    split and walk, at the launch's own tile) writes every slot once and
+    equals grid_rank_plain, numpy's searchsorted and, where m = num,
+    parents_from_s and the reference's _parents_from_s, bitwise: uniform,
+    concentrated and degenerate weights, S all 0 and all num, m != num, N =
+    1 and N = 100003 (not a multiple of the tile)."""
+    s = _merge_s(kind, m, num, m + num)
+    n_in = m
+    got = resample.merge_path_parents(tensor(s), n_in, num).numpy()
+    want = np.clip(np.searchsorted(s, np.arange(num), side="right"), 0,
+                   n_in - 1)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, resample.grid_rank_plain(tensor(s), n_in, num).numpy())
+    if m == num:
+        np.testing.assert_array_equal(
+            got, fused_resample.parents_from_s(tensor(s), num).numpy())
+        np.testing.assert_array_equal(
+            got, np.asarray(jsmc._parents_from_s(jnp.asarray(s), num)))
+    if kind == "degenerate":
+        assert len(np.unique(got)) == 1
+
+
+def test_rank_layout_matches_csrc():
+    """The tile the wrappers pass is the one csrc/rank.cuh compiles in
+    (its C entries refuse any other), and covers num + m items."""
+    src = (CSRC / "rank.cuh").read_text()
+    compiled = {k: int(v) for k, v in re.findall(
+        r"#define MODPPL_RANK_(THREADS|ITEMS) (\d+)", src)}
+    threads, items, blocks = resample.rank_layout(100_003, 100_003)
+    assert compiled == {"THREADS": threads, "ITEMS": items}
+    tile = resample.RANK_TILE
+    assert tile == threads * items - items
+    assert (blocks - 1) * tile < 200_006 <= blocks * tile
