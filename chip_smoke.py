@@ -226,18 +226,20 @@ def check_kernels(device, sizes=CHECK_SIZES, kinds=KINDS):
     return errs.max
 
 
-def rank_s(kind, n, seed, device):
-    """S (n,) for ``kind`` weights as the systematic resamplers compute it;
-    ``"zeros"`` and ``"all_num"`` give S all 0 and all n."""
+def rank_s(kind, n, seed, device, num=None):
+    """S (n,) for ``kind`` weights over ``num`` slots (default n) as the
+    systematic resamplers compute it; ``"zeros"`` and ``"all_num"`` give S
+    all 0 and all num."""
     from modppl_tpu_torch.ops import resample as rs
     from modppl_tpu_torch.utils.numerics import logsumexp, normalized_cdf
 
+    num = n if num is None else num
     if kind in ("zeros", "all_num"):
-        return torch.full((n,), 0 if kind == "zeros" else n,
+        return torch.full((n,), 0 if kind == "zeros" else num,
                           dtype=torch.int32, device=device)
     lw = make_lw(kind, n, seed, device)
     cdf = normalized_cdf(lw - logsumexp(lw))
-    return rs.slot_positions(cdf, torch.tensor(0.37, device=device), n)
+    return rs.slot_positions(cdf, torch.tensor(0.37, device=device), num)
 
 
 def check_gather(errs, s, kind, seed, device):
@@ -983,6 +985,8 @@ HMM_ADAPTIVE_GAP = 0.05
 # edge S (all 0, all N) both rank kernels are held
 RANK_SIZES = (1 << 20, 1 << 16, 100_003)
 EDGE_S = ("zeros", "all_num")
+# grid_rank with m entries of S over num slots, m != num: (m, num), n_in = m
+RANK_M_NUM = ((3000, 5000), (7000, 2500), (700, 2100), (2100, 700))
 # hmc_quadratic on each leg's target, after its hmc_runner warmup: the
 # kernel each transition launches
 QUAD_KERNEL = {"hierarchical": "hmc_transition_small",
@@ -1098,7 +1102,8 @@ def plain_grid_rank():
 
 def check_slice3_kernels(device):
     """Phase (a): the three new kernels against their plain versions on the
-    card, each run twice (bitwise equal); kernel 3 too on the edge S."""
+    card, each run twice (bitwise equal); kernel 3 too on the edge S, and
+    grid_rank too with m != num."""
     from modppl_tpu_torch.ops import leapfrog as lf
     from modppl_tpu_torch.ops import leapfrog_small as lfs
     from modppl_tpu_torch.ops import resample as rs
@@ -1115,6 +1120,13 @@ def check_slice3_kernels(device):
                                      "a single ancestor")
             if kind in EDGE_S:
                 check_gather(errs, s, kind, seed, device)
+        sync(device)
+    for m, num in RANK_M_NUM:
+        for seed, kind in enumerate(KINDS + EDGE_S):
+            s = rank_s(kind, m, seed, device, num)
+            got = _twice("grid_rank", lambda: (rs.grid_rank(s, m, num),))[0]
+            errs.same("grid_rank", f"parents (m={m}, num={num}, {kind})", got,
+                      rs.grid_rank_plain(s, m, num))
         sync(device)
     for d, n in TRANSITION_CASES:
         lam, b, im, u0 = quad_problem(d, n, 30 + d, device)
@@ -1632,7 +1644,8 @@ def main(argv):
 
     s3_errs = check_slice3_kernels("cuda")
     print(f"# slice 3 kernels on the card: grid_rank == plain bitwise (N in "
-          f"{list(RANK_SIZES)}, weights {list(KINDS)}); hmc_transition_small "
+          f"{list(RANK_SIZES)}, weights {list(KINDS + EDGE_S)}; (m, num) in "
+          f"{list(RANK_M_NUM)}); hmc_transition_small "
           f"== plain bitwise on all outputs (d, N in {list(TRANSITION_CASES)})"
           f"; fused_leapfrog == plain bitwise (d, N in "
           f"{list(LEAPFROG_DIMS)}); every kernel run twice, bitwise equal")

@@ -19,8 +19,8 @@
 // then the CTA's threads copy its output rows [b0, b0 + nb) through
 // registers (exact), with coalesced stores:
 // - "nc", the filter's (N, C) state: those rows are one contiguous range
-//   of out, so the threads stride it, as float2 / float4 where C and the
-//   pointers' alignment allow; the reads state[parents[i]] climb with i
+//   of out, so the threads stride it, one float a step, or one float2 row
+//   a step at the filter's C = 2; the reads state[parents[i]] climb with i
 //   (ancestors never decrease), so they too fall on few lines;
 // - "cn", the JAX entry's (C, N): the same, one column at a time.
 // Copying each thread's own group of rows from registers instead (stores
@@ -39,16 +39,16 @@ using modppl::kRankItems;
 using modppl::kRankThreads;
 using modppl::padded;
 
-// out rows [b0, b0 + nb) of w vectors V each (W = 1 for the filter's
-// rows of one float2, else 0: w at run time), the parents staged in shared
-// memory (par(r) = par[padded(r + off)]). At W = 1 (nb < kRankThreads x
-// kRankItems) each thread issues all its loads before its stores.
-template <typename V, int W>
+// out rows [b0, b0 + nb), the parents staged in shared memory (par(r) =
+// par[padded(r + off)]): rows of one V (the filter's C = 2 as float2;
+// nb < kRankThreads x kRankItems, so each thread issues all its loads
+// before its stores) when kRowVector, else c floats a row.
+template <typename V, bool kRowVector>
 __device__ __forceinline__ void copy_rows(const V* __restrict__ state,
                                           V* __restrict__ out,
                                           const int* par, int off, int b0,
-                                          int nb, int w) {
-  if constexpr (W == 1) {
+                                          int nb, int c) {
+  if constexpr (kRowVector) {
     V v[kRankItems];
 #pragma unroll
     for (int r = 0; r < kRankItems; ++r) {
@@ -61,12 +61,12 @@ __device__ __forceinline__ void copy_rows(const V* __restrict__ state,
       if (e < nb) out[b0 + e] = v[r];
     }
   } else {
-    V* dst = out + static_cast<long long>(b0) * w;
-    const int count = nb * w;
+    V* dst = out + static_cast<long long>(b0) * c;
+    const int count = nb * c;
     for (int e = threadIdx.x; e < count; e += kRankThreads) {
-      const int r = e / w;
-      const int k = e - r * w;
-      dst[e] = __ldg(state + static_cast<long long>(par[padded(r + off)]) * w
+      const int r = e / c;
+      const int k = e - r * c;
+      dst[e] = __ldg(state + static_cast<long long>(par[padded(r + off)]) * c
                      + k);
     }
   }
@@ -86,14 +86,14 @@ __device__ __forceinline__ void copy_columns(const float* __restrict__ state,
   }
 }
 
-// kColumns: the (C, N) layout, one column at a time; else (N, C) rows of
-// w vectors V.
-template <typename V, int W, bool kColumns>
+// kColumns: the (C, N) layout, one column at a time; else (N, C) rows,
+// as copy_rows<V, kRowVector> takes them.
+template <typename V, bool kRowVector, bool kColumns>
 __global__ void __launch_bounds__(kRankThreads, modppl::kRankBlocksPerSm)
 resample_from_s_kernel(const int* __restrict__ s,
                        const float* __restrict__ state,
                        float* __restrict__ out, int* __restrict__ parents,
-                       int n, int c, int w) {
+                       int n, int c) {
   __shared__ __align__(16) int buf[modppl::kRankPadded];
   int par[kRankItems];
   const modppl::RankTile t = modppl::rank_tile(s, n, n, n, buf, par);
@@ -106,48 +106,37 @@ resample_from_s_kernel(const int* __restrict__ s,
   if constexpr (kColumns) {
     copy_columns(state, out, buf, off, t.b0, t.nb, n, c);
   } else {
-    copy_rows<V, W>(reinterpret_cast<const V*>(state),
-                    reinterpret_cast<V*>(out), buf, off, t.b0, t.nb, w);
+    copy_rows<V, kRowVector>(reinterpret_cast<const V*>(state),
+                             reinterpret_cast<V*>(out), buf, off, t.b0, t.nb,
+                             c);
   }
 }
 
-template <typename V>
-bool aligned(const void* a, const void* b) {
-  return reinterpret_cast<std::uintptr_t>(a) % sizeof(V) == 0 &&
-         reinterpret_cast<std::uintptr_t>(b) % sizeof(V) == 0;
+bool aligned8(const void* a, const void* b) {
+  return reinterpret_cast<std::uintptr_t>(a) % sizeof(float2) == 0 &&
+         reinterpret_cast<std::uintptr_t>(b) % sizeof(float2) == 0;
 }
 
 }  // namespace
 
 // s (n,) int32 sorted; state/new_state (C, n) when nc == 0 or (n, C) when
-// nc != 0; parents (n,) int32. threads, items: the tile the caller laid out
-// for, which must be the one compiled in.
+// nc != 0; parents (n,) int32.
 extern "C" int modppl_resample_from_s_f32(const int* s, const float* state,
                                           float* new_state, int* parents,
-                                          int n, int c, int nc, int threads,
-                                          int items, cudaStream_t stream) {
-  if (n <= 0 || c < 0 || threads != kRankThreads || items != kRankItems) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                          int n, int c, int nc,
+                                          cudaStream_t stream) {
+  if (n <= 0 || c < 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(modppl::rank_blocks(n, n)));
   const dim3 block(kRankThreads);
-  const float* in = state;
-  float* out = new_state;
   if (!nc && c > 1) {
-    resample_from_s_kernel<float, 0, true>
-        <<<grid, block, 0, stream>>>(s, in, out, parents, n, c, c);
-  } else if (c == 2 && aligned<float2>(in, out)) {
-    resample_from_s_kernel<float2, 1, false>
-        <<<grid, block, 0, stream>>>(s, in, out, parents, n, c, 1);
-  } else if (c % 4 == 0 && aligned<float4>(in, out)) {
-    resample_from_s_kernel<float4, 0, false>
-        <<<grid, block, 0, stream>>>(s, in, out, parents, n, c, c / 4);
-  } else if (c % 2 == 0 && aligned<float2>(in, out)) {
-    resample_from_s_kernel<float2, 0, false>
-        <<<grid, block, 0, stream>>>(s, in, out, parents, n, c, c / 2);
+    resample_from_s_kernel<float, false, true>
+        <<<grid, block, 0, stream>>>(s, state, new_state, parents, n, c);
+  } else if (c == 2 && aligned8(state, new_state)) {
+    resample_from_s_kernel<float2, true, false>
+        <<<grid, block, 0, stream>>>(s, state, new_state, parents, n, c);
   } else {
-    resample_from_s_kernel<float, 0, false>
-        <<<grid, block, 0, stream>>>(s, in, out, parents, n, c, c);
+    resample_from_s_kernel<float, false, false>
+        <<<grid, block, 0, stream>>>(s, state, new_state, parents, n, c);
   }
   return static_cast<int>(cudaGetLastError());
 }

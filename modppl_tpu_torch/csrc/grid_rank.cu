@@ -42,13 +42,10 @@ grid_rank_kernel(const int* __restrict__ s, int m, int num, int n_in,
 }  // namespace
 
 // s (m,) int32 sorted in [0, num] -> parents (num,) int32 clipped to
-// [0, n_in - 1]. threads, items: the tile the caller laid out for, which
-// must be the one compiled in.
+// [0, n_in - 1].
 extern "C" int modppl_grid_rank_i32(const int* s, int m, int num, int n_in,
-                                    int* parents, int threads, int items,
-                                    cudaStream_t stream) {
-  if (num <= 0 || m < 0 || n_in <= 0 || threads != kRankThreads ||
-      items != kRankItems) {
+                                    int* parents, cudaStream_t stream) {
+  if (num <= 0 || m < 0 || n_in <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long blocks = modppl::rank_blocks(num, m);

@@ -133,8 +133,7 @@ def main():
         k3 = entry(lib, "modppl_resample_from_s_f32", fr._ARGS)
         row = {"threads": threads, "items": items}
         for kind, x in s.items():
-            run = (lambda x=x: k4(x.data_ptr(), N, N, N, parents.data_ptr(),
-                                  threads, items))
+            run = (lambda x=x: k4(x.data_ptr(), N, N, N, parents.data_ptr()))
             run()
             torch.cuda.synchronize()
             require_equal(f"grid_rank {threads}x{items} {kind}", parents,
@@ -142,7 +141,7 @@ def main():
             row[f"grid_rank_{kind}"] = timed(run, "grid_rank_kernel")
         x = s["uniform"]
         run = (lambda: k3(x.data_ptr(), state.data_ptr(), out.data_ptr(),
-                          parents.data_ptr(), N, C, 1, threads, items))
+                          parents.data_ptr(), N, C, 1))
         run()
         torch.cuda.synchronize()
         require_equal(f"kernel 3 {threads}x{items} parents", parents,

@@ -37,8 +37,9 @@
 
 #include <cuda_runtime.h>
 
-// The tile, as ops/resample.rank_layout reads it; the launchers refuse any
-// other (probes rebuild with -D to measure others).
+// The tile. ops/resample.py reads these two #define lines for the CPU
+// model of the merge path (merge_path_parents), so they stay the one place
+// it is set; probes rebuild with -D to measure others.
 #ifndef MODPPL_RANK_THREADS
 #define MODPPL_RANK_THREADS 256
 #endif

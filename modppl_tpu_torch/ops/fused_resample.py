@@ -3,9 +3,9 @@
 Counterpart of modppl_tpu/ops/fused_resample_pallas.py:resample_fused_from_s
 (Pallas core ``_fused_gather``). The CUDA kernel is in
 csrc/fused_resample.cu: each CTA ranks its tile of the merged slots and S
-(csrc/rank.cuh, the merge path kernel 4 shares, laid out by
-``ops.resample.rank_layout``), then copies its contiguous range of output
-rows; its header says what bounds it and why it gathers instead of
+(csrc/rank.cuh, the merge path kernel 4 shares; ``ops.resample.
+merge_path_parents`` models it), then copies its contiguous range of
+output rows; its header says what bounds it and why it gathers instead of
 contracting one-hot matrices. A GPU gather copies exactly, so none of the
 reference's precision modes exist here.
 
@@ -25,12 +25,12 @@ import ctypes
 import torch
 
 from modppl_tpu_torch.ops import _build
-from modppl_tpu_torch.ops.resample import rank_layout, slot_positions, uniform
+from modppl_tpu_torch.ops.resample import slot_positions, uniform
 from modppl_tpu_torch.utils.numerics import normalized_cdf
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_ARGS = (_P, _P, _P, _P, _I, _I, _I, _P)
 
 
 def parents_from_s(s, num_particles):
@@ -80,15 +80,13 @@ def resample_fused_from_s(s, state, layout="cn"):
             f"state as a contiguous float32 tensor on {s.device}, got "
             f"{state.dtype} on {state.device}")
     require(0 < n < 2 ** 31 and c >= 1, f"N > 0 and C >= 1, got N={n}, C={c}")
-    threads, items, _ = rank_layout(n, n)
     new_state = torch.empty_like(state)
     parents = torch.empty(n, dtype=torch.int32, device=s.device)
     fn = _build.entry("modppl_resample_from_s_f32", _ARGS)
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(s.data_ptr(), state.data_ptr(), new_state.data_ptr(),
-                 parents.data_ptr(), n, c, int(layout == "nc"), threads,
-                 items, stream)
+                 parents.data_ptr(), n, c, int(layout == "nc"), stream)
     _build.check(err, name)
     resample_fused_from_s.launches += 1
     return new_state, parents

@@ -4,8 +4,9 @@ Counterpart of modppl_tpu/ops/resample_pallas.py (Pallas kernel
 ``grid_rank``, entry ``systematic_parents_pallas``). The CUDA kernel is in
 csrc/grid_rank.cu and its rank step, shared with kernel 3, in
 csrc/rank.cuh: a merge path over the slots and S, each CTA an equal tile
-of ``RANK_THREADS x RANK_ITEMS`` items with its window of S in shared
-memory; the headers say what bounds it.
+of the merged sequence, its window's runs of equal S marked in shared
+memory and turned into ranks by a running maximum; the headers say what
+bounds it.
 
 - ``grid_rank(s, n_in, num=None)``: parents[i] = #{j : S_j <= i} for the
   ``num`` output slots (default ``s.shape[0]``), clipped to [0, n_in - 1],
@@ -14,9 +15,10 @@ memory; the headers say what bounds it.
   reference's integer scatter-add + cumsum (parallel/resample.py:44-46).
   ``grid_rank.launches`` counts kernel launches.
 - ``rank_layout(num, m)``: the rank step's launch (threads a block, items a
-  thread, blocks), which both kernels' wrappers pass to their C entries;
+  thread, blocks) as the C launchers compute it, from the tile that
+  ``RANK_THREADS`` and ``RANK_ITEMS`` read out of csrc/rank.cuh;
   ``merge_path_parents(s, n_in, num)`` models in torch the splits, run
-  marks and scan each CTA computes from it, for the CPU tests.
+  marks and running maximum each CTA computes, for the CPU tests.
 - ``slot_positions(cdf, u, num)``: S = cummax(clip(ceil(num cdf - u), 0,
   num)), the sorted first-child slot of each particle.
 - ``systematic_parents(key, lw, num=None, u=None)``: the counterpart of
@@ -26,6 +28,7 @@ memory; the headers say what bounds it.
 """
 
 import ctypes
+import re
 
 import torch
 
@@ -35,16 +38,23 @@ from modppl_tpu_torch.utils.numerics import normalized_cdf
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = (_P, _I, _I, _I, _P, _I, _I, _P)
+_ARGS = (_P, _I, _I, _I, _P, _P)
 
-# The rank step's tile (csrc/rank.cuh: kRankThreads, kRankItems): each CTA of
-# kernels 3 and 4 covers RANK_THREADS groups of RANK_ITEMS slots and takes
-# one group fewer items of the merged sequence of slots and S entries
-# (kRankTile). The wrappers pass both to the C entries, which refuse a tile
-# other than the one compiled in.
-RANK_THREADS = 256
-RANK_ITEMS = 8
-RANK_TILE = (RANK_THREADS - 1) * RANK_ITEMS
+
+def _compiled_tile():
+    """(kRankThreads, kRankItems) as csrc/rank.cuh defines them."""
+    src = (_build.CSRC / "rank.cuh").read_text()
+    found = dict(re.findall(r"#define MODPPL_RANK_(THREADS|ITEMS) (\d+)", src))
+    return int(found["THREADS"]), int(found["ITEMS"])
+
+
+# The rank step's tile, read from csrc/rank.cuh: each CTA of kernels 3 and 4
+# covers RANK_SLOTS slots of the output, RANK_THREADS groups of RANK_ITEMS
+# aligned to RANK_ITEMS, and takes one group fewer items of the merged
+# sequence of slots and S entries (kRankTile), so that its slots always fit.
+RANK_THREADS, RANK_ITEMS = _compiled_tile()
+RANK_SLOTS = RANK_THREADS * RANK_ITEMS
+RANK_TILE = RANK_SLOTS - RANK_ITEMS
 
 
 def uniform(key, like, shape=()):
@@ -93,7 +103,7 @@ def grid_rank_plain(s, n_in, num=None):
 
 def rank_layout(num, m):
     """(threads a block, items a thread, blocks) of the rank step over
-    ``num`` slots and ``m`` entries of S."""
+    ``num`` slots and ``m`` entries of S (csrc/rank.cuh: rank_blocks)."""
     return RANK_THREADS, RANK_ITEMS, -(-(num + m) // RANK_TILE)
 
 
@@ -120,45 +130,48 @@ def _warp_split(g, num, d):
 
 def merge_path_parents(s, n_in, num=None):
     """The rank step as kernels 3 and 4 compute it (csrc/rank.cuh),
-    modelled in torch: each CTA's split of S at its tile's two diagonals
-    (the 32-way warp search), the run ends of its window of S marking their
-    slots with their counts within the window, and the running maximum of
-    the marks (each thread's ``RANK_ITEMS`` slots, then across threads).
-    Raises unless the tiles' slots cover [0, num) once and every mark has
-    one writer; returns parents (num,) int32, which must equal
+    modelled in torch, one row a CTA: the split of S at its tile's two
+    diagonals (the 32-way warp search); its slots [b0, b0 + nb), held in a
+    buffer of ``RANK_SLOTS`` marks from ``base``, b0 rounded down to
+    ``RANK_ITEMS``; the last entry of each run of equal S in its window
+    marking its slot with its count within the window; and the running
+    maximum of the marks, which the kernel takes within each thread's group
+    and then across groups (the same integers). Raises unless the tiles'
+    slots cover [0, num) once, fit their buffers and every mark has one
+    writer; returns parents (num,) int32, which must equal
     ``grid_rank_plain``."""
     num = s.shape[0] if num is None else num
     m = s.shape[0]
-    _, _, blocks = rank_layout(num, m)
-    tile = RANK_TILE
+    _, items, blocks = rank_layout(num, m)
     g = s.long() + torch.arange(m)
-    d0 = torch.arange(blocks) * tile
-    d1 = torch.clamp(d0 + tile, max=num + m)
+    d0 = torch.arange(blocks) * RANK_TILE
+    d1 = torch.clamp(d0 + RANK_TILE, max=num + m)
     a0, a1 = _warp_split(g, num, d0), _warp_split(g, num, d1)
     b0, b1 = d0 - a0, d1 - a1
+    base = b0 - b0 % items
     if not (bool((b0[1:] == b1[:-1]).all()) and int(b0[0]) == 0
-            and int(b1[-1]) == num and bool((b1 - b0 + a1 - a0 <= tile).all())):
-        raise AssertionError("merge path: the tiles do not cover the slots "
-                             "once")
-    marks = torch.zeros(blocks, tile, dtype=torch.long)
-    x = torch.arange(tile)
+            and int(b1[-1]) == num and bool((b1 - base <= RANK_SLOTS).all())):
+        raise AssertionError("merge path: the tiles' slots do not cover "
+                             "[0, num) once within their buffers")
+    marks = torch.zeros(blocks, RANK_SLOTS, dtype=torch.long)
+    x = torch.arange(RANK_SLOTS)
     if m:
         na, nb = (a1 - a0)[:, None], (b1 - b0)[:, None]
         j = (a0[:, None] + x).clamp(max=m - 1)
         v = s.long()[j]
         nxt = s.long()[(j + 1).clamp(max=m - 1)]
-        y = v - b0[:, None]
-        ends = (x < na) & ((x + 1 == na) | (nxt != v)) & (y < nb)
+        ends = (x < na) & ((x + 1 == na) | (nxt != v)) & (v - b0[:, None] < nb)
         rows, cols = ends.nonzero(as_tuple=True)
-        slot = y[rows, cols]
-        if torch.unique(rows * tile + slot).numel() != slot.numel():
+        slot = (v - base[:, None])[rows, cols]
+        if torch.unique(rows * RANK_SLOTS + slot).numel() != slot.numel():
             raise AssertionError("merge path: two run ends mark one slot")
         marks[rows, slot] = cols + 1
     ranks = torch.cummax(marks, 1).values
     parents = torch.clamp(a0[:, None] + ranks, 0, n_in - 1)
-    mine = x < (b1 - b0)[:, None]
+    y = x - (b0 - base)[:, None]
+    mine = (y >= 0) & (y < (b1 - b0)[:, None])
     out = torch.empty(num, dtype=torch.int32)
-    out[(b0[:, None] + x)[mine]] = parents[mine].to(torch.int32)
+    out[(base[:, None] + x)[mine]] = parents[mine].to(torch.int32)
     return out
 
 
@@ -175,13 +188,12 @@ def grid_rank(s, n_in, num=None):
     if not (0 < num < 2 ** 31 and 0 < n_in < 2 ** 31 and s.shape[0] < 2 ** 31):
         raise ValueError(f"{name}: the CUDA kernel needs 0 < num, n_in < "
                          f"2^31, got num={num}, n_in={n_in}")
-    threads, items, _ = rank_layout(num, s.shape[0])
     parents = torch.empty(num, dtype=torch.int32, device=s.device)
     fn = _build.entry("modppl_grid_rank_i32", _ARGS)
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(s.data_ptr(), s.shape[0], num, n_in, parents.data_ptr(),
-                 threads, items, stream)
+                 stream)
     _build.check(err, name)
     grid_rank.launches += 1
     return parents

@@ -8,7 +8,6 @@ versions, which must agree bitwise (the scan, S, ancestors, gathered states)
 or, where torch's and XLA's exp may differ by an ulp, at a stated tolerance.
 """
 
-import re
 from pathlib import Path
 
 import jax
@@ -264,13 +263,15 @@ def _merge_s(kind, m, num, seed):
     ("zeros", 1, 1), ("all_num", 1, 1), ("uniform", 100_003, 100_003),
     ("concentrated", 100_003, 100_003), ("degenerate", 100_003, 100_003)])
 def test_merge_path_model_bitwise(kind, m, num):
-    """The rank step as kernels 3 and 4 split it (resample.
-    merge_path_parents: each CTA's warp search, window of S, each thread's
-    split and walk, at the launch's own tile) writes every slot once and
-    equals grid_rank_plain, numpy's searchsorted and, where m = num,
-    parents_from_s and the reference's _parents_from_s, bitwise: uniform,
-    concentrated and degenerate weights, S all 0 and all num, m != num, N =
-    1 and N = 100003 (not a multiple of the tile)."""
+    """The rank step as kernels 3 and 4 compute it (resample.
+    merge_path_parents, at the tile csrc/rank.cuh compiles in: each CTA's
+    two warp searches, its slots in a buffer aligned down to a group, the
+    run ends of its window of S marking their slots, the running maximum
+    of the marks) writes every slot once within its CTA's buffer and equals
+    grid_rank_plain, numpy's searchsorted and, where m = num, parents_from_s
+    and the reference's _parents_from_s, bitwise: uniform, concentrated and
+    degenerate weights, S all 0 and all num, m != num, N = 1 and N = 100003
+    (not a multiple of the tile)."""
     s = _merge_s(kind, m, num, m + num)
     n_in = m
     got = resample.merge_path_parents(tensor(s), n_in, num).numpy()
@@ -289,13 +290,16 @@ def test_merge_path_model_bitwise(kind, m, num):
 
 
 def test_rank_layout_matches_csrc():
-    """The tile the wrappers pass is the one csrc/rank.cuh compiles in
-    (its C entries refuse any other), and covers num + m items."""
+    """The tile of the CPU model is the one csrc/rank.cuh compiles in (read
+    from its two #define lines), meets the header's static_asserts, and
+    the launch's blocks cover the num + m merged items, m != num too."""
     src = (CSRC / "rank.cuh").read_text()
-    compiled = {k: int(v) for k, v in re.findall(
-        r"#define MODPPL_RANK_(THREADS|ITEMS) (\d+)", src)}
-    threads, items, blocks = resample.rank_layout(100_003, 100_003)
-    assert compiled == {"THREADS": threads, "ITEMS": items}
-    tile = resample.RANK_TILE
-    assert tile == threads * items - items
-    assert (blocks - 1) * tile < 200_006 <= blocks * tile
+    assert f"#define MODPPL_RANK_THREADS {resample.RANK_THREADS}\n" in src
+    assert f"#define MODPPL_RANK_ITEMS {resample.RANK_ITEMS}\n" in src
+    for num, m in ((100_003, 100_003), (3000, 5000), (7000, 2500), (1, 1)):
+        threads, items, blocks = resample.rank_layout(num, m)
+        assert threads >= 128 and threads % 32 == 0
+        assert items % 4 == 0 and 32 % items == 0
+        tile = resample.RANK_TILE
+        assert tile == threads * items - items
+        assert (blocks - 1) * tile < num + m <= blocks * tile
