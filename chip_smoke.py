@@ -35,6 +35,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the scan, the positions S, the ancestors and the copied states must all
    be bitwise equal; kernel 3 also at N = 100003 (no multiple of its
    tile), each time at C = 1, 2, 7 and 31 in both layouts, run twice;
+   kernels 1 and 2 also at N = 2^14, 2^10 and 2^6 (rows of 256, 16 and 1)
+   and on 37 rows of 1, 2, 16, 32, 64 and 1024, kernel 2 each time also on
+   every row of its input permuted (the filter's S never falls within a
+   row, so only then does its scan do work), once from an address its
+   16-byte loads cannot take;
 4. runs the main path with the launch counters at 0 and requires 9 launches
    of each kernel, a finite log-ML, finite states and sorted ancestors;
    reruns it on the card through the plain versions, fed the same draws,
@@ -130,6 +135,12 @@ KINDS = ("uniform", "concentrated", "degenerate")
 # each C below in both layouts (31 is the widest the filters fuse)
 GATHER_ODD_N = 100_003
 GATHER_COLUMNS = (1, 2, 7, 31)
+# kernels 1 and 2 are also held at N whose rows are narrower than 1024
+# (bw = 256) and than a warp (bw = 16, bw = 1), and on GRID_ODD_ROWS rows,
+# which fill no whole CTA, at each of GRID_ODD_WIDTHS
+GRID_SIZES = (1 << 14, 1 << 10, 1 << 6)
+GRID_ODD_ROWS = 37
+GRID_ODD_WIDTHS = (1, 2, 16, 32, 64, 1024)
 # GPU vs CPU on the same draws: CUDA's and the CPU's exp, cos and sin round
 # differently, and a particle whose ancestor flips moves every later slot of
 # the systematic grid, so the two runs part after the first resample or two.
@@ -185,45 +196,83 @@ class Errors:
 
 def check_kernels(device, sizes=CHECK_SIZES, kinds=KINDS):
     """Phase 3: every kernel against its plain version on ``device``."""
-    from modppl_tpu_torch.ops import grid_positions as gp
-    from modppl_tpu_torch.parallel import sharded_smc as smc
-
     errs = Errors()
     for n in sizes:
-        block = smc._cdf_block(n)
         for seed, kind in enumerate(kinds):
-            lw = make_lw(kind, n, seed, device)
-            rows, m = lw.reshape(-1, block), lw.max()
-            got = gp.stats_cumsum(rows, m)
-            want = gp.stats_cumsum_plain(rows, m)
-            for what, a, b in zip(("cum", "totals", "sq_totals"), got, want):
-                errs.same("stats_cumsum", f"{what} (N={n}, {kind})", a, b)
-            sync(device)
-
-            cum, totals, _ = want
-            offs_incl = gp.doubling_cumsum(totals[None, :])[0]
-            offs = torch.cat([totals.new_zeros(1), offs_incl[:-1]])
-            total = offs_incl[-1]
-            u = torch.tensor(0.37, dtype=torch.float32, device=device)
-            got = gp.positions_cummax(cum, offs, total, u, n)
-            want = gp.positions_cummax_plain(cum, offs, total, u, n)
-            for what, a, b in zip(("s_rows", "row maxima"), got, want):
-                errs.same("positions_cummax", f"{what} (N={n}, {kind})", a, b)
-            s, _, _ = smc._det_grid_positions(u, lw, n)
-            s_plain = torch.maximum(
-                want[0], torch.cat([torch.full((1,), -2 ** 31,
-                                               dtype=torch.int32,
-                                               device=device),
-                                    torch.cummax(want[1], 0).values[:-1]]
-                                   )[:, None]).reshape(n)
-            errs.same("positions_cummax", f"S (N={n}, {kind})", s, s_plain)
-            sync(device)
-
+            s = check_grid(errs, n, kind, seed, device)
             check_gather(errs, s, kind, seed, device)
+    for n in GRID_SIZES:
+        for seed, kind in enumerate(kinds):
+            check_grid(errs, n, kind, seed, device)
+    for bw in GRID_ODD_WIDTHS:
+        for seed, kind in enumerate(kinds):
+            lw = make_lw(kind, GRID_ODD_ROWS * bw, seed, device)
+            check_grid_rows(errs, lw.reshape(GRID_ODD_ROWS, bw), lw.max(),
+                            kind, device)
     for seed, kind in enumerate(kinds):
         check_gather(errs, rank_s(kind, GATHER_ODD_N, seed, device), kind,
                      seed, device)
     return errs.max
+
+
+def check_grid_rows(errs, rows, m, kind, device):
+    """Kernels 1 and 2 on ``rows`` (nb, bw) against their plain versions,
+    bitwise; returns kernel 2's plain (s_rows, row maxima)."""
+    from modppl_tpu_torch.ops import grid_positions as gp
+
+    nb, bw = rows.shape
+    n = nb * bw
+    where = f"(nb={nb}, bw={bw}, {kind})"
+    got = gp.stats_cumsum(rows, m)
+    want = gp.stats_cumsum_plain(rows, m)
+    for what, a, b in zip(("cum", "totals", "sq_totals"), got, want):
+        errs.same("stats_cumsum", f"{what} {where}", a, b)
+    sync(device)
+
+    cum, totals, _ = want
+    offs_incl = gp.doubling_cumsum(totals[None, :])[0]
+    offs = torch.cat([totals.new_zeros(1), offs_incl[:-1]])
+    total = offs_incl[-1]
+    u = torch.tensor(0.37, dtype=torch.float32, device=device)
+    want = gp.positions_cummax_plain(cum, offs, total, u, n)
+    # the filter's S never falls within a row, so kernel 2's scan is also
+    # held on each row of cum permuted; and on cum 4 bytes past a 16-byte
+    # boundary, which its word loads cannot take
+    g = torch.Generator().manual_seed(bw)
+    shuffled = cum[:, torch.randperm(bw, generator=g).to(device)]
+    unaligned = torch.empty(n + 1, device=device)[1:].view(nb, bw)
+    unaligned.copy_(shuffled)
+    for label, c, plain in (
+            ("", cum, want),
+            (" shuffled", shuffled,
+             gp.positions_cummax_plain(shuffled, offs, total, u, n)),
+            (" shuffled, unaligned", unaligned,
+             gp.positions_cummax_plain(shuffled, offs, total, u, n))):
+        got = gp.positions_cummax(c, offs, total, u, n)
+        for what, a, b in zip(("s_rows", "row maxima"), got, plain):
+            errs.same("positions_cummax", f"{what}{label} {where}", a, b)
+    sync(device)
+    return want
+
+
+def check_grid(errs, n, kind, seed, device):
+    """Kernels 1 and 2 at N = ``n`` in the filter's rows, and the S the
+    filter makes of them; returns S."""
+    from modppl_tpu_torch.parallel import sharded_smc as smc
+
+    lw = make_lw(kind, n, seed, device)
+    s_rows, mx = check_grid_rows(errs, lw.reshape(-1, smc._cdf_block(n)),
+                                 lw.max(), kind, device)
+    u = torch.tensor(0.37, dtype=torch.float32, device=device)
+    s, _, _ = smc._det_grid_positions(u, lw, n)
+    s_plain = torch.maximum(
+        s_rows, torch.cat([torch.full((1,), -2 ** 31, dtype=torch.int32,
+                                      device=device),
+                           torch.cummax(mx, 0).values[:-1]])[:, None]
+    ).reshape(n)
+    errs.same("positions_cummax", f"S (N={n}, {kind})", s, s_plain)
+    sync(device)
+    return s
 
 
 def rank_s(kind, n, seed, device, num=None):
@@ -1581,7 +1630,9 @@ def main(argv):
 
     errs = check_kernels("cuda")
     print(f"# kernels == plain versions on the card, bitwise: N in "
-          f"{list(CHECK_SIZES)}, weights {list(KINDS)}")
+          f"{list(CHECK_SIZES)}, weights {list(KINDS)}; kernels 1-2 also at "
+          f"N in {list(GRID_SIZES)} and on {GRID_ODD_ROWS} rows of "
+          f"{list(GRID_ODD_WIDTHS)}")
     sys.stdout.flush()
 
     launches, seen = check_main_path("cuda")
