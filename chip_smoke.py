@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Five paths, each driven with its kernels' launch counters set to 0 just
+Six paths, each driven with its kernels' launch counters set to 0 just
 before it and read just after:
 
 - the spiral-tracking bootstrap particle filter
@@ -24,7 +24,12 @@ before it and read just after:
 - fixed-step HMC, ``ops/leapfrog.hmc_quadratic``, on both HMC legs' targets
   after their warmup, at the adapted step size and inverse mass: one launch
   per transition of ``hmc_transition_small`` (d = 3, 500 transitions) or
-  ``fused_leapfrog`` (d = 128, 256 transitions).
+  ``fused_leapfrog`` (d = 128, 256 transitions);
+- guided and rejuvenated SMC (``bench.py:422-520``): the scalar
+  linear-Gaussian SSM (A, Q, R = 0.9, 0.5, 0.3) through
+  ``sharded_batched_particle_filter`` with the locally optimal proposal and
+  one regenerative move of ``x`` a step, N = 2^20, T = 10, float32: each of
+  the 9 steps resamples through kernels 1, 2 and 3.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -87,7 +92,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     d = 3);
 12. times the HMM leg (median of 5), each ``hmc_quadratic`` leg (median of
     3) and the three new kernels against their plain versions, bounds and
-    (``grid_rank``) ``torch.searchsorted``.
+    (``grid_rank``) ``torch.searchsorted``;
+13. runs the guided leg with the counters at 0 and requires 9 launches each
+    of kernels 1, 2 and 3 and none of any other, a log-ML within 0.05 of
+    the exact Kalman value (float64 numpy), an overall acceptance of the
+    moves strictly between 0 and 1, and every output bitwise equal to the
+    same filter through the plain versions on the card, fed the run's
+    recorded draws (resample uniforms, proposal draws, each move's draws
+    and accept uniforms);
+14. times the guided leg (median of 5 after a warm-up) in particle-steps/s.
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
 path; a profile that lacks a kernel the launch counters saw says so and
@@ -332,7 +345,7 @@ def run_filter(device, n, seed, **kwargs):
         None, seed, spiral_scan_kernel(),
         torch.zeros(2, dtype=torch.float32, device=device),
         Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}),
-        n, ess_threshold=1.0, auto_batch=True, **kwargs)
+        n, ess_threshold=1.0, auto_batch=True, device=device, **kwargs)
 
 
 def wrappers():
@@ -1084,7 +1097,8 @@ def run_hmm(device, n, seed, ess_threshold=1.0):
         seed, hmm_scan_kernel(params),
         torch.zeros((), dtype=torch.float32, device=device),
         Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}), n,
-        resampling="systematic", ess_threshold=ess_threshold, auto_batch=True)
+        resampling="systematic", ess_threshold=ess_threshold, auto_batch=True,
+        device=device)
 
 
 def run_spiral_vsmc(device, n, seed):
@@ -1103,7 +1117,7 @@ def run_spiral_vsmc(device, n, seed):
         seed, spiral_scan_kernel(), torch.zeros(2, dtype=torch.float32,
                                                 device=device),
         Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}), n,
-        auto_batch=True)
+        auto_batch=True, device=device)
 
 
 def all_wrappers():
@@ -1402,6 +1416,150 @@ def time_slice3_kernels():
                          None if library is None else time_ms(library),
                          b_ms, by)
     return out
+
+
+# --------------------------------------------------------------------------
+# slice 4: guided and rejuvenated SMC on the scalar linear-Gaussian SSM
+# (bench.py:422-520, bench_smc_guided)
+# --------------------------------------------------------------------------
+
+LG_A, LG_Q, LG_R = 0.9, 0.5, 0.3
+# the reference's gate for the guided filter (tests/test_batched_filter.py:
+# 208), against the exact Kalman log-ML
+LG_LOG_ML_GAP = 0.05
+GUIDED_KERNELS = ("stats_cumsum", "positions_cummax", "resample_fused_from_s")
+_LG_MODELS = {}
+
+
+def lg_models():
+    """(init, step, proposal) of the guided leg: the model of bench.py:
+    434-446 and its locally optimal proposal (bench.py:447-453), one Gen
+    each for the process."""
+    if not _LG_MODELS:
+        from modppl_tpu_torch.dists import normal
+        from modppl_tpu_torch.modeling import gen
+
+        a, q, r = LG_A, LG_Q, LG_R
+        prec = 1.0 / q ** 2 + 1.0 / r ** 2
+
+        @gen
+        def lg_init(h, _s0):
+            x = h.sample(normal, (0.0, 1.0), "x")
+            h.sample(normal, (x, r), "y")
+            return x
+
+        @gen
+        def lg_step(h, t, prev):
+            x = h.sample(normal, (a * prev, q), "x")
+            h.sample(normal, (x, r), "y")
+            return x
+
+        @gen
+        def lg_prop(h, t, prev, cons):
+            y = cons.read("y")
+            m = (a * prev / q ** 2 + y / r ** 2) / prec
+            h.sample(normal, (m, 1.0 / math.sqrt(prec)), "x")
+
+        _LG_MODELS.update(init=lg_init, step=lg_step, prop=lg_prop)
+    return _LG_MODELS["init"], _LG_MODELS["step"], _LG_MODELS["prop"]
+
+
+def lg_observations(num_steps=T):
+    """The leg's observations, drawn as bench.py:478-484 draws them, in
+    float32."""
+    rng = np.random.default_rng(5)
+    xs = [rng.standard_normal()]
+    for _ in range(num_steps - 1):
+        xs.append(LG_A * xs[-1] + LG_Q * rng.standard_normal())
+    return np.array([x + LG_R * rng.standard_normal() for x in xs],
+                    dtype=np.float32)
+
+
+def lg_kalman_log_ml(ys):
+    """Exact log p(y_1:T) of the scalar model, float64 numpy."""
+    mu, var, total = 0.0, 1.0, 0.0
+    for i, y in enumerate(np.asarray(ys, np.float64)):
+        if i > 0:
+            mu, var = LG_A * mu, LG_A * LG_A * var + LG_Q * LG_Q
+        s = var + LG_R * LG_R
+        total += -0.5 * (math.log(2 * math.pi * s) + (y - mu) ** 2 / s)
+        k = var / s
+        mu, var = mu + k * (y - mu), (1 - k) * var
+    return total
+
+
+def run_guided(device, n, seed, **kwargs):
+    """The guided leg: sharded_batched_particle_filter with the locally
+    optimal proposal and one regenerative move of "x" a step, float32, as
+    bench_smc_guided calls it."""
+    from modppl_tpu_torch.core import Trie, select
+    from modppl_tpu_torch.inference.vsmc import ScanKernel
+    from modppl_tpu_torch.parallel.sharded_smc import (
+        sharded_batched_particle_filter,
+    )
+
+    init, step, prop = lg_models()
+    ys = torch.tensor(lg_observations(), device=device)
+    return sharded_batched_particle_filter(
+        None, seed, ScanKernel(init, step),
+        torch.zeros((), dtype=torch.float32, device=device),
+        Trie.from_dict({"y": ys[0]}), Trie.from_dict({"y": ys[1:]}), n,
+        ess_threshold=1.0, auto_batch=True, store_ancestry=False,
+        proposal=prop, rejuvenation=(select("x"), 1), device=device,
+        **kwargs)
+
+
+def check_guided_leg(device="cuda", n=N):
+    """Phase 13: the guided leg with the counters at 0: 9 launches each of
+    kernels 1, 2 and 3 and none of any other; a finite log-ML within
+    LG_LOG_ML_GAP of the exact Kalman value; an overall acceptance of the
+    moves strictly between 0 and 1; and every output bitwise equal to the
+    same filter through the plain versions on the card, fed the run's
+    recorded draws (resample uniforms, proposal draws, each move's draws
+    and accept uniforms)."""
+    exact = lg_kalman_log_ml(lg_observations())
+    rec = []
+    out, launches = counted(lambda: run_guided(device, n, 17, record=rec))
+    require_launches("guided leg", launches,
+                     {name: T - 1 for name in GUIDED_KERNELS})
+    log_ml = float(out["log_ml"])
+    if not math.isfinite(log_ml) or abs(log_ml - exact) > LG_LOG_ML_GAP:
+        raise AssertionError(f"guided leg: log_ml {log_ml} vs exact {exact}")
+    if out["state"].shape != (n,) or not bool(out["state"].isfinite().all()):
+        raise AssertionError("guided leg: expected finite (N,) states")
+    acceptance = float(out["acceptance"].double().mean())
+    if not 0.0 < acceptance < 1.0:
+        raise AssertionError(f"guided leg: acceptance {acceptance} is not "
+                             f"in (0, 1)")
+    if len(rec) != T or len(rec[1]) != 4 or len(rec[1][3]) != 1:
+        raise AssertionError("guided leg: expected T record entries with a "
+                             "proposal pool and one move a step")
+    with plain_versions():
+        plain = run_guided(device, n, 17, replay=rec)
+    for what in ("log_ml", "state", "log_weights", "ess", "resampled",
+                 "acceptance"):
+        if not torch.equal(out[what], plain[what]):
+            raise AssertionError(f"guided leg: {what} differs from the same "
+                                 f"filter through the plain versions")
+    return launches, {"log_ml": log_ml, "exact": exact,
+                      "acceptance": acceptance,
+                      "acceptance_by_step": out["acceptance"][:, 0].tolist()}
+
+
+def time_guided(n=N, runs=5):
+    """Median seconds of one guided filter on the card after a warm-up."""
+    run_guided("cuda", n, 100)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_guided("cuda", n, 101 + i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not math.isfinite(float(out["log_ml"])):
+            raise AssertionError("timed guided run: log_ml is not finite")
+    return statistics.median(times), times
 
 
 SOURCES = {
@@ -1744,6 +1902,27 @@ def main(argv):
         lib = "" if l_ms is None else f", library {l_ms:.4f} ms"
         print(f"# {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, "
               f"bound {b_ms:.4f} ms ({by}) at its main path's shapes")
+    guided_launches, guided_seen = check_guided_leg("cuda")
+    print(f"# main path: guided and rejuvenated LG filter N={N} T={T} "
+          f"float32 through sharded_batched_particle_filter (locally optimal "
+          f"proposal, one move of x a step); launches "
+          f"{ {k: guided_launches[k] for k in GUIDED_KERNELS} }, no other "
+          f"kernel; log_ml {guided_seen['log_ml']!r} exact Kalman "
+          f"{guided_seen['exact']!r} (gap "
+          f"{abs(guided_seen['log_ml'] - guided_seen['exact'])!r}); "
+          f"acceptance {guided_seen['acceptance']!r} (by step "
+          f"{[round(a, 4) for a in guided_seen['acceptance_by_step']]}); == "
+          f"the same filter through the plain versions on the recorded "
+          f"draws, bitwise")
+    sys.stdout.flush()
+    guided_s, guided_times = time_guided()
+    print(f"# guided leg: median {guided_s * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in guided_times]} ms -> "
+          f"{N * T / guided_s:.1f} particle-steps/s ({card})")
+    if "--profile" in argv:
+        profile_run("guided LG filter", lambda: run_guided("cuda", N, 201),
+                    guided_s)
+    sys.stdout.flush()
     launches.update(hmc_launches)
     launches.update(quad_launches)
     launches["grid_rank"] = rank_launches

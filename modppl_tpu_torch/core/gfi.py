@@ -1,8 +1,20 @@
 """The Generative Function Interface (counterpart of modppl_tpu/core/gfi.py).
 
 Every method takes an integer PRNG key first (core/keys.py), the port's
-counterpart of a threefry key.
+counterpart of a threefry key. Methods that may run a model with no tensor
+arguments also take ``device``: the port does not fall back to the CPU.
 """
+
+import enum
+
+
+class ArgDiff(enum.Enum):
+    """Incremental-update hint for ``update`` and ``regenerate``."""
+
+    NO_CHANGE = "no_change"
+    UNKNOWN = "unknown"
+    # vector-valued data being appended (the reference's particle filter)
+    EXTEND = "extend"
 
 
 class Trace:
@@ -28,13 +40,33 @@ class Trace:
 class GenFn:
     """Interface for functions that support the inference library."""
 
-    def simulate(self, key, args):
+    def simulate(self, key, args, device=None):
         """Execute the generative function, returning a sampled Trace."""
         raise NotImplementedError
 
     def generate(self, key, args, constraints, device=None):
         """Execute consistent with ``constraints``; returns (trace, weight)."""
         raise NotImplementedError
+
+    def update(self, key, trace, args, argdiff, constraints, device=None):
+        """Update a trace with forward choices; returns (trace, discard,
+        weight)."""
+        raise NotImplementedError
+
+    def regenerate(self, key, trace, args, argdiff, selection, device=None):
+        """Regenerate a masked subset of a trace; returns (trace, weight)."""
+        raise NotImplementedError("regenerate: impl not found")
+
+    # -- derived methods ----------------------------------------------------
+
+    def call(self, key, args, device=None):
+        """Sample a trace and return its return value."""
+        return self.simulate(key, args, device=device).retv
+
+    def propose(self, key, args, device=None):
+        """Sample (choices, logjp) from the function."""
+        trace = self.simulate(key, args, device=device)
+        return trace.data, trace.logjp
 
     def assess(self, key, args, constraints, device=None):
         """Conditional log-probability of fully-proposed ``constraints``."""

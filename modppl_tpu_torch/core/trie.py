@@ -5,7 +5,10 @@ A pure-Python trie whose values and per-leaf log-probabilities are tensors
 an occupied address raise, ``remove`` prunes empty intermediate nodes.
 
 Each leaf also records the distribution that drew it (``dist``), which
-gradient inference reads to pick an unconstraining bijector.
+gradient inference reads to pick an unconstraining bijector. ``merge``
+prefers the other trie's values, ``collect(mask)`` splits a trie into
+(kept, collected, collected weight) and ``schema()`` gives its address
+structure as a Selection.
 
 One difference follows from the port's batched tier, where a model body runs
 once on tensors whose leading axis is the particle axis: ``weight`` adds the
@@ -13,9 +16,18 @@ leaf log-probabilities elementwise and keeps that axis, so a batched trace
 has one log-joint per particle.
 """
 
-from modppl_tpu_torch.core.address import addr_components
+import torch
+
+from modppl_tpu_torch.core.address import Selection, addr_components
 
 _EMPTY = object()  # sentinel: "no inner value" (distinct from a stored None)
+
+
+def _values_equal(a, b):
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        return a.shape == b.shape and bool(torch.all(a == b.to(a.device)))
+    return a == b
 
 
 class Trie:
@@ -28,6 +40,15 @@ class Trie:
         self.value = _EMPTY
         self.logp = 0.0
         self.dist = None  # Distribution that drew this leaf, if any
+
+    @classmethod
+    def leaf(cls, value, logp=0.0, dist=None):
+        """A leaf node holding ``value`` with weight ``logp``."""
+        t = cls()
+        t.value = value
+        t.logp = logp
+        t.dist = dist
+        return t
 
     # ---- structure --------------------------------------------------------
 
@@ -51,6 +72,13 @@ class Trie:
         v = self.inner()
         self.value = _EMPTY
         return v
+
+    def replace_inner(self, value):
+        """Set the inner value, returning the previous one or None. The
+        leaf weight is untouched: a sub-call's return value carries none."""
+        prev = self.inner()
+        self.value = value
+        return prev
 
     def expect_inner(self, msg):
         if self.value is _EMPTY:
@@ -89,6 +117,13 @@ class Trie:
     def __getitem__(self, addr):
         return self.read(addr)
 
+    def __iter__(self):
+        """(component, sub-trie) over the direct descendants."""
+        return iter(self.children.items())
+
+    def __len__(self):
+        return len(self.children)
+
     # ---- writes -----------------------------------------------------------
 
     def _parent_of(self, addr):
@@ -115,6 +150,9 @@ class Trie:
         """Store an unweighted ``value`` leaf at ``addr``; raises if occupied."""
         self.w_observe(addr, value, 0.0)
 
+    def __setitem__(self, addr, value):
+        self.observe(addr, value)
+
     def insert(self, addr, sub):
         """Insert sub-trie at ``addr``; raises if occupied."""
         node, last = self._parent_of(addr)
@@ -140,6 +178,57 @@ class Trie:
                 break
             del path[i - 1].children[comps[i - 1]]
         return node
+
+    def merge(self, other):
+        """Merge ``other`` into self; on a leaf present in both, other's
+        value and weight win."""
+        for addr, othersub in list(other.children.items()):
+            mine = self.children.get(addr)
+            if othersub.is_leaf():
+                if mine is not None:
+                    del self.children[addr]
+                self.w_observe(addr, othersub.value, othersub.logp,
+                               othersub.dist)
+            elif mine is not None:
+                mine.merge(othersub)
+            else:
+                self.insert(addr, othersub)
+
+    # ---- schema / collect -------------------------------------------------
+
+    def schema(self):
+        """The Selection of the trie's address structure."""
+        sel = Selection()
+        for addr, sub in self.children.items():
+            if sub.is_leaf():
+                sel.visit(addr)
+            else:
+                sel.insert(addr, sub.schema())
+        return sel
+
+    def collect(self, mask):
+        """Split self by the Selection ``mask``: returns (kept, collected,
+        collected weight), ``collected`` holding the values under ``mask``
+        and ``kept`` the rest. Consumes self: both results may share its
+        nodes."""
+        collected = Trie()
+        if self.schema() == mask:
+            return Trie(), self, self.weight()
+        if not mask.is_leaf():
+            for addr, submask in mask:
+                sub = self.remove(addr)
+                if sub is None:
+                    raise KeyError(
+                        f'collect: mask address "{addr}" not in trie')
+                if submask.is_leaf():
+                    collected.insert(addr, sub)
+                else:
+                    sub, subcollected, _ = sub.collect(submask)
+                    if not sub.is_empty():
+                        self.insert(addr, sub)
+                    if not subcollected.is_empty():
+                        collected.insert(addr, subcollected)
+        return self, collected, collected.weight()
 
     # ---- conversion -------------------------------------------------------
 
@@ -202,6 +291,23 @@ class Trie:
             if sub.children:
                 out.extend(sub.addresses(path))
         return out
+
+    def __eq__(self, other):
+        if not isinstance(other, Trie):
+            return NotImplemented
+        if set(self.children) != set(other.children):
+            return False
+        if (self.value is _EMPTY) != (other.value is _EMPTY):
+            return False
+        if self.value is not _EMPTY and not _values_equal(self.value,
+                                                          other.value):
+            return False
+        if not _values_equal(self.logp, other.logp):
+            return False
+        return all(self.children[k] == other.children[k]
+                   for k in self.children)
+
+    __hash__ = None
 
     def __repr__(self):
         if self.is_leaf():

@@ -8,7 +8,13 @@ numbers stay host scalars in the arithmetic, so a constant parameter never
 costs a host-to-device copy.
 
 Parameter conventions follow the reference: std-dev normal, inclusive
-uniform bounds.
+uniform bounds, shape/scale gamma, k-failures geometric.
+
+``Standard(z)`` carries a sampler's standard draws (the normal or uniform
+variates before its parameters shape them) into a draw site:
+``from_standard(z, params)`` finishes the draw with the sampler's own
+arithmetic. A test that feeds a site whose parameters differ per particle
+the reference's draws passes them so.
 """
 
 import torch
@@ -32,6 +38,15 @@ def _sample_dtype(params, dtype):
         if torch.is_tensor(p) and p.is_floating_point():
             return p.dtype
     return dtype if dtype is not None else torch.get_default_dtype()
+
+
+class Standard:
+    """A sampler's standard draws, pre-drawn (see ``from_standard``)."""
+
+    __slots__ = ("z",)
+
+    def __init__(self, z):
+        self.z = z
 
 
 class Distribution:
@@ -67,6 +82,10 @@ class Distribution:
         return self._sample(gen, tuple(shape), _sample_dtype(params, dtype),
                             *params)
 
+    def from_standard(self, z, params):
+        """The draw that the standard variates ``z`` give at ``params``."""
+        return self._from_standard(z, *as_param_tuple(params))
+
     def batched(self, params):
         """True if a parameter carries a batch axis beyond the event rank:
         such a site cannot share one plate draw across particles."""
@@ -78,6 +97,10 @@ class Distribution:
 
     def _sample(self, gen, shape, dtype, *params):
         raise NotImplementedError
+
+    def _from_standard(self, z, *params):
+        raise NotImplementedError(
+            f"{type(self).__name__}: no standard-draw form")
 
     def __repr__(self):
         return type(self).__name__

@@ -1,5 +1,12 @@
-"""Scalar distributions: ``bernoulli``, ``uniform``, ``categorical`` and
-``normal`` (counterpart of modppl_tpu/dists/scalar.py:30-78, 99-148)."""
+"""Scalar distributions (counterpart of modppl_tpu/dists/scalar.py):
+``bernoulli``, ``uniform``, ``uniform_discrete``, ``categorical``,
+``normal``, ``geometric``, ``poisson``, ``gamma`` and ``beta``.
+
+Every sampler draws from the ``torch.Generator`` it is given. Integer draws
+(``uniform_discrete``, ``geometric``, ``poisson``) are int64. The log-gamma
+terms are ``torch.lgamma``; ``beta``'s log normaliser adds in the
+reference's order, lgamma(min) + (lgamma(max) - lgamma(a + b)).
+"""
 
 import math
 
@@ -10,6 +17,23 @@ from modppl_tpu_torch.dists.base import Distribution, shape_of
 
 def _log(v):
     return torch.log(v) if torch.is_tensor(v) else math.log(v)
+
+
+def _tensors(*xs):
+    """``xs`` as tensors on the device of the first tensor among them, in
+    the dtype of the first floating one (else torch's default float)."""
+    like = next((x for x in xs if torch.is_tensor(x)), None)
+    dtype = next((x.dtype for x in xs
+                  if torch.is_tensor(x) and x.is_floating_point()),
+                 torch.get_default_dtype())
+    dev = like.device if like is not None else None
+    return tuple(x.to(dev) if torch.is_tensor(x)
+                 else torch.as_tensor(x, dtype=dtype, device=dev) for x in xs)
+
+
+def _uniform01(gen, shape, dtype, *params):
+    shape = torch.broadcast_shapes(shape, *(shape_of(p) for p in params))
+    return torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
 
 
 class Bernoulli(Distribution):
@@ -51,9 +75,32 @@ class UniformContinuous(Distribution):
 
     def _sample(self, gen, shape, dtype, a, b):
         self._check(a, b)
-        shape = torch.broadcast_shapes(shape, shape_of(a), shape_of(b))
-        u = torch.rand(shape, generator=gen, device=gen.device, dtype=dtype)
+        return self._from_standard(_uniform01(gen, shape, dtype, a, b), a, b)
+
+    def _from_standard(self, u, a, b):
         return u * (b - a) + a
+
+
+class UniformDiscrete(Distribution):
+    """Uniform integers on [a, b], inclusive bounds, -inf outside."""
+
+    is_discrete = True
+    support = "discrete"
+
+    def _logpdf(self, x, a, b):
+        x, a, b = _tensors(x, a, b)
+        inside = (a <= x) & (x <= b)
+        width = b - a + 1
+        if not width.is_floating_point():
+            width = width.to(torch.get_default_dtype())
+        return torch.where(inside, -torch.log(width), -math.inf)
+
+    def _sample(self, gen, shape, dtype, a, b):
+        if not torch.is_tensor(a) and not torch.is_tensor(b):
+            return torch.randint(int(a), int(b) + 1, shape, generator=gen,
+                                 device=gen.device, dtype=torch.int64)
+        u = _uniform01(gen, shape, torch.float64, a, b)
+        return (torch.floor(u * (b - a + 1)) + a).to(torch.int64)
 
 
 class Categorical(Distribution):
@@ -108,11 +155,102 @@ class Normal(Distribution):
     def _sample(self, gen, shape, dtype, mu, std):
         shape = torch.broadcast_shapes(shape, shape_of(mu), shape_of(std))
         z = torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
+        return self._from_standard(z, mu, std)
+
+    def _from_standard(self, z, mu, std):
         return z * std + mu
+
+
+class Geometric(Distribution):
+    """The number of failures before the first success, success
+    probability p; draws by inverse CDF, floor(log(1 - u) / log(1 - p))."""
+
+    is_discrete = True
+    support = "discrete"
+
+    def _logpdf(self, k, p):
+        k, p = _tensors(k, p)
+        kf = k.to(p.dtype)
+        return torch.where(k >= 0, torch.special.xlog1py(kf, -p)
+                           + torch.log(p), -math.inf)
+
+    def _sample(self, gen, shape, dtype, p):
+        u = _uniform01(gen, shape, dtype, p)
+        return torch.floor(torch.log1p(-u) / _log1p_neg(p)).to(torch.int64)
+
+
+def _log1p_neg(p):
+    return torch.log1p(-p) if torch.is_tensor(p) else math.log1p(-p)
+
+
+class Poisson(Distribution):
+    """Poisson with rate lambda: k ln(lambda) - lambda - ln k!."""
+
+    is_discrete = True
+    support = "discrete"
+
+    def _logpdf(self, k, rate):
+        k, rate = _tensors(k, rate)
+        kf = k.to(rate.dtype)
+        return torch.where(k >= 0, torch.special.xlogy(kf, rate) - rate
+                           - torch.lgamma(kf + 1.0), -math.inf)
+
+    def _sample(self, gen, shape, dtype, rate):
+        shape = torch.broadcast_shapes(shape, shape_of(rate))
+        rates = torch.as_tensor(rate, dtype=dtype, device=gen.device)
+        return torch.poisson(rates.expand(shape).contiguous(),
+                             generator=gen).to(torch.int64)
+
+
+def _standard_gamma(gen, shape, dtype, a):
+    shape = torch.broadcast_shapes(shape, shape_of(a))
+    alpha = torch.as_tensor(a, dtype=dtype, device=gen.device)
+    return torch._standard_gamma(alpha.expand(shape).contiguous(),
+                                 generator=gen)
+
+
+class Gamma(Distribution):
+    """Gamma with shape a and scale b:
+    (a - 1) ln x - x / b - lnGamma(a) - a ln b."""
+
+    support = "positive"
+
+    def _logpdf(self, x, a, b):
+        x, a, b = _tensors(x, a, b)
+        return ((a - 1.0) * torch.log(x) - x / b - torch.lgamma(a)
+                - a * torch.log(b))
+
+    def _sample(self, gen, shape, dtype, a, b):
+        shape = torch.broadcast_shapes(shape, shape_of(b))
+        return _standard_gamma(gen, shape, dtype, a) * b
+
+
+class Beta(Distribution):
+    """Beta(a, b): (a - 1) ln x + (b - 1) ln(1 - x) - ln B(a, b); draws as
+    X / (X + Y) of two standard gammas."""
+
+    support = "unit_interval"
+
+    def _logpdf(self, x, a, b):
+        x, a, b = _tensors(x, a, b)
+        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+        betaln = torch.lgamma(lo) + (torch.lgamma(hi) - torch.lgamma(a + b))
+        return (a - 1.0) * torch.log(x) + (b - 1.0) * torch.log1p(-x) - betaln
+
+    def _sample(self, gen, shape, dtype, a, b):
+        shape = torch.broadcast_shapes(shape, shape_of(a), shape_of(b))
+        x = _standard_gamma(gen, shape, dtype, a)
+        y = _standard_gamma(gen, shape, dtype, b)
+        return x / (x + y)
 
 
 bernoulli = Bernoulli()
 uniform_continuous = UniformContinuous()
 uniform = uniform_continuous
+uniform_discrete = UniformDiscrete()
 categorical = Categorical()
 normal = Normal()
+geometric = Geometric()
+poisson = Poisson()
+gamma = Gamma()
+beta = Beta()

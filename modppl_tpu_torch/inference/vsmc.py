@@ -1,5 +1,6 @@
 """Batched SMC: the state, its initialisation and the batched-tier particle
-filter (counterpart of modppl_tpu/inference/vsmc.py:38-117, 199-337).
+filter, bootstrap, guided and rejuvenated (counterpart of
+modppl_tpu/inference/vsmc.py:38-152, 199-337).
 
 The particle axis is an ordinary tensor axis: one generate per step extends
 every particle at once, and resampling is one scheme of
@@ -8,11 +9,21 @@ the fused ancestor + state copy (kernel 3) when the state is fusable (float32
 on the card, at most 31 columns) and otherwise S -> ``grid_rank`` (kernel 4)
 -> ``gather_particles``, as the reference does on a TPU.
 
+A guided step proposes every particle's choices with one batched
+``propose``, merges them into the step's observations and weighs by
+``model weight - proposal logjp``. Rejuvenation runs regenerative MH moves
+on the selected addresses of the step's batched trace, each particle
+accepting by ``log(u) < w`` (resample-move; the log-ML is untouched).
+
 Nothing here reads a device value on the host. The reference's ``lax.cond``
 on the resample flag becomes both arms and an elementwise ``torch.where`` on
 the device flag, as ``parallel/sharded_smc.make_resample_step`` does, so
-the kernels launch every step. Proposals and rejuvenation are not ported
-yet and raise ``NotImplementedError``.
+the kernels launch every step.
+
+``replay`` and ``record`` carry a run's draws, one entry a step: ``(u,
+pool)``, the resample uniform(s) and the generate's draws by address (``u``
+None for the init), and with a proposal or rejuvenation ``(u, pool,
+proposal_pool, moves)``, ``moves`` one ``(pool, accept_u)`` a move.
 """
 
 import math
@@ -22,20 +33,21 @@ from typing import Any
 import torch
 from torch.utils import _pytree as pytree
 
-from modppl_tpu_torch.core.keys import split
+from modppl_tpu_torch.core.gfi import ArgDiff
+from modppl_tpu_torch.core.keys import fold_in, split
+from modppl_tpu_torch.inference.mcmc import accept_uniform, tree_select
+from modppl_tpu_torch.ops.resample import uniform
 from modppl_tpu_torch.parallel.resample import (
     RESAMPLERS,
     fused_systematic_resample_or_none,
     gather_particles,
+    residual_parents,
     systematic_parents,
 )
 from modppl_tpu_torch.utils.numerics import (
     effective_sample_size_from_log_weights,
     logsumexp,
 )
-
-_NOT_PORTED = ("modppl_tpu_torch: guided and rejuvenated filters are not "
-               "ported (ROADMAP Queue 1 item 8)")
 
 
 @dataclass(frozen=True)
@@ -61,11 +73,46 @@ class SMCState:
     t: int
 
 
+def filter_device(device, what):
+    """The device a filter runs on: ``"cuda"`` unless the caller names one.
+    With no CUDA device the default raises; there is no CPU fallback."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: device='cuda' but no CUDA device is "
+                           "available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def to_device(device, state0, *tries, params=None):
+    """``state0``, every value of the constraint ``tries`` and the tensors
+    of ``params`` on ``device``."""
+    move = lambda x: x.to(device) if torch.is_tensor(x) else x  # noqa: E731
+    return (pytree.tree_map(move, state0),
+            *(t.map(lambda v: torch.as_tensor(v, device=device))
+              for t in tries),
+            pytree.tree_map(move, params))
+
+
+def replay_entry(entry):
+    """A replay entry as ``(u, pool, proposal_pool, moves)``."""
+    if entry is None:
+        return None, None, None, None
+    u, pool, *rest = entry
+    proposal_pool, moves = rest if rest else (None, None)
+    return u, pool, proposal_pool, moves
+
+
+def generated_draws(trace, constraints):
+    """The values a generate drew (its unconstrained addresses)."""
+    return {a: trace.data[a] for a in trace.data.addresses()
+            if a not in constraints}
+
+
 def batched_smc_init(key, kernel, state0, constraints, num_particles,
                      pool=None):
     """Initialize via ONE generate over a batch-aware init model
     (``kernel.init`` takes args ``(state0, n)``). ``pool`` replaces the
-    plate draws of the addresses it holds."""
+    draws of the addresses it holds."""
     k_gen, k_carry = split(key)
     trace, log_weights = kernel.init.generate(
         k_gen, (state0, num_particles), constraints, pool=pool)
@@ -74,21 +121,25 @@ def batched_smc_init(key, kernel, state0, constraints, num_particles,
     return SMCState(k_carry, trace.retv, log_weights, log_ml, 1), trace
 
 
-def _resample(key, s, resampler, ess_threshold, num_particles):
+def _resample(key, s, resampler, ess_threshold, num_particles, u=None):
     """Conditional resampling with no host sync: both arms, then a select on
-    the device flag ``ess < ess_threshold * N``. Returns (state, parents,
-    ess, resampled)."""
+    the device flag ``ess < ess_threshold * N``. ``u`` replaces the
+    uniform(s) drawn from ``key``. Returns (state, parents, ess, resampled,
+    u)."""
     n = num_particles
     log_total = logsumexp(s.log_weights)
     log_norm = s.log_weights - log_total
     ess = effective_sample_size_from_log_weights(log_norm)
     do = ess < ess_threshold * n
-    fused = (fused_systematic_resample_or_none(key, log_norm, s.state)
+    one = resampler in (systematic_parents, residual_parents)
+    if u is None:
+        u = uniform(key, log_norm, () if one else (n,))
+    fused = (fused_systematic_resample_or_none(key, log_norm, s.state, u=u)
              if resampler is systematic_parents else None)
     if fused is not None:
         state, parents = fused
     else:
-        parents = resampler(key, log_norm)
+        parents = resampler(key, log_norm, **({"u": u} if one else {"us": u}))
         state = gather_particles(s.state, parents)
     state = pytree.tree_map(lambda a, b: torch.where(do, a, b), state,
                             s.state)
@@ -98,72 +149,213 @@ def _resample(key, s, resampler, ess_threshold, num_particles):
                          s.log_ml)
     slots = torch.arange(n, dtype=torch.int32, device=parents.device)
     parents = torch.where(do, parents, slots)
-    return SMCState(s.key, state, log_weights, log_ml, s.t), parents, ess, do
+    return (SMCState(s.key, state, log_weights, log_ml, s.t), parents, ess,
+            do, u)
+
+
+def extend(kernel, key, t, state, constraints_t, num_particles,
+           proposal=None, proposal_params=None, pool=None,
+           proposal_pool=None):
+    """ONE generate that extends every particle: bootstrap, or guided by a
+    batched ``proposal`` (``propose(key, (t, state, constraints_t[,
+    params]), n) -> (choices, logjp)``). The observations are broadcast to
+    the particle axis as views, merged with the proposed choices and
+    constrain a per-particle generate; the weight is ``model weight -
+    proposal logjp``. Returns (trace, weight, proposed choices or None)."""
+    if proposal is None:
+        trace, w = kernel.step.generate(key, (t, state), constraints_t,
+                                        pool=pool)
+        return trace, w, None
+    n = num_particles
+    k_prop, k_mod = split(key)
+    pargs = ((t, state, constraints_t) if proposal_params is None
+             else (t, state, constraints_t, proposal_params))
+    pchoices, plogjp = proposal.propose(k_prop, pargs, n, pool=proposal_pool)
+    cons = constraints_t.map(lambda x: x.expand((n,) + tuple(x.shape)))
+    cons.merge(pchoices)
+    trace, mw = kernel.step.generate_constrained_batched(
+        k_mod, (t, state), cons, pool=pool)
+    return trace, mw - plogjp, pchoices
+
+
+def _rejuvenate(key, trace, kernel, selection, num_moves, moves=None,
+                record=None):
+    """Resample-move rejuvenation: ``num_moves`` regenerative-MH moves of
+    every particle over ``selection`` in the step's batched trace. Move r
+    takes ``fold_in(key, r)``, split into the regenerate's key and the
+    accept uniforms' (one stream a move). ``moves`` replays ``(pool,
+    accept_u)`` a move; ``record`` receives them. Returns (trace, the
+    accept flags of each move)."""
+    # a selection outside the kernel's address set would silently no-op
+    missing = [a for a in selection.leaf_addresses()
+               if trace.data.search(a) is None]
+    if missing:
+        raise ValueError(
+            f"rejuvenation: selection addresses {missing} not in the step "
+            f"kernel's trace (has {trace.data.addresses()})")
+    accepts = []
+    for r in range(num_moves):
+        pool, u = moves[r] if moves else (None, None)
+        k_regen, k_acc = split(fold_in(key, r))
+        drawn = {}
+        new, w = kernel.step.regenerate(k_regen, trace, trace.args,
+                                        ArgDiff.NO_CHANGE, selection,
+                                        pool=pool, drawn=drawn)
+        if u is None:
+            u = accept_uniform(k_acc, w)
+        accept = torch.log(u) < w
+        trace = tree_select(accept, new, trace)
+        accepts.append(accept)
+        if record is not None:
+            record.append((drawn, u))
+    return trace, accepts
+
+
+def guided_step(s, kernel, k_gen, k_rej, constraints_t, num_particles,
+                proposal, proposal_params, rejuvenation, entry, record=False):
+    """Extend (bootstrap or guided) and rejuvenate the resampled carry
+    ``s``, one filter step's model half. ``entry`` replays ``(pool,
+    proposal_pool, moves)`` (each None to draw). Returns (trace, weight, the
+    acceptance of each move or None, and with ``record`` the step's record
+    entry less its resample uniform: ``(pool,)`` for a bootstrap step, else
+    ``(pool, proposal_pool, moves)``; None without)."""
+    pool, proposal_pool, moves = entry
+    trace, w, pchoices = extend(kernel, k_gen, s.t, s.state, constraints_t,
+                                num_particles, proposal, proposal_params,
+                                pool=pool, proposal_pool=proposal_pool)
+    draws, moved = None, None
+    if record:
+        proposed = {} if pchoices is None else {
+            a: pchoices[a] for a in pchoices.addresses()}
+        drawn = generated_draws(trace, constraints_t.addresses() + list(
+            proposed))
+        moved = []
+        draws = ((drawn,) if proposal is None and rejuvenation is None
+                 else (drawn, None if pchoices is None else proposed, moved))
+    acceptance = None
+    if rejuvenation is not None:
+        selection, num_moves = rejuvenation
+        trace, accepts = _rejuvenate(k_rej, trace, kernel, selection,
+                                     num_moves, moves=moves, record=moved)
+        acceptance = torch.stack(accepts).to(w.dtype).mean(dim=1)
+    return trace, w, acceptance, draws
 
 
 def batched_smc_step(s, kernel, constraints_t, num_particles, resampler,
                      ess_threshold, proposal=None, proposal_params=None,
-                     rejuvenation=None, rejuvenation_kernel=None):
+                     rejuvenation=None, replay=None, record=None):
     """One batched filter step: (maybe) resample, then ONE generate to
-    extend every particle. The key splits three ways, as the reference's
-    does without rejuvenation. Returns (state, (parents, ess, resampled))."""
-    if (proposal is not None or proposal_params is not None
-            or rejuvenation is not None or rejuvenation_kernel is not None):
-        raise NotImplementedError(_NOT_PORTED)
+    extend every particle, optionally guided and rejuvenated. The key splits
+    three ways, as the reference's does; the rejuvenation key is
+    ``fold_in(s.key, 3)``, derived only when used. ``replay``: one entry of
+    the filter's; ``record``: a list the step appends its entry to. Returns
+    (state, (parents, ess, resampled, acceptance))."""
     key, k_res, k_gen = split(s.key, 3)
-    s, parents, ess, resampled = _resample(k_res, s, resampler,
-                                           ess_threshold, num_particles)
-    trace, w = kernel.step.generate(k_gen, (s.t, s.state), constraints_t)
+    k_rej = fold_in(s.key, 3) if rejuvenation is not None else None
+    u, *entry = replay_entry(replay)
+    s, parents, ess, resampled, u = _resample(
+        k_res, s, resampler, ess_threshold, num_particles, u=u)
+    trace, w, acceptance, draws = guided_step(
+        s, kernel, k_gen, k_rej, constraints_t, num_particles, proposal,
+        proposal_params, rejuvenation, entry, record=record is not None)
+    if record is not None:
+        record.append((u, *draws))
     new = SMCState(key, trace.retv, s.log_weights + w, s.log_ml, s.t + 1)
-    return new, (parents, ess, resampled)
+    return new, (parents, ess, resampled, acceptance)
+
+
+def wrap_kernel(kernel, proposal, rejuvenation, auto_batch, what):
+    """The batched-tier kernel and proposal: an ordinary per-particle
+    ScanKernel and proposal wrapped by ``modeling/autobatch``, or a
+    batch-aware kernel as given (which takes neither a proposal nor
+    rejuvenation: the guided weights and the moves come from the
+    per-particle kernel)."""
+    if not auto_batch:
+        if proposal is not None or rejuvenation is not None:
+            raise ValueError(
+                f"{what}: proposal/rejuvenation require auto_batch=True (the "
+                "guided weights and regenerative moves are derived from the "
+                "per-particle kernel)")
+        return kernel, None
+    from modppl_tpu_torch.modeling.autobatch import (
+        AutoBatchedPropose,
+        auto_batch_scan_kernel,
+    )
+
+    return (auto_batch_scan_kernel(kernel),
+            None if proposal is None else AutoBatchedPropose(proposal))
+
+
+def num_steps(step_constraints, replay=None):
+    """T - 1, from the stacked step constraints; checks a replay's length."""
+    values = step_constraints.values()
+    if not values:
+        raise ValueError("step_constraints: no per-step values to scan over")
+    steps = values[0].shape[0]
+    if replay is not None and len(replay) != steps + 1:
+        raise ValueError(f"replay: expected {steps + 1} entries, got "
+                         f"{len(replay)}")
+    return steps
 
 
 def batched_particle_filter(key, kernel, state0, init_constraints,
                             step_constraints, num_particles,
                             resampling="systematic", ess_threshold=1.0,
                             auto_batch=False, proposal=None,
-                            proposal_params=None, rejuvenation=None):
-    """The batched-tier bootstrap particle filter on ``state0``'s device.
+                            proposal_params=None, rejuvenation=None,
+                            replay=None, record=None, device=None):
+    """The batched-tier particle filter, on the card unless ``device`` names
+    another (``device="cpu"``); ``state0``, the constraints and
+    ``proposal_params`` are moved there.
 
-    ``key`` is an integer PRNG key (core/keys.py). ``kernel`` is an ordinary
-    per-particle ScanKernel, wrapped by ``modeling/autobatch`` (only
-    ``auto_batch=True`` is ported). ``step_constraints`` is a Trie whose
-    values are stacked over the T-1 steps on their leading axis.
-    ``resampling`` names a scheme of ``RESAMPLERS``; a step resamples when
-    ESS < ``ess_threshold`` * N.
+    ``key`` is an integer PRNG key (core/keys.py). With ``auto_batch`` the
+    ``kernel`` and ``proposal`` are ordinary per-particle Gens, wrapped by
+    ``modeling/autobatch``; without it the kernel is batch-aware (``plate``
+    sites, per-particle weights) and takes no proposal or rejuvenation.
+    ``step_constraints`` is a Trie whose values are stacked over the T-1
+    steps on their leading axis. ``resampling`` names a scheme of
+    ``RESAMPLERS``; a step resamples when ESS < ``ess_threshold`` * N.
+    ``proposal`` takes ``(t, state, constraints_t[, proposal_params])``;
+    ``rejuvenation`` is ``(Selection, num_moves)``. ``replay`` / ``record``:
+    see the module docstring.
 
     Returns a dict: ``state``, ``log_weights``, ``log_ml``, ``ancestors``
-    ((T-1, N) int32), ``ess`` and ``resampled`` ((T-1,) each), all on the
-    device.
+    ((T-1, N) int32), ``ess`` and ``resampled`` ((T-1,) each) and
+    ``acceptance`` ((T-1, num_moves) mean accept of each move, None without
+    rejuvenation), all on the device.
     """
-    if (proposal is not None or proposal_params is not None
-            or rejuvenation is not None):
-        raise NotImplementedError(_NOT_PORTED)
-    if not auto_batch:
-        raise NotImplementedError(
-            "modppl_tpu_torch: only auto_batch=True kernels are ported")
-    from modppl_tpu_torch.modeling.autobatch import auto_batch_scan_kernel
-
+    device = filter_device(device, "batched_particle_filter")
+    kernel, proposal = wrap_kernel(kernel, proposal, rejuvenation,
+                                   auto_batch, "batched_particle_filter")
     if resampling not in RESAMPLERS:
         raise ValueError(f"resampling: expected one of {sorted(RESAMPLERS)}, "
                          f"got {resampling!r}")
     resampler = RESAMPLERS[resampling]
-    kernel = auto_batch_scan_kernel(kernel)
-    values = step_constraints.values()
-    if not values:
-        raise ValueError("step_constraints: no per-step values to scan over")
-    s, _ = batched_smc_init(key, kernel, state0, init_constraints,
-                            num_particles)
-    parents, ess, resampled = [], [], []
-    for i in range(values[0].shape[0]):
+    state0, init_constraints, step_constraints, proposal_params = to_device(
+        device, state0, init_constraints, step_constraints,
+        params=proposal_params)
+    steps = num_steps(step_constraints, replay)
+    s, trace = batched_smc_init(key, kernel, state0, init_constraints,
+                                num_particles,
+                                pool=replay[0][1] if replay else None)
+    if record is not None:
+        record.append((None, generated_draws(trace, init_constraints)))
+    parents, ess, resampled, acceptance = [], [], [], []
+    for i in range(steps):
         cons_t = step_constraints.map(lambda v: v[i])
-        s, (p, e, r) = batched_smc_step(s, kernel, cons_t, num_particles,
-                                        resampler, ess_threshold)
+        s, (p, e, r, a) = batched_smc_step(
+            s, kernel, cons_t, num_particles, resampler, ess_threshold,
+            proposal=proposal, proposal_params=proposal_params,
+            rejuvenation=rejuvenation,
+            replay=replay[i + 1] if replay else None, record=record)
         parents.append(p)
         ess.append(e)
         resampled.append(r)
+        acceptance.append(a)
     log_ml = (s.log_ml + logsumexp(s.log_weights)
               - math.log(float(num_particles)))
     return {"state": s.state, "log_weights": s.log_weights, "log_ml": log_ml,
             "ancestors": torch.stack(parents), "ess": torch.stack(ess),
-            "resampled": torch.stack(resampled)}
+            "resampled": torch.stack(resampled),
+            "acceptance": (torch.stack(acceptance)
+                           if rejuvenation is not None else None)}

@@ -5,7 +5,8 @@ turns them into the port's tensors on a given device, so a test can hand
 both sides the same inputs. Imports neither jax nor modppl_tpu. For HMC:
 ``quadratic_from_numpy`` carries a detected (Λ, b), ``phase_streams`` a
 phase's pre-drawn randoms; start positions and an adapted (eps, inv_mass)
-go through ``tensor``.
+go through ``tensor``. For the filters: ``hmm_params_from_numpy`` and
+``lgssm_params_from_numpy`` carry a model's parameters.
 """
 
 import numpy as np
@@ -66,6 +67,14 @@ def hmm_params_from_numpy(prior, emission_matrix, transition_matrix,
 
     return HMMParams(tensor(prior, device), tensor(emission_matrix, device),
                      tensor(transition_matrix, device))
+
+
+def lgssm_params_from_numpy(A, Q, H, R, mu0, P0, device="cpu"):
+    """The port's LGSSMParams from the reference's ``LGSSMParams`` arrays
+    (``np.asarray(params.A)`` and so on), in their dtype on ``device``."""
+    from modppl_tpu_torch.models.lgssm import LGSSMParams
+
+    return LGSSMParams(*(tensor(x, device) for x in (A, Q, H, R, mu0, P0)))
 
 
 def smc_state_from_numpy(key, state, log_weights, log_ml, t, device="cpu"):

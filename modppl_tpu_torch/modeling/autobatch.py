@@ -12,39 +12,80 @@ tracers, so the port's rule is explicit:
   own stream;
 - a site whose params are per-particle draws elementwise from that stream.
 
-``pool`` maps addresses to pre-drawn ``(n,)`` tensors that replace the
-draw, as the reference's ``_lane_generate`` pool does; the parity tests
-inject the reference's own plate draws through it.
+``pool`` maps addresses to pre-drawn ``(n,)`` tensors (or ``Standard``
+draws) that replace the draw, as the reference's ``_lane_generate`` pool
+does; the parity tests inject the reference's own draws through it.
+
+The guided and rejuvenated filters add three entries: ``AutoBatchedPropose``
+(the proposal's body once over the particle axis), the per-particle
+constrained generate (``generate_constrained_batched``) and a batched
+``regenerate``, whose handler draws as the generate handler does.
 """
 
 import torch
+from torch.utils import _pytree as pytree
 
 from modppl_tpu_torch.core.gfi import Trace
 from modppl_tpu_torch.core.keys import generator
 from modppl_tpu_torch.core.trie import Trie
-from modppl_tpu_torch.modeling.gen import run_generate
+from modppl_tpu_torch.modeling.gen import (
+    regenerate_mask,
+    run_generate,
+    run_regenerate,
+)
 from modppl_tpu_torch.modeling.handlers import (
     GenerateHandler,
-    addr_subkey,
+    RegenerateHandler,
     infer_dtype_device,
+    pooled,
 )
+
+
+def _batch_draw(handler, dist, params, addr):
+    """The draw at ``addr`` over ``handler.n`` particles: the pool's, else
+    elementwise from the address's stream (per-particle params) or one
+    ``(n,)`` plate from it (shared params)."""
+    x = pooled(handler.pool, dist, params, addr)
+    if x is not None:
+        return x
+    g = generator(handler._subkey(addr), handler.device)
+    if dist.batched(params):
+        return dist.sample(g, params, dtype=handler.dtype)
+    return dist.sample_batch(g, (handler.n,), params, dtype=handler.dtype)
 
 
 class BatchGenerateHandler(GenerateHandler):
     """GenerateHandler over ``n`` particles at once."""
 
     def __init__(self, key, trace, constraints, dtype, device, n, pool=None):
-        super().__init__(key, trace, constraints, dtype, device)
+        super().__init__(key, trace, constraints, dtype, device, pool=pool)
         self.n = n
-        self.pool = pool
 
     def _draw(self, dist, params, addr):
-        if self.pool is not None and addr in self.pool:
-            return self.pool[addr]
-        g = generator(addr_subkey(self.key, addr), self.device)
-        if dist.batched(params):
-            return dist.sample(g, params, dtype=self.dtype)
-        return dist.sample_batch(g, (self.n,), params, dtype=self.dtype)
+        return _batch_draw(self, dist, params, addr)
+
+
+class BatchRegenerateHandler(RegenerateHandler):
+    """RegenerateHandler over ``n`` particles at once: a trace whose leaves
+    carry the particle axis, per-particle weights. Its draws are kept in
+    ``drawn``, for a filter's record."""
+
+    def __init__(self, key, trace, diff, mask, dtype, device, n, pool=None):
+        super().__init__(key, trace, diff, mask, dtype, device, pool=pool)
+        self.n = n
+        self.drawn = {}
+
+    def _draw(self, dist, params, addr):
+        x = self.drawn[addr] = _batch_draw(self, dist, params, addr)
+        return x
+
+
+def _per_particle(x, n, dtype, device):
+    """``x`` as an ``(n,)`` tensor (a weight that no site made per
+    particle)."""
+    if not torch.is_tensor(x) or x.ndim == 0:
+        x = torch.zeros(n, dtype=dtype, device=device) + x
+    return x
 
 
 def _lane_generate(gen_fn, key, args, constraints, n, pool=None):
@@ -56,9 +97,7 @@ def _lane_generate(gen_fn, key, args, constraints, n, pool=None):
     g = BatchGenerateHandler(key, Trace(args, Trie(), None, 0.0), constraints,
                              dtype, device, n, pool=pool)
     trace, weight = run_generate(g, gen_fn.fn, args)
-    if not torch.is_tensor(weight) or weight.ndim == 0:
-        weight = torch.zeros(n, dtype=dtype, device=device) + weight
-    return trace, weight
+    return trace, _per_particle(weight, n, dtype, device)
 
 
 class AutoBatchedInit:
@@ -85,7 +124,53 @@ class AutoBatchedStep:
     def generate(self, key, args, constraints, pool=None):
         t, state = args
         return _lane_generate(self.inner, key, (t, state), constraints,
-                              state.shape[0], pool=pool)
+                              _num_particles(state), pool=pool)
+
+    def generate_constrained_batched(self, key, args, constraints_batched,
+                                     pool=None):
+        """Generate with per-particle constraints: ``constraints_batched``
+        carries leaves with a leading particle axis, the guided filter's
+        proposed choices merged with the step's observations. The body runs
+        once over the particle axis either way, so this is ``generate``."""
+        return self.generate(key, args, constraints_batched, pool=pool)
+
+    def regenerate(self, key, trace, args, argdiff, selection, pool=None,
+                   drawn=None):
+        """Regenerate ``selection`` in a batched trace: (trace, weight),
+        the weight per particle. ``drawn``, a dict, receives the draws."""
+        t, state = args
+        n = _num_particles(state)
+        dtype, device = infer_dtype_device(args)
+        g = BatchRegenerateHandler(
+            key, Trace(args, trace.data.copy(), trace.retv, trace.logjp),
+            argdiff, regenerate_mask(trace, selection), dtype, device, n,
+            pool=pool)
+        new, weight = run_regenerate(g, self.inner.fn, args)
+        if drawn is not None:
+            drawn.update(g.drawn)
+        return new, _per_particle(weight, n, dtype, device)
+
+
+class AutoBatchedPropose:
+    """Batched ``propose`` over a per-particle proposal Gen: the body runs
+    once over the particle axis, ``propose(key, (t, state, *shared), n)``
+    returning ``(choices, logjp)`` with every choice and ``logjp`` carrying
+    the leading ``(n,)`` axis (propose is simulate, and simulate is
+    generate with no constraints)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.__name__ = f"auto_batch_propose({inner.__name__})"
+
+    def propose(self, key, args, n, pool=None):
+        trace, _ = _lane_generate(self.inner, key, tuple(args), Trie(), n,
+                                  pool=pool)
+        dtype, device = infer_dtype_device(args)
+        return trace.data, _per_particle(trace.logjp, n, dtype, device)
+
+
+def _num_particles(state):
+    return pytree.tree_leaves(state)[0].shape[0]
 
 
 def auto_batch_scan_kernel(kernel):

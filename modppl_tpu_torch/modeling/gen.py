@@ -1,32 +1,67 @@
 """The ``@gen`` decorator (counterpart of modppl_tpu/modeling/gen.py).
 
 A model is ``fn(h, *args)``; ``h.sample(dist, params, addr)`` is a random
-choice. The body is written with torch ops, so it runs on whatever device
+choice and ``h.trace(gen_fn, args, addr)`` a call of another generative
+function. The body is written with torch ops, so it runs on whatever device
 its argument tensors are on, or on the ``device`` the caller names (a model
-with no tensor arguments must be given one).
+with no tensor arguments must be given one; ``update`` and ``regenerate``
+otherwise run on the previous trace's device).
 """
 
 from modppl_tpu_torch.core.gfi import GenFn, Trace
 from modppl_tpu_torch.core.trie import Trie
-from modppl_tpu_torch.modeling.handlers import GenerateHandler, infer_dtype_device
+from modppl_tpu_torch.modeling.handlers import (
+    GenerateHandler,
+    RegenerateHandler,
+    SimulateHandler,
+    UpdateHandler,
+    infer_dtype_device,
+)
 
 
 def _as_args_tuple(args):
     return args if isinstance(args, tuple) else (args,)
 
 
-def run_generate(handler, fn, args):
-    """Run ``fn`` under ``handler``, check that every constraint was
-    consumed, and finish the trace (``logjp`` and ``retv``)."""
-    retv = fn(handler, *args)
+def _residual_check(handler, what):
     if not handler.constraints.is_empty():
         raise ValueError(
-            "generate error: not all constraints were consumed! residual: "
+            f"{what} error: not all constraints were consumed! residual: "
             f"{handler.constraints.addresses()}")
+
+
+def _finish(handler, retv):
     trace = handler.tr
     trace.logjp = trace.data.weight()
     trace.set_retv(retv)
-    return trace, handler.weight
+    return trace
+
+
+def run_generate(handler, fn, args):
+    """Run ``fn`` under a generate ``handler``, check that every constraint
+    was consumed, and finish the trace (``logjp`` and ``retv``)."""
+    retv = fn(handler, *args)
+    _residual_check(handler, "generate")
+    return _finish(handler, retv), handler.weight
+
+
+def run_regenerate(handler, fn, args):
+    """Run ``fn`` under a regenerate ``handler``, collect the unvisited
+    addresses and finish the trace."""
+    retv = fn(handler, *args)
+    handler.gc()
+    return _finish(handler, retv), handler.weight
+
+
+def regenerate_mask(trace, selection):
+    """The mask regenerate applies: an empty (leaf) selection means every
+    address of the trace."""
+    return trace.data.schema() if selection.is_leaf() else selection
+
+
+def _trace_dtype_device(args, trace, device):
+    """dtype and device of the arguments, else of the previous trace."""
+    return infer_dtype_device(tuple(args) + (trace.data.values(),), device)
 
 
 class Gen(GenFn):
@@ -40,18 +75,47 @@ class Gen(GenFn):
     def __repr__(self):
         return f"Gen({self.__name__})"
 
-    def generate(self, key, args, constraints, device=None):
+    def simulate(self, key, args, device=None):
+        args = _as_args_tuple(args)
+        dtype, device = infer_dtype_device(args, device)
+        g = SimulateHandler(key, Trace(args, Trie(), None, 0.0), dtype,
+                            device)
+        return _finish(g, self.fn(g, *args))
+
+    def generate(self, key, args, constraints, device=None, pool=None):
         args = _as_args_tuple(args)
         constraints = constraints.copy()
         constraints.take_inner()  # in case constraints came from a proposal
         dtype, device = infer_dtype_device(args, device)
         g = GenerateHandler(key, Trace(args, Trie(), None, 0.0), constraints,
-                            dtype, device)
+                            dtype, device, pool=pool)
         return run_generate(g, self.fn, args)
 
-    def simulate(self, key, args, device=None):
-        trace, _ = self.generate(key, args, Trie(), device=device)
-        return trace
+    def update(self, key, trace, args, argdiff, constraints, device=None,
+               pool=None):
+        args = _as_args_tuple(args)
+        constraints = constraints.copy()
+        constraints.take_inner()
+        dtype, device = _trace_dtype_device(args, trace, device)
+        # the handler edits the choice trie: copy it, so the caller's trace
+        # (e.g. MH's previous trace) stays intact
+        g = UpdateHandler(key, Trace(args, trace.data.copy(), trace.retv,
+                                     trace.logjp),
+                          argdiff, constraints, dtype, device, pool=pool)
+        retv = self.fn(g, *args)
+        g.gc()  # subtract the complement's weight, move it to the discard
+        _residual_check(g, "update")
+        return _finish(g, retv), g.discard, g.weight
+
+    def regenerate(self, key, trace, args, argdiff, selection, device=None,
+                   pool=None):
+        args = _as_args_tuple(args)
+        mask = regenerate_mask(trace, selection)
+        dtype, device = _trace_dtype_device(args, trace, device)
+        g = RegenerateHandler(key, Trace(args, trace.data.copy(), trace.retv,
+                                         trace.logjp),
+                              argdiff, mask, dtype, device, pool=pool)
+        return run_regenerate(g, self.fn, args)
 
 
 def gen(fn):

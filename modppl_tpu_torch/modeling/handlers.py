@@ -1,16 +1,27 @@
-"""The generate handler of the DSL (counterpart of
-modppl_tpu/modeling/handlers.py:45-160).
+"""Effect handlers of the four GFI execution modes of the DSL (counterpart
+of modppl_tpu/modeling/handlers.py).
+
+``SimulateHandler``, ``GenerateHandler``, ``UpdateHandler`` and
+``RegenerateHandler`` each provide ``sample(dist, params, addr)``,
+``trace_call(gen_fn, args, addr)`` (alias ``trace``) and
+``factor(logp, addr)``; update and regenerate also ``gc()``, the
+visitor-complement garbage collection. The weight case matrix (constrained
+x previous x ArgDiff) is the reference's, case for case.
 
 Randomness comes from an explicit integer key (core/keys.py). Each address
 derives its own key, ``fold_in(key, addr_hash(addr))``, and draws from a
 ``torch.Generator`` seeded with it on the handler's device, so sampling is
-order-independent and reproducible.
+order-independent and reproducible. ``pool`` maps addresses to pre-drawn
+values (or ``Standard`` draws) that replace a fresh draw.
 """
 
 import torch
 
-from modppl_tpu_torch.core.address import addr_hash
+from modppl_tpu_torch.core.address import Selection, addr_hash
+from modppl_tpu_torch.core.gfi import ArgDiff, Trace
 from modppl_tpu_torch.core.keys import fold_in, generator
+from modppl_tpu_torch.core.trie import Trie
+from modppl_tpu_torch.dists.base import Standard
 
 
 def addr_subkey(key, addr):
@@ -20,7 +31,7 @@ def addr_subkey(key, addr):
 
 def infer_dtype_device(args, device=None):
     """dtype and device of the first floating tensor in ``args`` (searched
-    through tuples and lists); without one, torch's default dtype on the
+    through tuples, lists and traces: a proposal's argument); without one, torch's default dtype on the
     first tensor's device (an integer state, such as an HMM's). An explicit
     ``device`` wins over the arguments'. With neither a tensor nor a
     ``device``, raise: a model without tensor arguments must be told where
@@ -35,6 +46,8 @@ def infer_dtype_device(args, device=None):
             first = a
         if isinstance(a, (tuple, list)):
             stack[:0] = list(a)
+        elif isinstance(a, Trace):
+            stack[:0] = [a.logjp, a.retv, a.args]
     if device is None and first is not None:
         device = first.device
     if device is None:
@@ -44,23 +57,70 @@ def infer_dtype_device(args, device=None):
     return torch.get_default_dtype(), torch.device(device)
 
 
-class GenerateHandler:
-    """GFI ``generate`` execution state: constrained sites score and add to
-    the weight; unconstrained sites draw fresh values."""
+def pooled(pool, dist, params, addr):
+    """The pre-drawn value at ``addr``, or None: a tensor is the value, a
+    ``Standard`` the sampler's standard draws at this site's params."""
+    if pool is None or addr not in pool:
+        return None
+    v = pool[addr]
+    return dist.from_standard(v.z, params) if isinstance(v, Standard) else v
 
-    def __init__(self, key, trace, constraints, dtype, device):
+
+class _Handler:
+    """State and primitives common to the four modes."""
+
+    def __init__(self, key, trace, dtype, device, pool=None):
         self.key = key
         self.tr = trace
-        self.constraints = constraints
-        self.weight = 0.0
         self.dtype = dtype
         self.device = device
+        self.pool = pool
 
     def _draw(self, dist, params, addr):
-        """Fresh draw at an unconstrained address. The batched tier
-        overrides this (modeling/autobatch.py)."""
-        g = generator(addr_subkey(self.key, addr), self.device)
+        """Fresh draw at an address, from its own stream (or the pool). The
+        batched tier overrides this (modeling/autobatch.py)."""
+        x = pooled(self.pool, dist, params, addr)
+        if x is not None:
+            return x
+        g = generator(self._subkey(addr), self.device)
         return dist.sample(g, params, dtype=self.dtype)
+
+    def _subkey(self, addr):
+        """Key for a draw or a sub-generative-function call at ``addr``."""
+        return addr_subkey(self.key, addr)
+
+    def trace(self, gen_fn, args, addr):
+        return self.trace_call(gen_fn, args, addr)
+
+
+class SimulateHandler(_Handler):
+    """``simulate``: every site draws."""
+
+    def sample(self, dist, params, addr):
+        x = self._draw(dist, params, addr)
+        self.tr.data.w_observe(addr, x, dist.logpdf(x, params), dist)
+        return x
+
+    def factor(self, logp, addr):
+        self.tr.data.w_observe(addr, (), logp)
+
+    def trace_call(self, gen_fn, args, addr):
+        subtrace = gen_fn.simulate(self._subkey(addr), args,
+                                   device=self.device)
+        sub = subtrace.data
+        sub.replace_inner(subtrace.retv)
+        self.tr.data.insert(addr, sub)
+        return subtrace.retv
+
+
+class GenerateHandler(_Handler):
+    """``generate``: constrained sites score and add to the weight;
+    unconstrained sites draw fresh values."""
+
+    def __init__(self, key, trace, constraints, dtype, device, pool=None):
+        super().__init__(key, trace, dtype, device, pool)
+        self.constraints = constraints
+        self.weight = 0.0
 
     def sample(self, dist, params, addr):
         choice = self.constraints.remove(addr)
@@ -73,3 +133,198 @@ class GenerateHandler:
             logp = dist.logpdf(x, params)
         self.tr.data.w_observe(addr, x, logp, dist)
         return x
+
+    def factor(self, logp, addr):
+        self.constraints.remove(addr)  # a factor is never "unconsumed"
+        self.tr.data.w_observe(addr, (), logp)
+        self.weight = self.weight + logp
+
+    def trace_call(self, gen_fn, args, addr):
+        choices = self.constraints.remove(addr)
+        k = self._subkey(addr)
+        if choices is not None:
+            subtrace, d_weight = gen_fn.generate(k, args, choices,
+                                                 device=self.device)
+            self.weight = self.weight + d_weight
+        else:
+            subtrace = gen_fn.simulate(k, args, device=self.device)
+        sub = subtrace.data
+        sub.replace_inner(subtrace.retv)
+        self.tr.data.insert(addr, sub)
+        return subtrace.retv
+
+
+class UpdateHandler(_Handler):
+    """``update``. ``diff`` is shared state: once a site is constrained or
+    freshly drawn it becomes UNKNOWN, and every later site rescores."""
+
+    def __init__(self, key, trace, diff, constraints, dtype, device,
+                 pool=None):
+        super().__init__(key, trace, dtype, device, pool)
+        self.diff = diff
+        self.constraints = constraints
+        self.weight = 0.0
+        self.discard = Trie()
+        self.visitor = Selection()
+
+    def sample(self, dist, params, addr):
+        self.visitor.visit(addr)
+        choice = self.constraints.remove(addr)
+        prev = self.tr.data.remove(addr)
+        if choice is not None:
+            if prev is not None:
+                self.weight = self.weight - prev.weight()
+                self.discard.insert(addr, prev)
+            x = choice.expect_inner(f"error: no value found in {addr}")
+            logp = dist.logpdf(x, params)
+            self.diff = ArgDiff.UNKNOWN
+            self.weight = self.weight + logp
+        elif prev is not None:
+            x = prev.expect_inner(f"error: no value found in {addr}")
+            if self.diff is ArgDiff.NO_CHANGE:
+                # the value and its stored logp are reused, no rescore
+                self.tr.data.insert(addr, prev)
+                return x
+            if self.diff is not ArgDiff.UNKNOWN:
+                raise ValueError("update: ArgDiff.EXTEND not supported")
+            logp = dist.logpdf(x, params)
+            self.weight = self.weight + logp - prev.weight()
+        else:
+            x = self._draw(dist, params, addr)
+            logp = dist.logpdf(x, params)
+            self.diff = ArgDiff.UNKNOWN
+        self.tr.data.w_observe(addr, x, logp, dist)
+        return x
+
+    def factor(self, logp, addr):
+        self.visitor.visit(addr)
+        self.constraints.remove(addr)
+        prev = self.tr.data.remove(addr)
+        prev_logp = prev.weight() if prev is not None else 0.0
+        self.tr.data.w_observe(addr, (), logp)
+        self.weight = self.weight + logp - prev_logp
+
+    def trace_call(self, gen_fn, args, addr):
+        self.visitor.visit(addr)
+        choices = self.constraints.remove(addr)
+        k = self._subkey(addr)
+        prev = self.tr.data.remove(addr)
+        if choices is not None:
+            if prev is not None:
+                subtrace, subdiscard, d_weight = gen_fn.update(
+                    k, Trace(args, prev, None, prev.weight()), args,
+                    self.diff, choices, device=self.device)
+                if not subdiscard.is_empty():
+                    self.discard.insert(addr, subdiscard)
+            else:
+                subtrace, d_weight = gen_fn.generate(k, args, choices,
+                                                     device=self.device)
+            self.diff = ArgDiff.UNKNOWN
+            self.weight = self.weight + d_weight
+        elif prev is not None:
+            if self.diff is ArgDiff.NO_CHANGE:
+                retv = prev.expect_inner(f"error: no value found in {addr}")
+                self.tr.data.insert(addr, prev)
+                return retv
+            if self.diff is not ArgDiff.UNKNOWN:
+                raise ValueError("update: ArgDiff.EXTEND not supported")
+            subtrace, subdiscard, d_weight = gen_fn.update(
+                k, Trace(args, prev, None, prev.weight()), args,
+                ArgDiff.UNKNOWN, Trie(), device=self.device)
+            if not subdiscard.is_empty():
+                self.discard.insert(addr, subdiscard)
+            self.weight = self.weight + d_weight
+        else:
+            subtrace = gen_fn.simulate(k, args, device=self.device)
+            self.diff = ArgDiff.UNKNOWN
+        sub = subtrace.data
+        sub.replace_inner(subtrace.retv)
+        self.tr.data.insert(addr, sub)
+        return subtrace.retv
+
+    def gc(self):
+        """Unvisited addresses move to the discard; their weight is
+        subtracted."""
+        schema = self.tr.data.schema()
+        data, complement, complement_weight = self.tr.data.collect(
+            schema.complement(self.visitor))
+        assert self.visitor.all_visited(data.schema())
+        self.tr.data = data
+        self.discard.merge(complement)
+        self.weight = self.weight - complement_weight
+
+
+class RegenerateHandler(_Handler):
+    """``regenerate``: sites under the mask draw afresh (their prior cancels
+    from the weight); the others keep their values and, once ``diff`` is
+    UNKNOWN, rescore."""
+
+    def __init__(self, key, trace, diff, mask, dtype, device, pool=None):
+        super().__init__(key, trace, dtype, device, pool)
+        self.diff = diff
+        self.mask = mask
+        self.weight = 0.0
+        self.visitor = Selection()
+
+    def sample(self, dist, params, addr):
+        self.visitor.visit(addr)
+        prev = self.tr.data.remove(addr)
+        if self.mask.search(addr) is not None or prev is None:
+            x = self._draw(dist, params, addr)
+            logp = dist.logpdf(x, params)
+            self.diff = ArgDiff.UNKNOWN
+        else:
+            x = prev.expect_inner(f"error: no value found in {addr}")
+            if self.diff is ArgDiff.NO_CHANGE:
+                self.tr.data.insert(addr, prev)
+                return x
+            if self.diff is not ArgDiff.UNKNOWN:
+                raise ValueError("regenerate: ArgDiff.EXTEND not supported")
+            logp = dist.logpdf(x, params)
+            self.weight = self.weight + logp - prev.weight()
+        self.tr.data.w_observe(addr, x, logp, dist)
+        return x
+
+    def factor(self, logp, addr):
+        self.visitor.visit(addr)
+        prev = self.tr.data.remove(addr)
+        prev_logp = prev.weight() if prev is not None else 0.0
+        self.tr.data.w_observe(addr, (), logp)
+        self.weight = self.weight + logp - prev_logp
+
+    def trace_call(self, gen_fn, args, addr):
+        self.visitor.visit(addr)
+        submask = self.mask.search(addr)
+        k = self._subkey(addr)
+        prev = self.tr.data.remove(addr)
+        if prev is None:
+            subtrace = gen_fn.simulate(k, args, device=self.device)
+            self.diff = ArgDiff.UNKNOWN
+        elif submask is not None:
+            subtrace, d_weight = gen_fn.regenerate(
+                k, Trace(args, prev, None, prev.weight()), args, self.diff,
+                submask, device=self.device)
+            self.diff = ArgDiff.UNKNOWN
+            self.weight = self.weight + d_weight
+        elif self.diff is ArgDiff.NO_CHANGE:
+            retv = prev.expect_inner(f"error: no value found in {addr}")
+            self.tr.data.insert(addr, prev)
+            return retv
+        elif self.diff is ArgDiff.UNKNOWN:
+            prev_weight = prev.weight()
+            subtrace, new_weight = gen_fn.generate(k, args, prev,
+                                                   device=self.device)
+            self.weight = self.weight + new_weight - prev_weight
+        else:
+            raise ValueError("regenerate: ArgDiff.EXTEND not supported")
+        sub = subtrace.data
+        sub.replace_inner(subtrace.retv)
+        self.tr.data.insert(addr, sub)
+        return subtrace.retv
+
+    def gc(self):
+        """Drop unvisited addresses; the weight is untouched."""
+        schema = self.tr.data.schema()
+        data, _, _ = self.tr.data.collect(schema.complement(self.visitor))
+        assert self.visitor.all_visited(data.schema())
+        self.tr.data = data

@@ -4,8 +4,8 @@ algorithm as its oracle (counterpart of modppl_tpu/models/hmm.py:18-60,
 
 Matrix conventions follow the reference: ``emission_matrix[obs, state]``,
 ``transition_matrix[new_state, prev_state]``. The hand-coded sequential
-``HMM`` GenFn needs ``update`` / ``ArgDiff`` and is not ported yet (ROADMAP
-Queue 1 item 7a).
+``HMM`` GenFn belongs with the eager tier that uses it and is not ported yet
+(ROADMAP Queue 1 item 9).
 
 The scan kernel's body runs once on the particle-batched state (``z_prev``
 of shape (n,), modeling/autobatch.py), so it indexes the trailing axis:

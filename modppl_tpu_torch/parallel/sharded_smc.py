@@ -2,16 +2,18 @@
 body of modppl_tpu/parallel/sharded_smc.py).
 
 Per step: a systematic resample from a layout-invariant blocked CDF, then
-ONE batched generate over all particles. The CDF, its block totals and the
-slot positions S come from kernels 1 and 2 (ops/grid_positions.py), and the
-ancestors and the state copy from kernel 3 (ops/fused_resample.py). On CPU
-tensors the same code runs their plain versions, which compute the
-reference's XLA path; the tests hold them bitwise to it.
+ONE batched generate over all particles, bootstrap or guided, and
+optionally rejuvenation moves (``inference/vsmc.guided_step``). The CDF,
+its block totals and the slot positions S come from kernels 1 and 2
+(ops/grid_positions.py), and the ancestors and the state copy from kernel 3
+(ops/fused_resample.py). On CPU tensors the same code runs their plain
+versions, which compute the reference's XLA path; the tests hold them
+bitwise to it.
 
-Nothing here reads a device value on the host: ESS, the resample flag and
-the log marginal likelihood stay on the device until the caller reads them.
-The multi-device layout (``mesh``), proposals and rejuvenation are not
-ported yet and raise ``NotImplementedError``.
+Nothing here reads a device value on the host: ESS, the resample flag,
+the moves' accept decisions and the log marginal likelihood stay on the
+device until the caller reads them. The multi-device layout (``mesh``) is
+not ported yet and raises ``NotImplementedError``.
 """
 
 import math
@@ -21,8 +23,17 @@ from torch.utils import _pytree as pytree
 
 from modppl_tpu_torch.core.keys import fold_in, generator, split
 from modppl_tpu_torch.inference.adaptation import _tree_sum
-from modppl_tpu_torch.inference.vsmc import SMCState, batched_smc_init
-from modppl_tpu_torch.modeling.autobatch import auto_batch_scan_kernel
+from modppl_tpu_torch.inference.vsmc import (
+    SMCState,
+    batched_smc_init,
+    filter_device,
+    generated_draws,
+    guided_step,
+    num_steps,
+    replay_entry,
+    to_device,
+    wrap_kernel,
+)
 from modppl_tpu_torch.ops.fused_resample import parents_from_s
 from modppl_tpu_torch.ops.grid_positions import (
     doubling_cumsum,
@@ -126,84 +137,80 @@ def make_resample_step(mesh, num_particles, ess_threshold):
     return step
 
 
-def _num_steps(step_constraints):
-    values = step_constraints.values()
-    if not values:
-        raise ValueError("step_constraints: no per-step values to scan over")
-    return values[0].shape[0]
-
-
-def _draws(trace, constraints):
-    """The values a generate drew (its unconstrained addresses)."""
-    return {a: trace.data[a] for a in trace.data.addresses()
-            if a not in constraints}
-
-
 def sharded_batched_particle_filter(mesh, key, kernel, state0,
                                     init_constraints, step_constraints,
                                     num_particles, ess_threshold=1.0,
                                     auto_batch=False, store_ancestry=True,
                                     proposal=None, proposal_params=None,
                                     rejuvenation=None, replay=None,
-                                    record=None):
-    """The batched-tier bootstrap particle filter on ``state0``'s device.
+                                    record=None, device=None):
+    """The batched-tier particle filter, on the card unless ``device`` names
+    another (``device="cpu"``); ``state0``, the constraints and
+    ``proposal_params`` are moved there.
 
-    ``key`` is an integer PRNG key (core/keys.py). ``step_constraints`` is a
+    ``key`` is an integer PRNG key (core/keys.py); each step splits it four
+    ways (carry, resample, extend, rejuvenate). ``step_constraints`` is a
     Trie whose values are stacked over the T-1 steps on their leading axis.
-    Resampling is systematic.
+    Resampling is systematic. ``auto_batch``, ``proposal``,
+    ``proposal_params`` and ``rejuvenation`` are as in
+    ``inference/vsmc.batched_particle_filter``.
 
-    ``replay``: a list of T ``(u, pool)`` pairs (``u`` None for the init)
-    that replaces the filter's own draws: ``u`` the resample uniform,
-    ``pool`` the plate draws by address. ``record``: a list the filter
-    appends its own ``(u, pool)`` pairs to, in the same form.
+    ``replay``: a list of T entries that replaces the filter's own draws,
+    ``(u, pool)`` a step (``u`` None for the init): ``u`` the resample
+    uniform, ``pool`` the generate's draws by address; with a proposal or
+    rejuvenation ``(u, pool, proposal_pool, moves)``, ``proposal_pool`` the
+    proposal's draws and ``moves`` one ``(pool, accept_u)`` a move, the
+    regenerate's draws and the accept uniforms. ``record``: a list the
+    filter appends its own entries to, in the same form.
 
     Returns a dict: ``state``, ``log_weights``, ``log_ml``, ``ancestors``
     ((T-1, N) int32, or None without ``store_ancestry``), ``ess`` and
-    ``resampled`` ((T-1,) each), all on the device.
+    ``resampled`` ((T-1,) each) and ``acceptance`` ((T-1, num_moves), None
+    without rejuvenation), all on the device.
     """
     if mesh is not None:
         raise NotImplementedError(
             "modppl_tpu_torch: only mesh=None (one device) is ported")
-    if (proposal is not None or proposal_params is not None
-            or rejuvenation is not None):
-        raise NotImplementedError(
-            "modppl_tpu_torch: guided and rejuvenated filters are not ported")
-    if not auto_batch:
-        raise NotImplementedError(
-            "modppl_tpu_torch: only auto_batch=True kernels are ported")
+    device = filter_device(device, "sharded_batched_particle_filter")
+    kernel, proposal = wrap_kernel(kernel, proposal, rejuvenation,
+                                   auto_batch, "sharded filter")
     n = num_particles
     _cdf_block(n)
-    kernel = auto_batch_scan_kernel(kernel)
     resample_step = make_resample_step(None, n, ess_threshold)
-    num_steps = _num_steps(step_constraints)
-    if replay is not None and len(replay) != num_steps + 1:
-        raise ValueError(f"replay: expected {num_steps + 1} (u, pool) pairs, "
-                         f"got {len(replay)}")
+    state0, init_constraints, step_constraints, proposal_params = to_device(
+        device, state0, init_constraints, step_constraints,
+        params=proposal_params)
+    steps = num_steps(step_constraints, replay)
 
     s, trace = batched_smc_init(key, kernel, state0, init_constraints, n,
                                 pool=replay[0][1] if replay else None)
     if record is not None:
-        record.append((None, _draws(trace, init_constraints)))
-    ancestors, ess_t, resampled_t = [], [], []
-    for i in range(num_steps):
+        record.append((None, generated_draws(trace, init_constraints)))
+    ancestors, ess_t, resampled_t, acceptance = [], [], [], []
+    for i in range(steps):
         cons_t = step_constraints.map(lambda v: v[i])
-        key, k_res, k_gen, _k_rej = split(s.key, 4)
-        u, pool = replay[i + 1] if replay else (None, None)
+        key, k_res, k_gen, k_rej = split(s.key, 4)
+        u, *entry = replay_entry(replay[i + 1] if replay else None)
         if u is None:
             u = systematic_uniform(k_res, s.log_weights)
         state, lw, d_log_ml, parents, ess, do = resample_step(
             k_res, s.log_weights, s.state, u=u)
-        trace, w = kernel.step.generate(k_gen, (s.t, state), cons_t,
-                                        pool=pool)
+        resampled = SMCState(key, state, lw, s.log_ml + d_log_ml, s.t)
+        trace, w, accepted, draws = guided_step(
+            resampled, kernel, k_gen, k_rej, cons_t, n, proposal,
+            proposal_params, rejuvenation, entry, record=record is not None)
         if record is not None:
-            record.append((u, _draws(trace, cons_t)))
-        s = SMCState(key, trace.retv, lw + w, s.log_ml + d_log_ml, s.t + 1)
+            record.append((u, *draws))
+        s = SMCState(key, trace.retv, lw + w, resampled.log_ml, s.t + 1)
         if store_ancestry:
             ancestors.append(parents)
         ess_t.append(ess)
         resampled_t.append(do)
+        acceptance.append(accepted)
 
     log_ml = s.log_ml + det_logsumexp(s.log_weights, n) - math.log(float(n))
     return {"state": s.state, "log_weights": s.log_weights, "log_ml": log_ml,
             "ancestors": torch.stack(ancestors) if store_ancestry else None,
-            "ess": torch.stack(ess_t), "resampled": torch.stack(resampled_t)}
+            "ess": torch.stack(ess_t), "resampled": torch.stack(resampled_t),
+            "acceptance": (torch.stack(acceptance)
+                           if rejuvenation is not None else None)}

@@ -52,7 +52,8 @@ def _port_filter(key, n, replay=None):
     step_c = trie_from_numpy({"obs": OBS[1:]})
     return sharded_batched_particle_filter(
         None, key, spiral_scan_kernel(), torch.zeros(2, dtype=torch.float64),
-        init_c, step_c, n, ess_threshold=1.0, auto_batch=True, replay=replay)
+        init_c, step_c, n, ess_threshold=1.0, auto_batch=True, replay=replay,
+        device="cpu")
 
 
 def _reference_draws(seed, n):
@@ -114,12 +115,12 @@ def test_filter_record_then_replay_is_identical():
         None, 3, spiral_scan_kernel(), torch.zeros(2), Trie.from_dict(
             {"obs": torch.tensor(OBS[0], dtype=torch.float32)}),
         Trie.from_dict({"obs": torch.tensor(OBS[1:], dtype=torch.float32)}),
-        n, auto_batch=True, record=rec)
+        n, auto_batch=True, record=rec, device="cpu")
     again = sharded_batched_particle_filter(
         None, 99, spiral_scan_kernel(), torch.zeros(2), Trie.from_dict(
             {"obs": torch.tensor(OBS[0], dtype=torch.float32)}),
         Trie.from_dict({"obs": torch.tensor(OBS[1:], dtype=torch.float32)}),
-        n, auto_batch=True, replay=rec)
+        n, auto_batch=True, replay=rec, device="cpu")
     assert len(rec) == T and set(rec[0][1]) == {"r", "theta"}
     assert set(rec[1][1]) == {"dr", "dtheta"}
     assert first["state"].dtype == torch.float32
@@ -140,7 +141,7 @@ def test_thresholded_resampling_matches_reference_replayed(threshold):
         None, 0, spiral_scan_kernel(), torch.zeros(2, dtype=torch.float64),
         trie_from_numpy({"obs": OBS[0]}), trie_from_numpy({"obs": OBS[1:]}),
         n, ess_threshold=threshold, auto_batch=True,
-        replay=_reference_draws(2, n))
+        replay=_reference_draws(2, n), device="cpu")
     np.testing.assert_array_equal(got["resampled"].numpy(),
                                   np.asarray(want["resampled"]))
     if threshold < 0.2:  # ESS/N is ~0.2 after a resample: some steps keep
@@ -156,8 +157,8 @@ def test_port_imports_no_jax():
     repo = Path(__file__).resolve().parent.parent
     files = sorted((repo / "modppl_tpu_torch").rglob("*.py"))
     assert len(files) > 10
-    assert {"hmm.py", "numerics.py", "resample.py", "vsmc.py"} <= {
-        p.name for p in files}
+    assert {"hmm.py", "numerics.py", "resample.py", "vsmc.py", "mcmc.py",
+            "plate.py", "lgssm.py", "handlers.py"} <= {p.name for p in files}
     files.append(repo / "chip_smoke.py")
     bad = []
     for path in files:

@@ -22,6 +22,7 @@ from modppl_tpu.ops.fused_resample_pallas import (
 )
 from modppl_tpu.ops.resample_pallas import grid_rank as j_grid_rank
 from modppl_tpu.parallel import resample as jres
+from modppl_tpu_torch.core.address import select
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.dists import categorical
 from modppl_tpu_torch.inference.vsmc import batched_particle_filter
@@ -295,7 +296,7 @@ def _hmm_filter(key, prior, emission, transition, data, n, **kw):
     step_c = Trie.from_dict({"obs": torch.tensor(data[1:])})
     return batched_particle_filter(
         key, hmm.hmm_scan_kernel(params), torch.zeros((), dtype=torch.float64),
-        init_c, step_c, n, auto_batch=True, **kw)
+        init_c, step_c, n, auto_batch=True, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("resampling", ["systematic", "multinomial"])
@@ -343,7 +344,7 @@ def test_spiral_through_vsmc():
     out = batched_particle_filter(
         5, spiral_scan_kernel(), torch.zeros(2),
         Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}),
-        4096, auto_batch=True)
+        4096, auto_batch=True, device="cpu")
     assert np.isfinite(float(out["log_ml"]))
     assert out["state"].shape == (4096, 2)
     anc = out["ancestors"]
@@ -351,13 +352,17 @@ def test_spiral_through_vsmc():
 
 
 def test_guided_and_rejuvenated_filters_raise():
+    """tests/test_batched_filter.py::test_batched_guided_requires_auto_batch:
+    a batch-aware kernel (auto_batch=False) takes no proposal and no
+    rejuvenation; the guided and rejuvenated filters need the per-particle
+    kernel."""
     params = hmm.HMMParams(torch.tensor(GATE_PRIOR),
                            torch.tensor(GATE_EMISSION),
                            torch.tensor(GATE_TRANSITION))
     init_c = Trie.from_dict({"obs": torch.tensor(0)})
     step_c = Trie.from_dict({"obs": torch.tensor([1])})
-    for kw in ({"proposal": object()}, {"rejuvenation": ("z", 1)}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    for kw in ({"proposal": object()}, {"rejuvenation": (select("z"), 1)}):
+        with pytest.raises(ValueError, match="auto_batch"):
             batched_particle_filter(0, hmm.hmm_scan_kernel(params),
                                     torch.zeros(()), init_c, step_c, 8,
-                                    auto_batch=True, **kw)
+                                    device="cpu", **kw)
