@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Six paths, each driven with its kernels' launch counters set to 0 just
+Seven paths, each driven with its kernels' launch counters set to 0 just
 before it and read just after:
 
 - the spiral-tracking bootstrap particle filter
@@ -29,7 +29,12 @@ before it and read just after:
   linear-Gaussian SSM (A, Q, R = 0.9, 0.5, 0.3) through
   ``sharded_batched_particle_filter`` with the locally optimal proposal and
   one regenerative move of ``x`` a step, N = 2^20, T = 10, float32: each of
-  the 9 steps resamples through kernels 1, 2 and 3.
+  the 9 steps resamples through kernels 1, 2 and 3;
+- the generic HMC path on Bayesian logistic regression (``bench.py:128-185``,
+  ``bench_hmc_nonquad``): ``hmc_runner(device="cuda")`` at d = 16, n = 128,
+  10^4 chains, 300 + 500 iterations, L = 4, pooled adaptation, float32,
+  each leapfrog step one batched ``vmap(grad_and_value)`` call through the
+  model: no kernel of the port lies on it, and none may launch.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -100,7 +105,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     same filter through the plain versions on the card, fed the run's
     recorded draws (resample uniforms, proposal draws, each move's draws
     and accept uniforms);
-14. times the guided leg (median of 5 after a warm-up) in particle-steps/s.
+14. times the guided leg (median of 5 after a warm-up) in particle-steps/s;
+15. runs the logistic-regression leg with the counters at 0 and requires no
+    launch of any kernel, the generic path, finite outputs, and the
+    posterior mean within 0.05 (or 4 Monte Carlo standard errors, if more)
+    of a float64 numpy oracle (self-normalised importance sampling from the
+    Laplace approximation at ``map_newton``'s mode, covariance inflated
+    1.5x, 10^6 draws); the same key again must give bitwise-equal draws;
+    then the per-chain path (``pooled_adaptation=False``, 256 chains,
+    200 + 200): inverse mass (256, 16), posterior mean within 0.1;
+16. times the leg (median of 3 after phase 15's warm-up run; min-coordinate
+    ESS/s, transitions/s, accept rate and step size) and one batched
+    value-and-grad call at its 10^4 chains.
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
 path; a profile that lacks a kernel the launch counters saw says so and
@@ -1562,6 +1578,204 @@ def time_guided(n=N, runs=5):
     return statistics.median(times), times
 
 
+# --------------------------------------------------------------------------
+# slice 5: the generic HMC path on Bayesian logistic regression
+# --------------------------------------------------------------------------
+
+# bench.py:128-185 (bench_hmc_nonquad) at full width: d = 16, n = 128,
+# 10^4 chains, 300 + 500, L = 4, pooled adaptation; data from the port's
+# simulate_logreg with seed 42, float32
+LOGREG = dict(dim=16, n_data=128, num_chains=10_000, num_warmup=300,
+              num_samples=500, num_leapfrog=4)
+# the per-chain path on the same target: (chains, warmup, samples)
+LOGREG_PER_CHAIN = (256, 200, 200)
+# the posterior mean against the oracle: within LOGREG_MEAN_GAP or 4 Monte
+# Carlo standard errors, whichever is larger (pooled leg); within
+# LOGREG_PER_CHAIN_GAP (per-chain run)
+LOGREG_MEAN_GAP = 0.05
+LOGREG_PER_CHAIN_GAP = 0.1
+# the oracle: self-normalised importance sampling, Laplace proposal with
+# its covariance inflated LOGREG_INFLATE times, LOGREG_ORACLE_DRAWS draws
+LOGREG_ORACLE_DRAWS = 1_000_000
+LOGREG_INFLATE = 1.5
+
+
+def logreg_data(device):
+    """The leg's (X (128, 16), ys (128,)), float32, from seed 42."""
+    from modppl_tpu_torch.models.logreg import simulate_logreg
+
+    X, ys, _ = simulate_logreg(42, LOGREG["n_data"], LOGREG["dim"],
+                               device=device)
+    return X, ys
+
+
+def make_logreg_leg(device, **overrides):
+    """The leg's runner through the user's entry point, ``hmc_runner``."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.hmc import hmc_runner
+    from modppl_tpu_torch.models.logreg import make_logreg
+
+    cfg = {k: v for k, v in LOGREG.items() if k not in ("dim", "n_data")}
+    cfg.update(overrides)
+    return hmc_runner(make_logreg(LOGREG["dim"]), logreg_data(device), Trie(),
+                      setup_key=99, device=device, **cfg)
+
+
+def logreg_oracle(X, ys, draws=LOGREG_ORACLE_DRAWS, seed=0, chunk=100_000):
+    """The posterior mean of w and its Monte Carlo standard error, by
+    self-normalised importance sampling in float64 numpy, independent of
+    the port: proposal N(w_map, LOGREG_INFLATE H^-1), w_map from
+    ``map_newton`` and H the negative Hessian of the log posterior there;
+    ``draws`` proposals from ``default_rng(seed)``. Returns (mean, se, the
+    importance sampler's effective sample size)."""
+    from modppl_tpu_torch.models.logreg import map_newton
+
+    X = np.asarray(X, np.float64)
+    ys = np.asarray(ys, np.float64)
+    d = X.shape[1]
+    w_map = map_newton(X, ys)
+    p = 1.0 / (1.0 + np.exp(-X @ w_map))
+    chol = np.linalg.cholesky(
+        LOGREG_INFLATE * np.linalg.inv((X.T * (p * (1 - p))) @ X + np.eye(d)))
+    rng = np.random.default_rng(seed)
+    log_w, ws = [], []
+    for start in range(0, draws, chunk):
+        z = rng.standard_normal((min(chunk, draws - start), d))
+        w = w_map + z @ chol.T
+        logits = w @ X.T
+        # log sigmoid(x) = -log(1 + e^-x)
+        loglik = -(ys * np.logaddexp(0.0, -logits)
+                   + (1.0 - ys) * np.logaddexp(0.0, logits)).sum(1)
+        # log posterior - log proposal, up to constants
+        log_w.append(loglik - 0.5 * (w * w).sum(1) + 0.5 * (z * z).sum(1))
+        ws.append(w)
+    log_w, ws = np.concatenate(log_w), np.concatenate(ws)
+    wt = np.exp(log_w - log_w.max())
+    wt /= wt.sum()
+    mean = wt @ ws
+    se = np.sqrt((wt * wt) @ ((ws - mean) ** 2))
+    return mean, se, float(1.0 / (wt * wt).sum())
+
+
+def logreg_summary(out):
+    """(draws (chains, samples, d) float64 numpy, per-coordinate ESS)."""
+    from modppl_tpu_torch.utils.diagnostics import ess_autocorr
+
+    us = out["unconstrained"].double().cpu().numpy()
+    return us, np.array([ess_autocorr(us[:, :, j])
+                         for j in range(us.shape[-1])])
+
+
+def check_logreg_leg(device="cuda"):
+    """Phase 15: the leg with the counters at 0, through hmc_runner: no
+    kernel launches, the generic path, finite outputs, the posterior mean
+    within max(LOGREG_MEAN_GAP, 4 Monte Carlo standard errors) of the
+    oracle; the same key again gives bitwise-equal draws, step size,
+    inverse mass and accept probabilities. Then the per-chain path
+    (``pooled_adaptation=False``) at LOGREG_PER_CHAIN: inv_mass (chains, d)
+    and the posterior mean within LOGREG_PER_CHAIN_GAP. Returns (the
+    pooled runner, what was seen)."""
+    X, ys = logreg_data(device)
+    oracle, oracle_se, oracle_ess = logreg_oracle(X.cpu().numpy(),
+                                                  ys.cpu().numpy())
+    d = LOGREG["dim"]
+    with full_fp32():
+        run = make_logreg_leg(device)
+        out, launches = counted(lambda: run(0))
+        require_launches("logreg leg", launches, {})
+        again = run(0)
+    if out["fused_quadratic"] or not bool(out["quad_check_ok"]):
+        raise AssertionError("logreg leg: expected the generic path")
+    for what in ("unconstrained", "logp", "accept_prob", "step_size",
+                 "inv_mass"):
+        if not bool(torch.isfinite(out[what]).all()):
+            raise AssertionError(f"logreg leg: {what} is not finite")
+        if not torch.equal(out[what], again[what]):
+            raise AssertionError(f"logreg leg: {what} differs between two "
+                                 f"runs of the same key")
+    us, ess = logreg_summary(out)
+    flat = us.reshape(-1, d)
+    mean = flat.mean(0)
+    se = np.sqrt(flat.var(0) / ess + oracle_se ** 2)
+    gap = np.abs(mean - oracle)
+    allowed = np.maximum(LOGREG_MEAN_GAP, 4.0 * se)
+    if us.shape != (LOGREG["num_chains"], LOGREG["num_samples"], d) or \
+            not (gap <= allowed).all():
+        raise AssertionError(f"logreg leg: posterior mean {mean} vs oracle "
+                             f"{oracle} (gap {gap}, allowed {allowed})")
+    chains, warm, samp = LOGREG_PER_CHAIN
+    with full_fp32():
+        per = make_logreg_leg(device, num_chains=chains, num_warmup=warm,
+                              num_samples=samp, pooled_adaptation=False)(0)
+    per_us = per["unconstrained"].double().cpu().numpy()
+    per_gap = np.abs(per_us.reshape(-1, d).mean(0) - oracle)
+    if per["inv_mass"].shape != (chains, d) or \
+            per["step_size"].shape != (chains,) or \
+            not np.isfinite(per_us).all() or \
+            not (per_gap <= LOGREG_PER_CHAIN_GAP).all():
+        raise AssertionError(f"logreg per-chain run: inv_mass "
+                             f"{tuple(per['inv_mass'].shape)}, gap {per_gap}")
+    return run, {"gap": float(gap.max()), "allowed": float(allowed.min()),
+                 "oracle_se": float(oracle_se.max()),
+                 "oracle_ess": oracle_ess, "per_chain_gap":
+                 float(per_gap.max()), "eps": float(out["step_size"]),
+                 "accept": float(out["accept_prob"].mean())}
+
+
+def time_logreg_leg(run, reps=3, device="cuda"):
+    """Phase 16: bench.py's measure on the runner phase 15 warmed up: the
+    median wall time of ``reps`` runs, keys 1..reps, and min-coordinate ESS
+    of the last. Returns (median s, times, ess_min, ess_median, accept,
+    eps)."""
+    times = []
+    with full_fp32():
+        for i in range(reps):
+            sync(device)
+            t0 = time.perf_counter()
+            out = run(i + 1)
+            sync(device)
+            times.append(time.perf_counter() - t0)
+    _, ess = logreg_summary(out)
+    return (statistics.median(times), times, float(ess.min()),
+            float(np.median(ess)), float(out["accept_prob"].mean()),
+            float(out["step_size"]))
+
+
+def time_logreg_vag(calls=50, reps=3, device="cuda"):
+    """Wall ms of one batched value-and-grad call of the leg's target at
+    its 10^4 chains, the call each leapfrog step makes: the median over
+    ``reps`` batches of ``calls`` back-to-back calls, each batch ended by a
+    synchronize."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.hmc import (
+        _value_and_grad,
+        make_unconstrained_logprob,
+        ravel_latents,
+    )
+    from modppl_tpu_torch.models.logreg import make_logreg
+
+    args, model = logreg_data(device), make_logreg(LOGREG["dim"])
+    tr, _ = model.generate(99, args, Trie())
+    logprob, u0, _, _ = make_unconstrained_logprob(model, args, tr, Trie(),
+                                                   device=device)
+    _, unravel = ravel_latents(u0)
+    vag = _value_and_grad(lambda u: logprob(unravel(u)))
+    U = torch.randn((LOGREG["num_chains"], LOGREG["dim"]),
+                    generator=torch.Generator(device).manual_seed(0),
+                    device=device)
+    times = []
+    with full_fp32():
+        vag(U)
+        for _ in range(reps):
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                vag(U)
+            sync(device)
+            times.append((time.perf_counter() - t0) / calls * 1e3)
+    return statistics.median(times), times
+
+
 SOURCES = {
     "stats_cumsum": ("modppl_tpu_torch/csrc/grid_positions.cu",
                      "modppl_tpu/ops/grid_positions_pallas.py:59"),
@@ -1922,6 +2136,36 @@ def main(argv):
     if "--profile" in argv:
         profile_run("guided LG filter", lambda: run_guided("cuda", N, 201),
                     guided_s)
+    sys.stdout.flush()
+    logreg_run, lr_seen = check_logreg_leg("cuda")
+    print(f"# main path: logistic regression {LOGREG} float32 through "
+          f"hmc_runner(device='cuda'), generic pooled path, no kernel "
+          f"launched; posterior mean within {lr_seen['gap']!r} of the "
+          f"importance-sampling oracle (allowed {lr_seen['allowed']!r}; "
+          f"oracle se {lr_seen['oracle_se']!r}, IS ESS "
+          f"{lr_seen['oracle_ess']:.1f}); eps {lr_seen['eps']!r}, accept "
+          f"{lr_seen['accept']!r}; same key twice bitwise equal; per-chain "
+          f"path {LOGREG_PER_CHAIN} within {lr_seen['per_chain_gap']!r}")
+    sys.stdout.flush()
+    lr_s, lr_times, lr_ess, lr_ess_med, lr_acc, lr_eps = time_logreg_leg(
+        logreg_run)
+    n_tr = LOGREG["num_chains"] * (LOGREG["num_warmup"]
+                                   + LOGREG["num_samples"])
+    print(f"# logreg leg: median {lr_s * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in lr_times]} ms; min-coord ESS "
+          f"{lr_ess:.1f} (median {lr_ess_med:.1f}) -> {lr_ess / lr_s:.1f} "
+          f"ESS/s; {n_tr / lr_s:.4g} transitions/s; accept {lr_acc:.3f}; "
+          f"eps {lr_eps:.5f} ({card})")
+    vag_ms, vag_times = time_logreg_vag()
+    calls = (LOGREG["num_warmup"] + LOGREG["num_samples"]) \
+        * LOGREG["num_leapfrog"] + 1
+    print(f"# logreg value-and-grad at {LOGREG['num_chains']} chains: "
+          f"{vag_ms:.4f} ms a call (median of "
+          f"{[round(t, 4) for t in vag_times]}; {calls} calls a run) "
+          f"({card})")
+    if "--profile" in argv:
+        with full_fp32():
+            profile_run("logreg leg", lambda: logreg_run(11), lr_s)
     sys.stdout.flush()
     launches.update(hmc_launches)
     launches.update(quad_launches)

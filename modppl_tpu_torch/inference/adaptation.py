@@ -1,7 +1,32 @@
-"""Fixed-order reductions and the warmup schedule (counterpart of
-modppl_tpu/inference/adaptation.py:40-61, 130-158)."""
+"""Warmup adaptation: dual-averaging step size and windowed diagonal mass
+estimation (counterpart of modppl_tpu/inference/adaptation.py).
+
+Stan's schedule, shared by every HMC path:
+
+  [ fast: step size only | slow windows: 25, 50, 100, ... (mass) | fast ]
+
+Each slow window estimates the variance of the unconstrained draws; at its
+end the diagonal inverse mass becomes the regularized variance and dual
+averaging restarts around the current step size.
+
+Two tiers:
+
+- :func:`run_warmup`: every chain adapts its own (step size, inverse
+  mass) from its own history. The reference vmaps one chain's warmup over
+  the chains; here the whole batch runs as one, each chain's dual-averaging
+  leaves (C,) and Welford sums (C, d).
+- :func:`run_warmup_pooled`: one shared (step size, inverse mass), adapted
+  from the accept statistics and draws of all chains.
+
+The reference's pooled sums can cross shards (``axis_name``); the port has
+one device, and ``axis_name`` other than None raises (ROADMAP Queue 1 item
+14).
+"""
 
 import torch
+
+from modppl_tpu_torch.core.keys import fold_in, split
+from modppl_tpu_torch.inference.hmc import MULTI_SHARD_TODO, da_init, da_update
 
 
 def warmup_schedule(num_warmup, init_buffer=None, term_buffer=None,
@@ -45,6 +70,75 @@ def slow_windows(num_warmup):
     return out
 
 
+def warmup_phases(num_warmup):
+    """The phases of ``warmup_schedule`` in order, empty ones left out:
+    (length, slow) each, ``slow`` True for a mass-adapting window."""
+    fast1, slow, fast2 = warmup_schedule(num_warmup)
+    return [(n, is_slow) for n, is_slow in
+            [(fast1, False), *((w, True) for w in slow), (fast2, False)]
+            if n > 0]
+
+
+def _window_metric(m2, n):
+    """The diagonal inverse mass at a slow window's end from its Welford
+    sums: the variance, shrunk toward 1e-3 by n / (n + 5) as Stan does, and
+    clipped to [1e-8, 1e8]. inv_mass is M^-1 in the transition (momenta
+    z / sqrt(inv_mass), u += eps inv_mass p), so the variance, not its
+    inverse, preconditions the target."""
+    var = m2 / torch.clamp(n - 1.0, min=1.0)
+    shrink = n / (n + 5.0)
+    var = shrink * var + (1.0 - shrink) * 1e-3
+    return torch.clamp(var, 1e-8, 1e8)
+
+
+def _phase_keys(phase, phase_key, length):
+    """A phase's per-iteration keys, as the reference splits them."""
+    return split(phase_key, length)
+
+
+def run_warmup(key, u0s, transition, num_warmup, eps0, target_accept=0.8,
+               phase_inputs=_phase_keys):
+    """Adapt each chain's own (step size, diagonal inverse mass).
+
+    ``transition(x, us, eps, inv_mass) -> (us, accept_probs)`` moves the
+    whole batch: us (C, d), eps (C,), inv_mass (C, d), accept_probs (C,).
+    ``x`` is the iteration's input: the ``length`` inputs of the phase
+    numbered ``phase`` are ``phase_inputs(phase, fold_in(key, phase),
+    length)``, by default the phase's keys ``split(phase_key, length)``, as
+    the reference keys a chain's iterations. Returns (us (C, d), eps (C,),
+    inv_mass (C, d)).
+    """
+    zeros = torch.zeros_like(u0s)
+    inv_mass = torch.ones_like(u0s)
+
+    def run_phase(phase, us, da, inv_mass, length, adapt_mass):
+        mean, m2, n = zeros, zeros, u0s.new_zeros(())
+        for x in phase_inputs(phase, fold_in(key, phase), length):
+            eps = torch.exp(da["log_eps"])
+            us, aprob = transition(x, us, eps, inv_mass)
+            da = da_update(da, aprob, target=target_accept)
+            if adapt_mass:
+                n = n + 1.0
+                delta = us - mean
+                mean = mean + delta / n
+                m2 = m2 + delta * (us - mean)
+        return us, da, m2, n
+
+    us = u0s
+    da = da_init(u0s.new_full(u0s.shape[:1], float(eps0)))
+    for phase, (length, slow) in enumerate(warmup_phases(num_warmup)):
+        us, da, m2, n = run_phase(phase, us, da, inv_mass, length, slow)
+        if slow:
+            inv_mass = _window_metric(m2, n)
+            # restart dual averaging around the current adapted step size
+            da = da_init(torch.exp(da["log_eps_bar"]))
+    return us, torch.exp(da["log_eps_bar"]), inv_mass
+
+
+# --------------------------------------------------------------------------
+# Pooled (cross-chain) adaptation
+# --------------------------------------------------------------------------
+
 def _tree_sum(x):
     """Sum over the leading axis by an explicit ADJACENT-pairing add tree:
     (x[0]+x[1]), (x[2]+x[3]), ... per level, odd extents zero-padded to a
@@ -60,3 +154,73 @@ def _tree_sum(x):
         p //= 2
         x = x[0::2] + x[1::2]
     return x[0]
+
+
+def _pooled_sum(x, axis_name=None):
+    """Sum ``x`` over its leading (chain) axis in a fixed order: the
+    adjacent-pairing tree of :func:`_tree_sum`. One device only."""
+    if axis_name is not None:
+        raise NotImplementedError(MULTI_SHARD_TODO)
+    return _tree_sum(x)
+
+
+def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
+                      target_accept=0.8, axis_name=None,
+                      batched_transition=False):
+    """Adapt ONE shared (step size, diagonal inverse mass) from all chains.
+
+    ``u0s`` (C, d). With ``batched_transition=True``, ``transition(key, us,
+    eps, inv_mass) -> (us, accept_probs)`` moves the whole batch with the
+    iteration's key; otherwise ``transition(key, u, eps, inv_mass) -> (u,
+    accept_prob)`` moves one chain, with the key ``fold_in(key, i)`` for
+    chain i, as the reference keys it. The port's keys are host integers,
+    which ``torch.func.vmap`` cannot map, so a per-chain transition runs
+    chain by chain; a batched transition avoids that. Each iteration's
+    accept mean and the batch's (Chan) Welford update use the fixed-order
+    sums of :func:`_pooled_sum`. Returns (us (C, d), eps (), inv_mass
+    (d,)).
+    """
+    if axis_name is not None:
+        raise NotImplementedError(MULTI_SHARD_TODO)
+    c = u0s.shape[0]
+    zeros = u0s.new_zeros(u0s.shape[1:])
+    inv_mass = torch.ones_like(zeros)
+    c_total = u0s.new_tensor(float(c))
+
+    def move(k, us, eps, inv_mass):
+        if batched_transition:
+            return transition(k, us, eps, inv_mass)
+        outs = [transition(fold_in(k, i), us[i], eps, inv_mass)
+                for i in range(c)]
+        return (torch.stack([u for u, _ in outs]),
+                torch.stack([torch.as_tensor(a, dtype=us.dtype,
+                                             device=us.device)
+                             for _, a in outs]))
+
+    def run_phase(phase_key, us, da, inv_mass, length, adapt_mass):
+        mean, m2, n = zeros, zeros, u0s.new_zeros(())
+        for k in split(phase_key, length):
+            eps = torch.exp(da["log_eps"])
+            us, aprobs = move(k, us, eps, inv_mass)
+            a_mean = _pooled_sum(aprobs) / c_total
+            da = da_update(da, a_mean, target=target_accept)
+            if adapt_mass:
+                # the batched (Chan) Welford update pooling the
+                # iteration's C draws at once
+                b_mean = _pooled_sum(us) / c_total
+                b_m2 = _pooled_sum((us - b_mean[None]) ** 2)
+                n_new = n + c_total
+                delta = b_mean - mean
+                mean = mean + delta * c_total / n_new
+                m2 = m2 + b_m2 + delta * delta * n * c_total / n_new
+                n = n_new
+        return us, da, m2, n
+
+    us, da = u0s, da_init(u0s.new_tensor(float(eps0)))
+    for phase, (length, slow) in enumerate(warmup_phases(num_warmup)):
+        us, da, m2, n = run_phase(fold_in(key, phase), us, da, inv_mass,
+                                  length, slow)
+        if slow:
+            inv_mass = _window_metric(m2, n)
+            da = da_init(torch.exp(da["log_eps_bar"]))
+    return us, torch.exp(da["log_eps_bar"]), inv_mass

@@ -1,15 +1,23 @@
-"""Hamiltonian Monte Carlo with pooled dual-averaging step size and diagonal
-mass adaptation (counterpart of modppl_tpu/inference/hmc.py).
+"""Hamiltonian Monte Carlo with dual-averaging step size and diagonal mass
+adaptation (counterpart of modppl_tpu/inference/hmc.py).
 
-The port's path so far is the quadratic one: ``hmc_runner`` builds the
-latent log-density over unconstrained space from the model's ``assess``
-(bijectors per address from the trie's recorded distributions), detects a
-quadratic target (logp = b.u - u.Λu/2 + const: every all-Gaussian model
-with identity bijectors) and runs the whole pooled warmup and the whole
-sampling phase as one kernel launch each (``_quadratic_chains``): the
-ops/leapfrog_small.py kernels at d <= 12, the ops/leapfrog.py kernels
-above. The generic paths (pooled generic transitions, per-chain chains)
-are not ported yet and raise.
+``hmc_runner`` builds the latent log-density over unconstrained space from
+the model's ``assess`` (bijectors per address from the trie's recorded
+distributions), then takes one of three paths:
+
+- a quadratic target (logp = b.u - u.Λu/2 + const: every all-Gaussian
+  model with identity bijectors) runs the whole pooled warmup and the
+  whole sampling phase as one kernel launch each (``_quadratic_chains``):
+  the ops/leapfrog_small.py kernels at d <= 12, the ops/leapfrog.py
+  kernels above;
+- any other target, or ``use_fused_quadratic=False``, runs the generic
+  path: ``torch.func.vmap(torch.func.grad_and_value(logprob))`` gives every
+  chain's (logp, grad) at each leapfrog step, with one shared adapted
+  (eps, inv_mass) (``_pooled_chains``, the default for more than one chain)
+  or one per chain (``_single_chain``, the whole batch at once).
+
+Adaptation state, accept probabilities and flags stay on the device: the
+generic path reads nothing back to the host per transition.
 """
 
 import numpy as np
@@ -18,9 +26,9 @@ import torch
 from modppl_tpu_torch.core.keys import fold_in, generator, split
 from modppl_tpu_torch.inference.transforms import transform_for
 
-GENERIC_PATH_TODO = ("not ported yet (ROADMAP Queue 1 item 10a: the "
-                     "generic pooled HMC path, _pooled_chains / "
-                     "_single_chain)")
+MULTI_SHARD_TODO = ("axis_name: pooling across shards is not ported (ROADMAP "
+                    "Queue 1 item 14, multi-device); the port runs on one "
+                    "device, pass axis_name=None")
 
 # below this dimension the d <= 12 kernels run (ops/leapfrog_small.py),
 # from it the d >= 13 kernels (ops/leapfrog.py), as in the reference
@@ -108,6 +116,72 @@ def ravel_latents(u):
         return out
 
     return flat, unravel
+
+
+def _value_and_grad(logprob):
+    """``U (C, d) -> (logp (C,), grad (C, d))`` from a per-point ``logprob``:
+    the counterpart of ``jax.vmap(jax.value_and_grad(logprob))``."""
+    vg = torch.func.vmap(torch.func.grad_and_value(logprob))
+
+    def vag(U):
+        g, lp = vg(U)
+        return lp, g
+
+    return vag
+
+
+# --------------------------------------------------------------------------
+# Leapfrog + transition
+# --------------------------------------------------------------------------
+
+def _leapfrog(grad_fn, u, p, eps, num_steps, inv_mass):
+    """Standard leapfrog in flat coordinates, ``num_steps`` steps."""
+    g = grad_fn(u)
+    for _ in range(num_steps):
+        p = p + 0.5 * eps * g
+        u = u + eps * inv_mass * p
+        g = grad_fn(u)
+        p = p + 0.5 * eps * g
+    return u, p
+
+
+def hmc_transition(key, u_flat, logp_flat, grad_flat, eps, num_leapfrog,
+                   inv_mass, draws=None):
+    """One HMC transition on flat unconstrained coordinates.
+
+    One chain (u_flat (d,), eps and the draws scalars) or a batch (u_flat
+    (C, d), eps (C,) or scalar, inv_mass (d,) or (C, d)); ``logp_flat`` and
+    ``grad_flat`` take what ``u_flat`` is. The step size is jittered ±50%
+    per transition, momenta are z / sqrt(inv_mass), and a transition whose
+    energy error is not finite or below -1000 is divergent and rejected.
+    The draws come from one generator keyed ``key`` on the chains' device:
+    standard normals z of u_flat's shape, then per chain an accept uniform
+    u01 and a step-size jitter in [0.5, 1.5); ``draws`` = (z, jit, u01)
+    replaces them. Returns (u', logp(u'), accept_prob, divergent).
+    """
+    if draws is None:
+        g = generator(key, u_flat.device)
+        kw = dict(generator=g, dtype=u_flat.dtype, device=u_flat.device)
+        z = torch.randn(u_flat.shape, **kw)
+        u01 = torch.rand(u_flat.shape[:-1], **kw)
+        draws = z, 0.5 + torch.rand(u_flat.shape[:-1], **kw), u01
+    z, jit, u01 = draws
+    eps = (eps * jit)[..., None]
+    p0 = z / torch.sqrt(inv_mass)
+    logp0 = logp_flat(u_flat)
+    u_new, p_new = _leapfrog(grad_flat, u_flat, p0, eps, num_leapfrog,
+                             inv_mass)
+    logp_new = logp_flat(u_new)
+    h0 = -logp0 + 0.5 * torch.sum(inv_mass * p0 * p0, -1)
+    h_new = -logp_new + 0.5 * torch.sum(inv_mass * p_new * p_new, -1)
+    delta_h = h0 - h_new
+    divergent = ~torch.isfinite(delta_h) | (delta_h < -1000.0)
+    accept_prob = torch.where(divergent, 0.0,
+                              torch.clamp(torch.exp(delta_h), max=1.0))
+    accept = u01 < accept_prob
+    u_out = torch.where(accept[..., None], u_new, u_flat)
+    logp_out = torch.where(accept, logp_new, logp0)
+    return u_out, logp_out, accept_prob, divergent
 
 
 # --------------------------------------------------------------------------
@@ -212,14 +286,239 @@ def _quadratic_chains(key, lam, b, u0s, num_warmup, num_samples, eps0,
             inv_mass)
 
 
-def _pooled_chains(*args, **kwargs):
-    raise NotImplementedError(f"hmc: the generic pooled path is "
-                              f"{GENERIC_PATH_TODO}")
+# --------------------------------------------------------------------------
+# The generic path
+# --------------------------------------------------------------------------
+
+# iterations per pre-drawn segment: bounds the resident draws to
+# 64·C·(d+2) values a segment
+_PREDRAW_SEG = 64
 
 
-def _single_chain(*args, **kwargs):
-    raise NotImplementedError(f"hmc: the per-chain path is "
-                              f"{GENERIC_PATH_TODO}")
+def _phase_randoms(seg_key, num_chains, length, dim, dtype, device):
+    """Pre-draw one segment's per-transition randoms on ``device`` from ONE
+    generator keyed ``seg_key`` (``fold_in(phase_key, seg)``): momenta
+    (W, C, d) standard normals, step-size jitters (W, C) in [0.5, 1.5) and
+    accept uniforms (W, C).
+
+    The reference keys one stream per chain by its global index, so that
+    any sharding replays the same chains; one generator per chain (10^4 of
+    them) is no design for the port's host-integer keys, so the batch draws
+    from one stream, and layout-invariant per-chain streams come with
+    multi-device (ROADMAP Queue 1 item 14).
+    """
+    g = generator(seg_key, device)
+    kw = dict(generator=g, dtype=dtype, device=device)
+    mom = torch.randn((length, num_chains, dim), **kw)
+    jit = 0.5 + torch.rand((length, num_chains), **kw)
+    return mom, jit, torch.rand((length, num_chains), **kw)
+
+
+def _phase_steps(phase_key, length, u0s, draws=None):
+    """The per-iteration (z (C, d), jit (C,), u01 (C,)) of one phase for the
+    chains ``u0s`` (C, d): the rows of ``draws`` = (z (T, C, d), jit (T, C),
+    u01 (T, C)) when given, else segments of ``_PREDRAW_SEG`` iterations
+    from :func:`_phase_randoms`, segment ``seg`` keyed
+    ``fold_in(phase_key, seg)``."""
+    if draws is not None:
+        if tuple(draws[0].shape) != (length,) + tuple(u0s.shape):
+            raise ValueError(f"draws: a phase of {length} iterations over "
+                             f"{tuple(u0s.shape)} chains needs z of shape "
+                             f"{(length,) + tuple(u0s.shape)}, got "
+                             f"{tuple(draws[0].shape)}")
+        return zip(*draws)
+    return _drawn_steps(phase_key, length, u0s)
+
+
+def _drawn_steps(phase_key, length, u0s):
+    done, seg = 0, 0
+    while done < length:
+        w = min(_PREDRAW_SEG, length - done)
+        yield from zip(*_phase_randoms(fold_in(phase_key, seg), u0s.shape[0],
+                                       w, u0s.shape[1], u0s.dtype,
+                                       u0s.device))
+        done += w
+        seg += 1
+
+
+def _phase_draws(draws, num_warmup):
+    """An iterator over each phase's draws, the warmup's then sampling's
+    (None for each when ``draws`` is None)."""
+    from modppl_tpu_torch.inference.adaptation import warmup_phases
+
+    num_phases = len(warmup_phases(num_warmup)) + 1
+    if draws is None:
+        return iter([None] * num_phases)
+    if len(draws) != num_phases:
+        raise ValueError(f"draws: expected one entry per phase "
+                         f"({num_phases}: the warmup's, then sampling), got "
+                         f"{len(draws)}")
+    return iter(draws)
+
+
+def _transition_batch(vag, U, LP, G, eps_shared, inv_mass, mom_t, jit_t,
+                      acc_t, num_leapfrog):
+    """One whole-batch HMC transition with pre-drawn randoms.
+
+    The carry holds (positions, logp, grad), so neither the start
+    log-density nor the start gradient is recomputed, and each leapfrog
+    step makes ONE batched value-and-grad call, so the final logp is free.
+    Per chain the arithmetic is :func:`hmc_transition`'s (the same
+    divergence guard and accept rule) at the shared ``eps_shared`` and
+    ``inv_mass`` (d,).
+    """
+    eps = (eps_shared * jit_t)[:, None]               # (C, 1)
+    p0 = mom_t / torch.sqrt(inv_mass)[None, :]
+    h0 = -LP + 0.5 * torch.sum(inv_mass[None, :] * p0 * p0, -1)
+    u, p, lp, g = U, p0, LP, G
+    for _ in range(num_leapfrog):
+        p = p + 0.5 * eps * g
+        u = u + eps * inv_mass[None, :] * p
+        lp, g = vag(u)
+        p = p + 0.5 * eps * g
+    h1 = -lp + 0.5 * torch.sum(inv_mass[None, :] * p * p, -1)
+    delta_h = h0 - h1
+    divergent = ~torch.isfinite(delta_h) | (delta_h < -1000.0)
+    aprob = torch.where(divergent, 0.0,
+                        torch.clamp(torch.exp(delta_h), max=1.0))
+    acc = acc_t < aprob
+    U = torch.where(acc[:, None], u, U)
+    LP = torch.where(acc, lp, LP)
+    G = torch.where(acc[:, None], g, G)
+    return U, LP, G, aprob, divergent
+
+
+def _stack_samples(ys):
+    """Per-iteration (U, LP, aprob, div) -> (chains, samples, ...) each."""
+    return tuple(torch.stack(x, 1) for x in zip(*ys))
+
+
+def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
+                   num_leapfrog, target_accept, axis_name=None, draws=None):
+    """All chains share ONE adapted (eps, inv_mass), pooled across chains.
+
+    Batched transitions (:func:`_transition_batch`) on pre-drawn segments
+    (:func:`_phase_randoms`), each leapfrog step one call of
+    ``vmap(grad_and_value(logprob))`` over the whole batch. Warmup follows
+    Stan's windows (``adaptation.warmup_schedule``): each slow window
+    accumulates the draws' moment sums CENTRED at its start's pooled mean
+    (the raw form cancels in float32 when |mean| >> sd), sets inv_mass to
+    the regularized variance at its end, and restarts dual averaging at
+    exp(log_eps_bar). Phase keys: warmup phase i ``fold_in(fold_in(key, 0),
+    i)``, sampling ``fold_in(key, 2)``.
+
+    ``u0s``: (C, dim). ``draws``, one (z, jit, u01) per phase (the warmup's
+    in order, then sampling; z (T, C, d), the others (T, C)), replaces the
+    drawn segments (interop.pooled_phase_draws carries the reference's).
+    Returns (us, logps, aprobs, divs) as (chains, samples, ...), the shared
+    eps () and inv_mass (dim,).
+    """
+    from modppl_tpu_torch.inference.adaptation import (
+        _window_metric,
+        warmup_phases,
+    )
+
+    if axis_name is not None:
+        raise NotImplementedError(MULTI_SHARD_TODO)
+    vag = _value_and_grad(logprob)
+    dim = u0s.shape[1]
+    c_total = u0s.new_tensor(float(u0s.shape[0]))
+    zeros = u0s.new_zeros(dim)
+    phase_draws = _phase_draws(draws, num_warmup)
+
+    def run_phase(phase_key, carry, inv_mass, length, adapt_mass,
+                  collect=False, adapt_da=True, ref=None):
+        U, LP, G, da, s1, s2, n = carry
+        ys = []
+        for mom_t, jit_t, acc_t in _phase_steps(phase_key, length, U,
+                                                next(phase_draws)):
+            eps = torch.exp(da["log_eps"])
+            U, LP, G, aprob, div = _transition_batch(
+                vag, U, LP, G, eps, inv_mass, mom_t, jit_t, acc_t,
+                num_leapfrog)
+            if adapt_mass:
+                # one reduction for the accept mean and the window's moment
+                # sums, centred at the window-start pooled mean ``ref``
+                Uc = U - ref[None, :]
+                stat = torch.sum(torch.cat([aprob[:, None], Uc, Uc * Uc], 1),
+                                 0)
+                a_mean = stat[0] / c_total
+                s1 = s1 + stat[1:1 + dim]
+                s2 = s2 + stat[1 + dim:]
+                n = n + c_total
+            elif adapt_da:
+                a_mean = torch.sum(aprob, 0) / c_total
+            if adapt_da:
+                da = da_update(da, a_mean, target=target_accept)
+            if collect:
+                ys.append((U, LP, aprob, div))
+        return (U, LP, G, da, s1, s2, n), ys
+
+    def restart(U, LP, G, eps):
+        return (U, LP, G, da_init(eps), zeros, zeros, u0s.new_zeros(()))
+
+    inv_mass = torch.ones_like(zeros)
+    carry = restart(u0s, *vag(u0s), u0s.new_tensor(float(eps0)))
+    k_warm = fold_in(key, 0)
+    for phase, (length, slow) in enumerate(warmup_phases(num_warmup)):
+        # a slow window's moment sums are centred at its start's pooled mean
+        ref = torch.sum(carry[0], 0) / c_total if slow else None
+        carry, _ = run_phase(fold_in(k_warm, phase), carry, inv_mass, length,
+                             slow, ref=ref)
+        if slow:
+            U, LP, G, da, s1, s2, n = carry
+            # centred moments: the subtraction cancels at the scale of the
+            # posterior's spread, not its location
+            meanc = s1 / torch.clamp(n, min=1.0)
+            inv_mass = _window_metric(torch.clamp(s2 - n * meanc * meanc,
+                                                  min=0.0), n)
+            carry = restart(U, LP, G, torch.exp(da["log_eps_bar"]))
+    U, LP, G, da = carry[:4]
+    eps = torch.exp(da["log_eps_bar"])
+
+    # sampling: the same transition at the frozen (eps, inv_mass)
+    _, ys = run_phase(fold_in(key, 2), restart(U, LP, G, eps), inv_mass,
+                      num_samples, False, collect=True, adapt_da=False)
+    return (*_stack_samples(ys), eps, inv_mass)
+
+
+def _single_chain(key, logprob, u0s, num_warmup, num_samples, eps0,
+                  num_leapfrog, target_accept, draws=None):
+    """Every chain adapts its own (eps, inv_mass) (``adaptation.run_warmup``)
+    and samples with :func:`hmc_transition`: the counterpart of the
+    reference's ``jax.vmap(_single_chain)``, run as one batch (no loop over
+    chains). logp and grad are ``vmap(logprob)`` and ``vmap(grad(logprob))``.
+
+    ``u0s``: (C, dim). Phase keys as :func:`_pooled_chains`'s; each phase's
+    draws are segments of :func:`_phase_randoms`, or the rows of ``draws``
+    (one (z, jit, u01) per phase, as there; interop.chain_phase_draws
+    carries the reference's per-chain draws). Returns (us, logps, aprobs,
+    divs) as (chains, samples, ...), eps (chains,) and inv_mass (chains,
+    dim).
+    """
+    from modppl_tpu_torch.inference.adaptation import run_warmup
+
+    logp = torch.func.vmap(logprob)
+    grad = torch.func.vmap(torch.func.grad(logprob))
+    phase_draws = _phase_draws(draws, num_warmup)
+
+    def warm_transition(x, us, eps, inv_mass):
+        us, _, aprob, _ = hmc_transition(None, us, logp, grad, eps,
+                                         num_leapfrog, inv_mass, draws=x)
+        return us, aprob
+
+    us, eps, inv_mass = run_warmup(
+        fold_in(key, 0), u0s, warm_transition, num_warmup, eps0,
+        target_accept,
+        phase_inputs=lambda phase, phase_key, length: _phase_steps(
+            phase_key, length, u0s, next(phase_draws)))
+    ys = []
+    for x in _phase_steps(fold_in(key, 2), num_samples, u0s,
+                          next(phase_draws)):
+        us, lp, aprob, div = hmc_transition(None, us, logp, grad, eps,
+                                            num_leapfrog, inv_mass, draws=x)
+        ys.append((us, lp, aprob, div))
+    return (*_stack_samples(ys), eps, inv_mass)
 
 
 # --------------------------------------------------------------------------
@@ -237,15 +536,26 @@ def _to_device(x, device):
 def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                num_chains=1, step_size=0.1, num_leapfrog=16,
                target_accept=0.8, selection=None, init_trace=None,
+               pooled_adaptation=None, axis_name=None,
                use_fused_quadratic=None, setup_key=0, device="cuda"):
     """Build a reusable HMC sampler: returns ``run(key) -> dict``.
 
     Set-up (initial trace, bijectors, quadratic-target detection) happens
     once, here; each ``run(key)`` draws the chains' start points and runs
-    the kernels. Everything runs on ``device`` (the card unless the caller
+    the chains. Everything runs on ``device`` (the card unless the caller
     passes ``device="cpu"``): tensor arguments and observations are moved
     there. Keys are the port's integer keys (core/keys.py).
+
+    A quadratic target takes the chunk kernels (``use_fused_quadratic``:
+    None detects it when ``num_warmup >= 1``, True requires it, False never
+    takes it); every other run takes the generic path, with one shared
+    adapted (eps, inv_mass) when ``pooled_adaptation`` (default: more than
+    one chain) and one per chain otherwise. ``axis_name`` names the mesh
+    axis of a sharded run in the reference; the port has one device, so
+    only None is accepted.
     """
+    if axis_name is not None:
+        raise NotImplementedError(f"hmc_runner: {MULTI_SHARD_TODO}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("hmc_runner: device='cuda' but no CUDA device is "
@@ -260,14 +570,17 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     u0_flat, unravel = ravel_latents(u0)
     u0_flat = u0_flat.to(device)
     dim = u0_flat.shape[0]
+    if pooled_adaptation is None:
+        pooled_adaptation = num_chains > 1
 
     def logprob_flat(u_flat):
         return logprob(unravel(u_flat))
 
     quad = None
     # automatic dispatch needs num_warmup >= 1 (a zero-length warmup kernel
-    # cannot launch); an explicit use_fused_quadratic=True always detects,
-    # and _quadratic_chains raises on num_warmup=0, as the reference does
+    # cannot launch) and otherwise takes the generic path; an explicit
+    # use_fused_quadratic=True always detects, and _quadratic_chains raises
+    # on num_warmup=0, as the reference does
     if use_fused_quadratic or (use_fused_quadratic is None
                                and num_warmup >= 1):
         quad = detect_quadratic_target(logprob_flat, dim, u0_flat.dtype,
@@ -276,10 +589,6 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
             raise ValueError(
                 "use_fused_quadratic=True but the target's log-density is "
                 "not quadratic in the unconstrained latents")
-    if quad is None:
-        # a non-quadratic target, use_fused_quadratic=False or automatic
-        # dispatch with num_warmup=0
-        (_pooled_chains if num_chains > 1 else _single_chain)()
 
     def run(k_run):
         k_chains, _ = split(k_run)
@@ -288,35 +597,33 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                                    generator=generator(k_chains, device),
                                    dtype=u0_flat.dtype, device=device)
         u0s = u0_flat[None, :] + jitter
-        lam, b = quad
-        us, logps, aprobs, divs, eps, inv_mass = _quadratic_chains(
-            fold_in(k_run, 0), lam, b, u0s, num_warmup, num_samples,
-            step_size, num_leapfrog, target_accept)
-        # self-check of the dispatch: re-score a few final draws through the
-        # generic log-joint; the difference must be the constant the
-        # quadratic form drops
-        k_chk, t_chk = min(num_chains, 8), min(num_samples, 2)
-        us_k = us[:k_chk, -t_chk:, :].reshape(-1, dim)
-        lp_k = logps[:k_chk, -t_chk:].reshape(-1)
-        with torch.no_grad():
-            gen_lp = torch.stack([torch.as_tensor(logprob_flat(x))
-                                  for x in us_k])
-        diff = gen_lp - lp_k
-        dev = torch.max(torch.abs(diff - diff[0]))
-        spread = torch.max(torch.abs(lp_k - lp_k[0]))
-        quad_ok = dev <= 5e-3 * (1.0 + spread)
-        samples = constrain(unravel(us))
+        if quad is None:
+            chains = _pooled_chains if pooled_adaptation else _single_chain
+            us, logps, aprobs, divs, eps, inv_mass = chains(
+                fold_in(k_run, 0), logprob_flat, u0s, num_warmup,
+                num_samples, step_size, num_leapfrog, target_accept)
+            dev = u0s.new_zeros(())
+            quad_ok = torch.ones((), dtype=torch.bool, device=device)
+        else:
+            us, logps, aprobs, divs, eps, inv_mass = _quadratic_chains(
+                fold_in(k_run, 0), *quad, u0s, num_warmup, num_samples,
+                step_size, num_leapfrog, target_accept)
+            dev, quad_ok = _quad_check(logprob_flat, us, logps)
         return {
-            "samples": samples,
+            "samples": constrain(unravel(us)),
             "logp": logps,
             "accept_prob": aprobs,
             "divergences": divs,
             "step_size": eps,
-            # adapted diagonal metric M^-1 (Stan's inv_metric), shared by
-            # all chains: (dim,)
+            # adapted diagonal metric M^-1 (Stan's inv_metric): (dim,)
+            # shared by all chains under pooled adaptation and on the fused
+            # path, (chains, dim) on the per-chain path
             "inv_mass": inv_mass,
             "unconstrained": us,
-            "fused_quadratic": True,
+            # which transition ran
+            "fused_quadratic": quad is not None,
+            # the fused path's self-check; trivially True on the generic
+            # path
             "quad_check_ok": quad_ok,
             "quad_check_max_dev": dev,
         }
@@ -325,6 +632,22 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     # (ops/leapfrog.hmc_quadratic) on the same target after this warmup
     run.quadratic = quad
     return run
+
+
+def _quad_check(logprob_flat, us, logps):
+    """Self-check of the fused dispatch: re-score a few final draws through
+    the generic log-joint; the difference from the kernels' logp must be
+    the constant the quadratic form drops. Returns (max deviation, ok)."""
+    num_chains, num_samples, dim = us.shape
+    k_chk, t_chk = min(num_chains, 8), min(num_samples, 2)
+    us_k = us[:k_chk, -t_chk:, :].reshape(-1, dim)
+    lp_k = logps[:k_chk, -t_chk:].reshape(-1)
+    with torch.no_grad():
+        gen_lp = torch.stack([torch.as_tensor(logprob_flat(x)) for x in us_k])
+    diff = gen_lp - lp_k
+    dev = torch.max(torch.abs(diff - diff[0]))
+    spread = torch.max(torch.abs(lp_k - lp_k[0]))
+    return dev, dev <= 5e-3 * (1.0 + spread)
 
 
 def hmc(key, model, args, observed, **config):

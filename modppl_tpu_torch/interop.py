@@ -4,9 +4,13 @@ Takes values as numpy arrays (``np.asarray`` of the reference's arrays) and
 turns them into the port's tensors on a given device, so a test can hand
 both sides the same inputs. Imports neither jax nor modppl_tpu. For HMC:
 ``quadratic_from_numpy`` carries a detected (Λ, b), ``phase_streams`` a
-phase's pre-drawn randoms; start positions and an adapted (eps, inv_mass)
-go through ``tensor``. For the filters: ``hmm_params_from_numpy`` and
-``lgssm_params_from_numpy`` carry a model's parameters.
+phase's pre-drawn randoms for the chunk kernels, ``pooled_phase_draws``
+and ``chain_phase_draws`` the generic path's (a pooled phase's
+``_phase_randoms`` segments, a phase's per-chain transition draws), and
+``logreg_data_from_numpy`` a logistic-regression dataset; start positions
+and an adapted (eps, inv_mass) go through ``tensor``. For the filters:
+``hmm_params_from_numpy`` and ``lgssm_params_from_numpy`` carry a model's
+parameters.
 """
 
 import numpy as np
@@ -57,6 +61,33 @@ def phase_streams(z, jit, u01, device="cpu"):
     lead = z.shape[:2]
     return (tensor(z, device), tensor(np.reshape(jit, lead), device),
             tensor(np.reshape(u01, lead), device))
+
+
+def pooled_phase_draws(segments, device="cpu"):
+    """One phase of the reference's generic pooled path as the port's
+    ``draws`` entry: ``segments`` are the phase's ``_phase_randoms``
+    results in order, each (momenta (W, C, d), jitters (W, C), accept
+    uniforms (W, C)); they are joined along the iteration axis."""
+    return tuple(tensor(np.concatenate([np.asarray(s[i]) for s in segments]),
+                        device) for i in range(3))
+
+
+def chain_phase_draws(mom, acc, jit, device="cpu"):
+    """One phase of the reference's per-chain path as the port's ``draws``
+    entry. ``mom`` (C, T, d), ``acc`` (C, T) and ``jit`` (C, T) are what
+    each chain's ``hmc_transition`` draws from ``split(key, 3)`` (momentum
+    normals, accept uniform, step-size jitter), stacked over the chain's
+    iterations and over the chains; returns (z (T, C, d), jit (T, C), u01
+    (T, C))."""
+    return (tensor(np.swapaxes(np.asarray(mom), 0, 1), device),
+            tensor(np.swapaxes(np.asarray(jit), 0, 1), device),
+            tensor(np.swapaxes(np.asarray(acc), 0, 1), device))
+
+
+def logreg_data_from_numpy(X, ys, device="cpu"):
+    """A logistic-regression dataset (X (n, d), ys (n,)) as the port's
+    tensors, in their dtype on ``device``."""
+    return tensor(X, device), tensor(ys, device)
 
 
 def hmm_params_from_numpy(prior, emission_matrix, transition_matrix,

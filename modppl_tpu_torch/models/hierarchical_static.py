@@ -5,8 +5,11 @@ The bernoulli gate is always sampled and its effect on the regression mean
 masked with ``where``, so the trace structure is static. Observations are
 one plated address "ys". With "is_linear" observed, the continuous
 (a, b, c) posterior is Gaussian: the quadratic target the HMC chunk
-kernels run.
+kernels run. ``make_hierarchical_marginalized`` sums the gate out instead:
+a non-quadratic target for the generic HMC path.
 """
+
+import math
 
 import numpy as np
 import torch
@@ -67,3 +70,32 @@ def exact_hierarchical_posterior(xs, ys, noise=NOISE, p_linear=0.7,
     m = max(lw_lin, lw_quad)
     log_z = m + np.log(np.exp(lw_lin - m) + np.exp(lw_quad - m))
     return np.exp(lw_lin - log_z), m_lin, c_lin, m_quad, c_quad, log_z
+
+
+def make_hierarchical_marginalized(n_points, p_linear=0.7):
+    """The hierarchical model with the discrete gate summed out; args
+    (xs, ys).
+
+    log p(ys | a, b, c) = logaddexp(log p_lin + sum_i logN(y_i; a + b x, s),
+                                    log (1 - p_lin)
+                                    + sum_i logN(y_i; a + b x + c x^2, s))
+    through the ``factor`` primitive: the fully continuous, non-quadratic
+    form the gradient samplers run on. Returns the quadratic branch's
+    log-likelihood less the linear one's (the gate's log-odds term).
+    """
+
+    @gen
+    def hierarchical_marginalized(h, xs, ys):
+        a = h.sample(normal, (0.0, 1.0), "coeffs/a")
+        b = h.sample(normal, (0.0, 1.0), "coeffs/b")
+        c = h.sample(normal, (0.0, 1.0), "coeffs/c")
+        mean_lin = a + b * xs
+        mean_quad = mean_lin + c * xs * xs
+        ll_lin = torch.sum(normal.logpdf(ys, (mean_lin, NOISE)))
+        ll_quad = torch.sum(normal.logpdf(ys, (mean_quad, NOISE)))
+        h.factor(torch.logaddexp(math.log(p_linear) + ll_lin,
+                                 math.log(1.0 - p_linear) + ll_quad),
+                 "ys_marginal")
+        return ll_quad - ll_lin
+
+    return hierarchical_marginalized

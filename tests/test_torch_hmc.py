@@ -255,8 +255,14 @@ def test_detect_quadratic_none_for_nonquadratic():
     assert j_detect(j_lp, 1, jnp.float64) is None
     assert thmc.detect_quadratic_target(t_lp, 1, flat.dtype,
                                         device="cpu") is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thmc.hmc_runner(tm, (), to, num_chains=4, device="cpu")
+    # the runner then takes the generic path
+    run = thmc.hmc_runner(tm, (), to, num_samples=5, num_warmup=20,
+                          num_chains=4, num_leapfrog=4, device="cpu")
+    assert run.quadratic is None
+    out = run(0)
+    assert out["fused_quadratic"] is False and bool(out["quad_check_ok"])
+    assert out["unconstrained"].shape == (4, 5, 1)
+    assert bool(torch.isfinite(out["unconstrained"]).all())
 
 
 # --------------------------------------------------------------------------
@@ -331,10 +337,19 @@ def test_quad_check_catches_wrong_dispatch(monkeypatch):
 
 
 def test_zero_warmup_raises_not_ported():
+    """Automatic dispatch with num_warmup=0 takes the generic path, as the
+    reference does (no chunk kernel can run a zero-length warmup): no
+    detection, and the chains sample at the unadapted step size and unit
+    mass."""
     model, args, obs = _conjugate()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thmc.hmc_runner(model, args, obs, num_warmup=0, num_chains=4,
-                        device="cpu")
+    run = thmc.hmc_runner(model, args, obs, num_samples=6, num_warmup=0,
+                          num_chains=4, num_leapfrog=4, device="cpu")
+    assert run.quadratic is None
+    out = run(0)
+    assert out["fused_quadratic"] is False and bool(out["quad_check_ok"])
+    assert float(out["step_size"]) == pytest.approx(0.1, rel=1e-12)
+    assert torch.equal(out["inv_mass"], torch.ones(1, dtype=torch.float64))
+    assert out["samples"]["mu"].shape == (4, 6)
 
 
 def test_explicit_fused_request_with_zero_warmup_raises():

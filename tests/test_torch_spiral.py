@@ -158,7 +158,8 @@ def test_port_imports_no_jax():
     files = sorted((repo / "modppl_tpu_torch").rglob("*.py"))
     assert len(files) > 10
     assert {"hmm.py", "numerics.py", "resample.py", "vsmc.py", "mcmc.py",
-            "plate.py", "lgssm.py", "handlers.py"} <= {p.name for p in files}
+            "plate.py", "lgssm.py", "handlers.py", "logreg.py",
+            "adaptation.py"} <= {p.name for p in files}
     files.append(repo / "chip_smoke.py")
     bad = []
     for path in files:
