@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Seven paths, each driven with its kernels' launch counters set to 0 just
+Ten paths, each driven with its kernels' launch counters set to 0 just
 before it and read just after:
 
 - the spiral-tracking bootstrap particle filter
@@ -34,7 +34,16 @@ before it and read just after:
   ``bench_hmc_nonquad``): ``hmc_runner(device="cuda")`` at d = 16, n = 128,
   10^4 chains, 300 + 500 iterations, L = 4, pooled adaptation, float32,
   each leapfrog step one batched ``vmap(grad_and_value)`` call through the
-  model: no kernel of the port lies on it, and none may launch.
+  model: no kernel of the port lies on it, and none may launch;
+- importance sampling (``inference/importance.importance_sampling``,
+  ``vectorized=True``) on the saturated hierarchical model at 2^24 lanes in
+  one batched generate, float32, and the eager branching model through the
+  same entry point (``vectorized=False``);
+- Metropolis-Hastings (``inference/mh``) on the eager branching model,
+  trans-dimensional jumps, drifts and regenerative moves;
+- the eager particle filter (``inference/smc.ParticleSystem``) over the
+  hand-coded HMM and the spiral ``Unfold``.
+The last three reach no kernel of the port, and none may launch.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -116,7 +125,28 @@ Phases, in order; any failure raises and the script exits non-zero:
     200 + 200): inverse mass (256, 16), posterior mean within 0.1;
 16. times the leg (median of 3 after phase 15's warm-up run; min-coordinate
     ESS/s, transitions/s, accept rate and step size) and one batched
-    value-and-grad call at its 10^4 chains.
+    value-and-grad call at its 10^4 chains;
+17. runs the importance leg with the counters at 0 and requires no launch:
+    ``make_hierarchical_static(5)`` on the reference tests' quadratic data
+    at N = 2^24 lanes, finite log-weights, ESS >= 100, the log-ML within 4
+    Monte Carlo standard errors (sqrt(1/ESS - 1/N)) of the exact evidence,
+    the weighted a, b, c within 4 posterior sd / sqrt(ESS) of the exact
+    posterior mean, P(is_linear) < 1e-3, the same key twice bitwise equal;
+    then 2^16 indices by ``importance_resampling`` (in [0, N), mean c within
+    the same bound) and the eager hierarchical model at 300 samples (finite
+    log-ML); then times the leg (median of 5, lanes/s);
+18. runs MH on the eager hierarchical model with the counters at 0 (no
+    launch): 1000 rounds of one trans-dimensional jump, three drifts and
+    one ``regen_mh`` of the gate and the coefficients, 200 burn-in; the kept
+    rounds quadratic in >= 99% of them, their mean a, b, c within 0.05 of
+    the exact posterior mean, finite coefficients; ``regen_mh`` on the
+    conjugate model (4000 steps, mean 0.5 and sd sqrt(0.5) within 0.08);
+    then times 50 rounds (ms a transition, transitions/s);
+19. runs ``ParticleSystem`` with the counters at 0 (no launch) over the
+    hand-coded HMM (300 particles, data [0, 0, 1, 2]: log-ML within 0.25 of
+    the exact forward algorithm's, ESS in (0, N]) and the spiral
+    ``Unfold`` (100 particles, 12 steps: the final mean position within 0.2
+    of the last observation); then times both (particle-steps/s).
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
 path; a profile that lacks a kernel the launch counters saw says so and
@@ -1776,6 +1806,358 @@ def time_logreg_vag(calls=50, reps=3, device="cuda"):
     return statistics.median(times), times
 
 
+# --------------------------------------------------------------------------
+# slice 6: importance sampling, Metropolis-Hastings, the eager filter
+# --------------------------------------------------------------------------
+
+# the reference tests' strongly quadratic data (tests/test_importance.py:
+# 105-110): y = 0.3 + 0.4 x + 0.5 x^2 at five points
+IS_XS = (-2.0, -1.0, 0.0, 1.0, 2.0)
+IS_YS = tuple(0.3 + 0.4 * x + 0.5 * x * x for x in IS_XS)
+# phase 17: lanes of the batched leg, indices resampled from it, samples of
+# the eager leg; the gates are at IS_SE Monte Carlo standard errors and
+# need an ESS of IS_MIN_ESS
+IS_LANES = 1 << 24
+IS_RESAMPLED = 1 << 16
+IS_EAGER_SAMPLES = 300
+IS_SE = 4.0
+IS_MIN_ESS = 100.0
+IS_P_LINEAR_MAX = 1e-3
+# phase 18: rounds of (one jump, MH_DRIFTS drifts, one regenerative move),
+# the first MH_BURN dropped; the kept rounds quadratic in MH_QUAD_SHARE of
+# them and their mean coefficients within MH_MEAN_GAP of the exact
+# posterior mean; the conjugate chain's regen_mh steps and bounds
+MH_ROUNDS, MH_BURN, MH_DRIFTS, MH_DRIFT = 1000, 200, 3, 0.05
+MH_QUAD_SHARE = 0.99
+MH_MEAN_GAP = 0.05
+MH_TIMED_ROUNDS = 50
+CONJ_STEPS, CONJ_BURN, CONJ_GAP = 4000, 500, 0.08
+# phase 19: the reference tests' eager filters (particles, data) and gates
+PF_HMM_PARTICLES, PF_HMM_DATA, PF_HMM_GAP = 300, (0, 0, 1, 2), 0.25
+PF_SPIRAL_PARTICLES, PF_SPIRAL_STEPS, PF_SPIRAL_GAP = 100, 12, 0.2
+
+
+def is_inputs(device):
+    """The importance leg's (model, args, observations) on ``device``."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.models.hierarchical_static import (
+        make_hierarchical_static,
+    )
+
+    xs = torch.tensor(IS_XS, dtype=torch.float32, device=device)
+    ys = torch.tensor(IS_YS, dtype=torch.float32, device=device)
+    return (make_hierarchical_static(len(IS_XS)), (xs,),
+            Trie.from_dict({"ys": ys}))
+
+
+def run_is(device, n, key):
+    from modppl_tpu_torch.inference import importance_sampling
+
+    model, args, obs = is_inputs(device)
+    return importance_sampling(key, model, args, obs, n, device=device)
+
+
+def is_summary(traces, lnw):
+    """(ESS, the weighted means of a, b, c, the weighted P(is_linear)), in
+    float64 from the float32 lanes."""
+    w = torch.exp(lnw.double())
+    means = [float(torch.sum(w * traces.data.read(f"coeffs/{c}").double()))
+             for c in "abc"]
+    p_lin = float(torch.sum(w * traces.data.read("is_linear").double()))
+    return float(1.0 / torch.sum(w * w)), np.array(means), p_lin
+
+
+def exact_quadratic():
+    """(log evidence, posterior mean (3,), posterior sd (3,)) of the
+    quadratic branch, float64 numpy."""
+    from modppl_tpu_torch.models.hierarchical_static import (
+        exact_hierarchical_posterior,
+    )
+
+    _, _, _, mean, cov, log_z = exact_hierarchical_posterior(IS_XS, IS_YS)
+    return log_z, mean, np.sqrt(np.diag(cov))
+
+
+def hierarchical_obs():
+    """The eager model's observations, one ``(y, i)`` address a point."""
+    from modppl_tpu_torch.core.trie import Trie
+
+    obs = Trie()
+    for i, y in enumerate(IS_YS):
+        obs.observe(f"(y, {i})", y)
+    return obs
+
+
+def check_is_leg(device="cuda", n=IS_LANES):
+    """Phase 17: the batched leg with the counters at 0 (no launch): finite
+    log-weights, ESS >= IS_MIN_ESS, the log-ML within IS_SE standard errors
+    sqrt(1/ESS - 1/N) of the exact evidence, the weighted a, b, c within
+    IS_SE posterior sd / sqrt(ESS) of the exact posterior mean, P(is_linear)
+    below IS_P_LINEAR_MAX, the same key twice bitwise equal; then
+    ``importance_resampling`` of IS_RESAMPLED indices (in [0, N), their mean
+    c within the same bound) and the eager hierarchical model at
+    IS_EAGER_SAMPLES samples (finite log-ML)."""
+    from modppl_tpu_torch.inference import (
+        importance_resampling,
+        importance_sampling,
+    )
+    from modppl_tpu_torch.models import hierarchical_model
+
+    (traces, lnw, log_ml), launches = counted(lambda: run_is(device, n, 17))
+    require_launches("importance leg", launches, {})
+    if lnw.shape != (n,) or not bool(torch.isfinite(lnw).all()):
+        raise AssertionError("importance leg: log-weights not finite (N,)")
+    ess, means, p_lin = is_summary(traces, lnw)
+    log_z, mean, sd = exact_quadratic()
+    ml_se = math.sqrt(1.0 / ess - 1.0 / n)
+    bound = IS_SE * sd / math.sqrt(ess)
+    seen = {"ess": ess, "log_ml": float(log_ml), "exact": log_z,
+            "ml_se": ml_se, "means": means.tolist(), "exact_mean":
+            mean.tolist(), "bound": bound.tolist(), "p_linear": p_lin}
+    if ess < IS_MIN_ESS or abs(float(log_ml) - log_z) > IS_SE * ml_se or \
+            not (np.abs(means - mean) <= bound).all() or \
+            not p_lin < IS_P_LINEAR_MAX:
+        raise AssertionError(f"importance leg: {seen}")
+    del traces
+    again = run_is(device, n, 17)[1]
+    if not torch.equal(lnw, again):
+        raise AssertionError("importance leg: the same key gave different "
+                             "log-weights")
+    del again
+
+    def resample_and_eager():
+        model, args, obs = is_inputs(device)
+        traces, idx, _ = importance_resampling(18, model, args, obs, n,
+                                               IS_RESAMPLED, device=device)
+        c = traces.data.read("coeffs/c")[idx.long()].double()
+        eager = importance_sampling(19, hierarchical_model, (list(IS_XS),),
+                                    hierarchical_obs(), IS_EAGER_SAMPLES,
+                                    vectorized=False, device=device)
+        return idx, float(c.mean()), eager
+
+    (idx, c_mean, eager), launches = counted(resample_and_eager)
+    require_launches("importance resampling and eager leg", launches, {})
+    seen.update(resampled_c=c_mean, eager_log_ml=float(eager[2]),
+                eager_quadratic=sum(t.data.search("coeffs/c") is not None
+                                    for t in eager[0]))
+    if idx.shape != (IS_RESAMPLED,) or int(idx.min()) < 0 or \
+            int(idx.max()) >= n or abs(c_mean - mean[2]) > bound[2] or \
+            not math.isfinite(seen["eager_log_ml"]):
+        raise AssertionError(f"importance resampling / eager leg: {seen}")
+    return seen
+
+
+def time_is_leg(n=IS_LANES, runs=5):
+    """Median wall time of ``runs`` batched runs (keys 1..runs)."""
+    times = []
+    for i in range(runs):
+        sync("cuda")
+        t0 = time.perf_counter()
+        run_is("cuda", n, i + 1)
+        sync("cuda")
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def run_mh_chain(device, rounds, key):
+    """The eager hierarchical model's chain in the schedule of the
+    reference's mh.rs:76-110: a round is one ``add_or_remove_param_proposal``
+    move, MH_DRIFTS ``hierarchical_drift_proposal`` moves at MH_DRIFT and one
+    ``regen_mh`` of the gate and the coefficients (a regeneration of the gate
+    alone raises, here as in the reference, when it empties the quadratic
+    branch). Returns (is_linear by round, [a, b, c] by round with c NaN in a
+    linear round, accepted moves)."""
+    from modppl_tpu_torch.core.address import select
+    from modppl_tpu_torch.core.keys import split
+    from modppl_tpu_torch.inference import mh, regen_mh
+    from modppl_tpu_torch.models import (
+        add_or_remove_param_proposal,
+        hierarchical_drift_proposal,
+        hierarchical_model,
+    )
+
+    k0, key = split(key)
+    trace, _ = hierarchical_model.generate(k0, (list(IS_XS),),
+                                           hierarchical_obs(), device=device)
+    regen = select("is_linear", "coeffs")
+    gates, coeffs, accepted = [], [], 0
+    nan = torch.full((), math.nan, device=device)
+    for _ in range(rounds):
+        keys = split(key, MH_DRIFTS + 3)
+        key = keys[0]
+        trace, acc = mh(keys[1], hierarchical_model, trace,
+                        add_or_remove_param_proposal)
+        accepted += acc
+        for k in keys[2:-1]:
+            trace, acc = mh(k, hierarchical_model, trace,
+                            hierarchical_drift_proposal, (MH_DRIFT,))
+            accepted += acc
+        trace, acc = regen_mh(keys[-1], hierarchical_model, trace, regen)
+        accepted += acc
+        d = trace.data
+        linear = d.search("coeffs/c") is None
+        gates.append(linear)
+        coeffs.append(torch.stack([d.read("coeffs/a"), d.read("coeffs/b"),
+                                   nan if linear else d.read("coeffs/c")]))
+    return (np.array(gates), torch.stack(coeffs).double().cpu().numpy(),
+            accepted)
+
+
+def run_conjugate_regen(device, steps, key):
+    """``regen_mh`` on mu of mu ~ N(0, 1), x ~ N(mu, 1), x = 1
+    (tests/test_mh.py:57-68): the chain of mu."""
+    from modppl_tpu_torch.core.address import select
+    from modppl_tpu_torch.core.keys import split
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.dists import normal
+    from modppl_tpu_torch.inference import regen_mh
+    from modppl_tpu_torch.modeling import gen
+
+    @gen
+    def conjugate(h):
+        mu = h.sample(normal, (0.0, 1.0), "mu")
+        h.sample(normal, (mu, 1.0), "x")
+        return mu
+
+    k0, key = split(key)
+    trace, _ = conjugate.generate(k0, (), Trie.from_dict({"x": 1.0}),
+                                  device=device)
+    mus = []
+    for k in split(key, steps):
+        trace, _ = regen_mh(k, conjugate, trace, select("mu"))
+        mus.append(trace.data.read("mu"))
+    return torch.stack(mus).double().cpu().numpy()
+
+
+def check_mh_leg(device="cuda"):
+    """Phase 18: the chain and the conjugate regen_mh chain with the
+    counters at 0 (no launch): the kept rounds quadratic in MH_QUAD_SHARE of
+    them, their mean a, b, c within MH_MEAN_GAP of the exact posterior
+    mean, finite coefficients; the conjugate chain's mean 0.5 and sd
+    sqrt(0.5), each within CONJ_GAP. Returns what was seen."""
+    (gates, coeffs, accepted), launches = counted(
+        lambda: run_mh_chain(device, MH_ROUNDS, 23))
+    require_launches("MH leg", launches, {})
+    mus, launches = counted(lambda: run_conjugate_regen(device, CONJ_STEPS,
+                                                        24))
+    require_launches("conjugate regen_mh", launches, {})
+    _, mean, _ = exact_quadratic()
+    kept = ~gates[MH_BURN:]
+    kept_means = coeffs[MH_BURN:][kept].mean(0)
+    mus = mus[CONJ_BURN:]
+    seen = {"quadratic_share": float(kept.mean()), "means":
+            kept_means.tolist(), "exact_mean": mean.tolist(),
+            "gap": float(np.abs(kept_means - mean).max()),
+            "accept": accepted / (MH_ROUNDS * (MH_DRIFTS + 2)),
+            "conj_mean": float(mus.mean()), "conj_sd": float(mus.std())}
+    finite = np.isfinite(coeffs[:, :2]).all() and \
+        np.isfinite(coeffs[~gates, 2]).all()
+    if seen["quadratic_share"] < MH_QUAD_SHARE or seen["gap"] > MH_MEAN_GAP \
+            or not finite or abs(seen["conj_mean"] - 0.5) > CONJ_GAP or \
+            abs(seen["conj_sd"] - math.sqrt(0.5)) > CONJ_GAP:
+        raise AssertionError(f"MH leg: {seen}")
+    return seen
+
+
+def time_mh(rounds=MH_TIMED_ROUNDS, runs=3):
+    """Median wall time of ``runs`` chains of ``rounds`` rounds."""
+    times = []
+    for i in range(runs):
+        sync("cuda")
+        t0 = time.perf_counter()
+        run_mh_chain("cuda", rounds, 30 + i)
+        sync("cuda")
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def spiral_observations(device):
+    """Points on a circle of radius 0.4 (tests/test_smc_unfold.py's
+    ``simulate_loop``), one a step from angle 1.0, as constraint tries."""
+    from modppl_tpu_torch.core.trie import Trie
+
+    out = []
+    for t in range(PF_SPIRAL_STEPS):
+        ang = 2 * math.pi * t / PF_SPIRAL_STEPS + 1.0
+        c = Trie()
+        c.observe("obs", torch.tensor([0.4 * math.cos(ang),
+                                       0.4 * math.sin(ang)],
+                                      dtype=torch.float32, device=device))
+        out.append(c)
+    return out
+
+
+def run_hmm_pf(device, key):
+    """``ParticleSystem`` over the hand-coded HMM of the reference's
+    test (tests/test_particle_filter.py:38-67): (log-ML, ESS by step)."""
+    from modppl_tpu_torch.inference import ParticleSystem
+    from modppl_tpu_torch.models import HMM, HMMParams
+
+    params = HMMParams(*(torch.tensor(a, dtype=torch.float32, device=device)
+                         for a in hmm_arrays()))
+    pf = ParticleSystem(HMM(params), PF_HMM_PARTICLES, key, device=device)
+    pf.init_step(None, ([None], [PF_HMM_DATA[0]]))
+    ess = []
+    for obs in PF_HMM_DATA[1:]:
+        pf.step(([None], [obs]))
+        ess.append(float(pf.effective_sample_size()))
+        pf.resample()
+    return float(pf.log_marginal_likelihood_estimate()), ess
+
+
+def run_spiral_pf(device, key):
+    """``ParticleSystem`` over ``spiral_model`` (tests/test_smc_unfold.py:
+    60-81), resampling every step: (distance of the final mean position
+    from the last observation, log-ML)."""
+    from modppl_tpu_torch.inference import ParticleSystem
+    from modppl_tpu_torch.models import spiral_model
+    from modppl_tpu_torch.models.spiral import polar_to_cartesian
+
+    data = spiral_observations(device)
+    pf = ParticleSystem(spiral_model, PF_SPIRAL_PARTICLES, key, device=device)
+    pf.init_step(torch.zeros(2, device=device), [data[0]])
+    pf.resample()
+    for constraints in data[1:]:
+        pf.step([constraints])
+        pf.resample()
+    pos = torch.stack([polar_to_cartesian(tr.retv[-1]) for tr in pf.traces])
+    dist = torch.linalg.norm(pos.mean(0) - data[-1].read("obs"))
+    return float(dist), float(pf.log_marginal_likelihood_estimate())
+
+
+def check_eager_filters(device="cuda"):
+    """Phase 19: both eager filters with the counters at 0 (no launch):
+    the HMM's log-ML within PF_HMM_GAP of the exact forward algorithm's and
+    its ESS in (0, N] each step; the spiral's final mean position within
+    PF_SPIRAL_GAP of the last observation."""
+    from modppl_tpu_torch.models.hmm import hmm_forward_log_ml
+
+    (lml, ess), launches = counted(lambda: run_hmm_pf(device, 41))
+    require_launches("eager HMM filter", launches, {})
+    exact = float(hmm_forward_log_ml(*hmm_arrays(), PF_HMM_DATA))
+    (dist, spiral_ml), launches = counted(lambda: run_spiral_pf(device, 42))
+    require_launches("eager spiral filter", launches, {})
+    seen = {"log_ml": lml, "exact": exact, "ess": ess, "spiral_dist": dist,
+            "spiral_log_ml": spiral_ml}
+    if abs(lml - exact) > PF_HMM_GAP or \
+            not all(0.0 < e <= PF_HMM_PARTICLES for e in ess) or \
+            not dist < PF_SPIRAL_GAP or not math.isfinite(spiral_ml):
+        raise AssertionError(f"eager filters: {seen}")
+    return seen
+
+
+def time_eager_filter(run, runs=3):
+    """Median wall time of ``runs`` runs of one eager filter."""
+    times = []
+    for i in range(runs):
+        sync("cuda")
+        t0 = time.perf_counter()
+        run("cuda", 50 + i)
+        sync("cuda")
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
 SOURCES = {
     "stats_cumsum": ("modppl_tpu_torch/csrc/grid_positions.cu",
                      "modppl_tpu/ops/grid_positions_pallas.py:59"),
@@ -2166,6 +2548,64 @@ def main(argv):
     if "--profile" in argv:
         with full_fp32():
             profile_run("logreg leg", lambda: logreg_run(11), lr_s)
+    sys.stdout.flush()
+    is_seen = check_is_leg("cuda")
+    print(f"# main path: importance_sampling(vectorized=True) on the "
+          f"saturated hierarchical model, N={IS_LANES} lanes float32, no "
+          f"kernel launched; ESS {is_seen['ess']!r}; log_ml "
+          f"{is_seen['log_ml']!r} exact {is_seen['exact']!r} (se "
+          f"{is_seen['ml_se']!r}); weighted a, b, c {is_seen['means']} exact "
+          f"{is_seen['exact_mean']} (bound {is_seen['bound']}); P(is_linear) "
+          f"{is_seen['p_linear']!r}; same key twice bitwise equal; "
+          f"{IS_RESAMPLED} resampled indices, mean c "
+          f"{is_seen['resampled_c']!r}; eager hierarchical model at "
+          f"{IS_EAGER_SAMPLES} samples: log_ml {is_seen['eager_log_ml']!r} "
+          f"({is_seen['eager_quadratic']} quadratic)")
+    is_s, is_times = time_is_leg()
+    print(f"# importance leg: median {is_s * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in is_times]} ms -> "
+          f"{IS_LANES / is_s:.4g} lanes/s ({card})")
+    if "--profile" in argv:
+        profile_run("importance leg", lambda: run_is("cuda", IS_LANES, 301),
+                    is_s)
+    sys.stdout.flush()
+    mh_seen = check_mh_leg("cuda")
+    print(f"# main path: MH on the eager hierarchical model, {MH_ROUNDS} "
+          f"rounds of 1 jump + {MH_DRIFTS} drifts + 1 regen_mh ({MH_BURN} "
+          f"burn-in), no kernel launched; quadratic in "
+          f"{mh_seen['quadratic_share']!r} of the kept rounds; mean a, b, c "
+          f"{mh_seen['means']} exact {mh_seen['exact_mean']} (gap "
+          f"{mh_seen['gap']!r}); accept {mh_seen['accept']!r}; conjugate "
+          f"regen_mh ({CONJ_STEPS} steps) mean {mh_seen['conj_mean']!r} sd "
+          f"{mh_seen['conj_sd']!r}")
+    mh_s, mh_times = time_mh()
+    n_tr = MH_TIMED_ROUNDS * (MH_DRIFTS + 2)
+    print(f"# MH leg: median {mh_s * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in mh_times]} ms for {n_tr} "
+          f"transitions -> {mh_s / n_tr * 1e3:.4f} ms a transition, "
+          f"{n_tr / mh_s:.1f} transitions/s ({card})")
+    if "--profile" in argv:
+        profile_run("MH leg", lambda: run_mh_chain("cuda", MH_TIMED_ROUNDS,
+                                                   33), mh_s)
+    sys.stdout.flush()
+    pf_seen = check_eager_filters("cuda")
+    print(f"# main path: ParticleSystem over the hand-coded HMM "
+          f"({PF_HMM_PARTICLES} particles, data {list(PF_HMM_DATA)}) and "
+          f"the spiral Unfold ({PF_SPIRAL_PARTICLES} particles, "
+          f"{PF_SPIRAL_STEPS} steps), no kernel launched; HMM log_ml "
+          f"{pf_seen['log_ml']!r} exact {pf_seen['exact']!r}, ESS "
+          f"{[round(e, 2) for e in pf_seen['ess']]}; spiral final mean "
+          f"{pf_seen['spiral_dist']!r} from the last observation")
+    for name, run, n, steps in (
+            ("HMM", run_hmm_pf, PF_HMM_PARTICLES, len(PF_HMM_DATA)),
+            ("spiral", run_spiral_pf, PF_SPIRAL_PARTICLES, PF_SPIRAL_STEPS)):
+        pf_s, pf_times = time_eager_filter(run)
+        print(f"# eager {name} filter: median {pf_s * 1e3:.3f} ms of "
+              f"{[round(t * 1e3, 3) for t in pf_times]} ms -> "
+              f"{n * steps / pf_s:.1f} particle-steps/s ({card})")
+        if "--profile" in argv:
+            profile_run(f"eager {name} filter", lambda: run("cuda", 61),
+                        pf_s)
     sys.stdout.flush()
     launches.update(hmc_launches)
     launches.update(quad_launches)

@@ -32,6 +32,15 @@ class Trace:
     def set_retv(self, v):
         self.retv = v
 
+    def copy(self):
+        """A trace whose data can be edited apart from this one's: a
+        Trie's structure is copied, a list's shallow-copied; tensors are
+        shared."""
+        data = self.data
+        if hasattr(data, "copy"):
+            data = data.copy()
+        return Trace(self.args, data, self.retv, self.logjp)
+
     def __repr__(self):
         return (f"Trace(args={self.args!r}, retv={self.retv!r}, "
                 f"logjp={self.logjp!r}, data={self.data!r})")

@@ -13,6 +13,7 @@ import math
 import torch
 
 from modppl_tpu_torch.dists.base import Distribution, shape_of
+from modppl_tpu_torch.utils.numerics import ordered_cumsum
 
 
 def _log(v):
@@ -103,11 +104,36 @@ class UniformDiscrete(Distribution):
         return (torch.floor(u * (b - a + 1)) + a).to(torch.int64)
 
 
+# up to this many categories a draw runs the K-1 comparisons as elementwise
+# ops (the HMM's K = 3); above it, one binary search a draw
+SMALL_K = 8
+
+
+def _row_cdf(rows):
+    """Cumulative sums along the last axis of the (R, K) ``rows``, in a
+    fixed add order. A single row takes ``ordered_cumsum``: on the card a
+    ``torch.cumsum`` over one row is CUB's look-back scan, not
+    deterministic in the last bit, and PyTorch's per-row scan of one long
+    row (K = N = 2^24) is slow. Several rows take ``torch.cumsum`` along
+    the last axis, PyTorch's per-row scan, whose add order is fixed
+    (utils/numerics.py), so the same key gives the same indices either
+    way."""
+    if rows.shape[0] == 1:
+        return ordered_cumsum(rows[0])[None]
+    return torch.cumsum(rows, -1)
+
+
 class Categorical(Distribution):
     """An integer index distributed by a probability vector (the last axis
     of ``probs``; leading axes are a batch, e.g. one row per particle). An
     index outside [0, K) scores -inf. Draws are int32, by inverse CDF: one
-    uniform per draw against the row's cumulative probabilities."""
+    uniform per draw against the row's cumulative probabilities, so a
+    zero-probability index is never drawn. Up to ``SMALL_K`` categories
+    the running sums and the comparisons are elementwise ops; above it the
+    draws, in draw order, are binary searches (``torch.searchsorted``) of a
+    cumulative sum taken in a fixed order (``_row_cdf``), so the same key
+    gives the same indices (importance resampling draws from K = N
+    weights)."""
 
     is_discrete = True
     support = "discrete"
@@ -129,12 +155,15 @@ class Categorical(Distribution):
 
     def _sample(self, gen, shape, dtype, probs):
         batch = torch.broadcast_shapes(shape, probs.shape[:-1])
+        k = probs.shape[-1]
+        if k > SMALL_K:
+            return self._sample_search(gen, batch, probs)
         # the running sums over the K columns, one elementwise add each (a
         # torch.cumsum over K = 3 columns of 2^20 rows is a slow scan on the
         # card)
         cdf = [probs[..., 0]]
-        for k in range(1, probs.shape[-1]):
-            cdf.append(cdf[-1] + probs[..., k])
+        for j in range(1, k):
+            cdf.append(cdf[-1] + probs[..., j])
         u = torch.rand(batch, generator=gen, device=gen.device,
                        dtype=probs.dtype) * cdf[-1]
         # index = #{k < K - 1 : cdf_k <= u}: a zero-probability index is
@@ -143,6 +172,23 @@ class Categorical(Distribution):
         for c in cdf[:-1]:
             idx += c <= u
         return idx
+
+    @staticmethod
+    def _sample_search(gen, batch, probs):
+        """The large-K arm: the same rule, #{k : cdf_k <= u} clamped to
+        K - 1, by ``searchsorted(cdf, u, right=True)``: one row searched
+        by every draw, or one row a draw."""
+        k = probs.shape[-1]
+        cdf = _row_cdf(probs.reshape(-1, k))
+        u = torch.rand(batch, generator=gen, device=gen.device,
+                       dtype=probs.dtype)
+        if cdf.shape[0] == 1:
+            u = u.reshape(1, -1)
+        else:
+            cdf = cdf.reshape(probs.shape).expand(*batch, k).reshape(-1, k)
+            u = u.reshape(-1, 1)
+        idx = torch.searchsorted(cdf, u * cdf[:, -1:], right=True)
+        return torch.clamp(idx, max=k - 1).to(torch.int32).reshape(batch)
 
 
 class Normal(Distribution):

@@ -25,6 +25,7 @@ import torch
 
 from modppl_tpu_torch.core.keys import fold_in, generator, split
 from modppl_tpu_torch.inference.transforms import transform_for
+from modppl_tpu_torch.modeling.handlers import entry_device, to_device
 
 MULTI_SHARD_TODO = ("axis_name: pooling across shards is not ported (ROADMAP "
                     "Queue 1 item 14, multi-device); the port runs on one "
@@ -525,14 +526,6 @@ def _single_chain(key, logprob, u0s, num_warmup, num_samples, eps0,
 # Full pipeline
 # --------------------------------------------------------------------------
 
-def _to_device(x, device):
-    if torch.is_tensor(x):
-        return x.to(device)
-    if isinstance(x, (tuple, list)):
-        return type(x)(_to_device(v, device) for v in x)
-    return x
-
-
 def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                num_chains=1, step_size=0.1, num_leapfrog=16,
                target_accept=0.8, selection=None, init_trace=None,
@@ -556,12 +549,9 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     """
     if axis_name is not None:
         raise NotImplementedError(f"hmc_runner: {MULTI_SHARD_TODO}")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("hmc_runner: device='cuda' but no CUDA device is "
-                           "available; pass device='cpu' to run on the CPU")
-    args = _to_device(args if isinstance(args, tuple) else (args,), device)
-    observed = observed.map(lambda v: _to_device(v, device))
+    device = entry_device(device, "hmc_runner")
+    args = to_device(args if isinstance(args, tuple) else (args,), device)
+    observed = to_device(observed, device)
     if init_trace is None:
         init_trace, _ = model.generate(setup_key, args, observed,
                                        device=device)

@@ -64,7 +64,8 @@ def accept_uniform(key, like):
                       else torch.get_default_dtype())
 
 
-def _accept(key, alpha, u=None):
+def accept_test(key, alpha, u=None):
+    """log u < ``alpha``, elementwise, u drawn from ``key`` unless given."""
     if u is None:
         u = accept_uniform(key, alpha)
     if not torch.is_tensor(alpha):
@@ -86,7 +87,7 @@ def mh_kernel(model, proposal, proposal_args=()):
             k_upd, trace, trace.args, ArgDiff.NO_CHANGE, fwd_choices)
         bwd_weight = proposal.assess(k_bwd, (new_trace,) + proposal_args,
                                      discard)
-        accept = _accept(k_acc, weight - fwd_weight + bwd_weight)
+        accept = accept_test(k_acc, weight - fwd_weight + bwd_weight)
         return tree_select(accept, new_trace, trace), accept
 
     return kernel
@@ -100,7 +101,7 @@ def regen_mh_kernel(model, selection):
         k_regen, k_acc = split(key)
         new_trace, weight = model.regenerate(
             k_regen, trace, trace.args, ArgDiff.NO_CHANGE, selection)
-        accept = _accept(k_acc, weight)
+        accept = accept_test(k_acc, weight)
         return tree_select(accept, new_trace, trace), accept
 
     return kernel

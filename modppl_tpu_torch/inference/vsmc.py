@@ -36,6 +36,7 @@ from torch.utils import _pytree as pytree
 from modppl_tpu_torch.core.gfi import ArgDiff
 from modppl_tpu_torch.core.keys import fold_in, split
 from modppl_tpu_torch.inference.mcmc import accept_uniform, tree_select
+from modppl_tpu_torch.modeling.handlers import entry_device, to_device
 from modppl_tpu_torch.ops.resample import uniform
 from modppl_tpu_torch.parallel.resample import (
     RESAMPLERS,
@@ -71,26 +72,6 @@ class SMCState:
     log_weights: Any      # (N,)
     log_ml: Any           # 0-dim tensor
     t: int
-
-
-def filter_device(device, what):
-    """The device a filter runs on: ``"cuda"`` unless the caller names one.
-    With no CUDA device the default raises; there is no CPU fallback."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{what}: device='cuda' but no CUDA device is "
-                           "available; pass device='cpu' to run on the CPU")
-    return device
-
-
-def to_device(device, state0, *tries, params=None):
-    """``state0``, every value of the constraint ``tries`` and the tensors
-    of ``params`` on ``device``."""
-    move = lambda x: x.to(device) if torch.is_tensor(x) else x  # noqa: E731
-    return (pytree.tree_map(move, state0),
-            *(t.map(lambda v: torch.as_tensor(v, device=device))
-              for t in tries),
-            pytree.tree_map(move, params))
 
 
 def replay_entry(entry):
@@ -324,7 +305,7 @@ def batched_particle_filter(key, kernel, state0, init_constraints,
     ``acceptance`` ((T-1, num_moves) mean accept of each move, None without
     rejuvenation), all on the device.
     """
-    device = filter_device(device, "batched_particle_filter")
+    device = entry_device(device, "batched_particle_filter")
     kernel, proposal = wrap_kernel(kernel, proposal, rejuvenation,
                                    auto_batch, "batched_particle_filter")
     if resampling not in RESAMPLERS:
@@ -332,8 +313,8 @@ def batched_particle_filter(key, kernel, state0, init_constraints,
                          f"got {resampling!r}")
     resampler = RESAMPLERS[resampling]
     state0, init_constraints, step_constraints, proposal_params = to_device(
-        device, state0, init_constraints, step_constraints,
-        params=proposal_params)
+        (state0, init_constraints, step_constraints, proposal_params),
+        device, trie_tensors=True)
     steps = num_steps(step_constraints, replay)
     s, trace = batched_smc_init(key, kernel, state0, init_constraints,
                                 num_particles,

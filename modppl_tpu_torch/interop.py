@@ -10,12 +10,19 @@ and ``chain_phase_draws`` the generic path's (a pooled phase's
 ``logreg_data_from_numpy`` a logistic-regression dataset; start positions
 and an adapted (eps, inv_mass) go through ``tensor``. For the filters:
 ``hmm_params_from_numpy`` and ``lgssm_params_from_numpy`` carry a model's
-parameters.
+parameters. For importance sampling and MH: ``pool_from_reference`` turns
+a reference batched trace's choices into the port's ``pool=`` dict,
+``trace_from_reference`` / ``trie_from_reference`` carry an eager trace
+(trie, tuple or list data) or a choice map, ``bounds_from_reference`` the
+pointed model's ``Bounds``. These take the reference's objects as they
+are, by their attributes (a trie's ``children``, ``inner()`` and
+``logp``), and read its arrays with ``np.asarray``.
 """
 
 import numpy as np
 import torch
 
+from modppl_tpu_torch.core.gfi import Trace
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.inference.vsmc import SMCState
 
@@ -116,3 +123,65 @@ def smc_state_from_numpy(key, state, log_weights, log_ml, t, device="cpu"):
              else type(state)(tensor(x, device) for x in state))
     return SMCState(key, state, tensor(log_weights, device),
                     tensor(log_ml, device), int(t))
+
+
+def _is_trie(x):
+    return hasattr(x, "children") and hasattr(x, "inner")
+
+
+def trie_from_reference(t, device="cpu"):
+    """The port's Trie from a reference Trie: every value and leaf
+    log-probability (the leaves' distributions are not carried)."""
+    out = Trie()
+    if t.has_inner():
+        out.value = from_reference(t.inner(), device)
+    out.logp = from_reference(t.logp, device)
+    out.children = {k: trie_from_reference(sub, device)
+                    for k, sub in t.children.items()}
+    return out
+
+
+def from_reference(x, device="cpu"):
+    """A reference value as the port's: a Trie, a Trace or ``Bounds``
+    through their converters, tuples and lists element by element, Python
+    numbers and None as they are, arrays as tensors of their dtype."""
+    if x is None or isinstance(x, (bool, int, float)):
+        return x
+    if _is_trie(x):
+        return trie_from_reference(x, device)
+    if all(hasattr(x, a) for a in ("args", "data", "retv", "logjp")):
+        return trace_from_reference(x, device)
+    if all(hasattr(x, a) for a in ("xmin", "xmax", "ymin", "ymax")):
+        return bounds_from_reference(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(from_reference(v, device) for v in x)
+    return tensor(np.asarray(x), device)
+
+
+def trace_from_reference(tr, device="cpu"):
+    """The port's Trace from a reference eager Trace (trie, tuple or list
+    data): args, data, return value and log-joint."""
+    return Trace(from_reference(tr.args, device),
+                 from_reference(tr.data, device),
+                 from_reference(tr.retv, device),
+                 from_reference(tr.logjp, device))
+
+
+def bounds_from_reference(b):
+    """The port's ``Bounds`` from the reference's."""
+    from modppl_tpu_torch.models.simple import Bounds
+
+    return Bounds(float(b.xmin), float(b.xmax), float(b.ymin), float(b.ymax))
+
+
+def pool_from_reference(t, device="cpu", prefix=""):
+    """``{address: value}`` of every leaf of a reference trie (a batched
+    trace's ``data``: each value (N, ...)), addresses in normal form
+    (``"coeffs / a"``): the port's ``pool=``."""
+    out = {}
+    for k, sub in t.children.items():
+        addr = k if not prefix else f"{prefix} / {k}"
+        if sub.has_inner():
+            out[addr] = tensor(np.asarray(sub.inner()), device)
+        out.update(pool_from_reference(sub, device, addr))
+    return out

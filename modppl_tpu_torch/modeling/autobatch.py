@@ -29,6 +29,7 @@ from modppl_tpu_torch.core.gfi import Trace
 from modppl_tpu_torch.core.keys import generator
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.modeling.gen import (
+    Gen,
     regenerate_mask,
     run_generate,
     run_regenerate,
@@ -38,6 +39,7 @@ from modppl_tpu_torch.modeling.handlers import (
     RegenerateHandler,
     infer_dtype_device,
     pooled,
+    sub_pool,
 )
 
 
@@ -55,7 +57,8 @@ def _batch_draw(handler, dist, params, addr):
 
 
 class BatchGenerateHandler(GenerateHandler):
-    """GenerateHandler over ``n`` particles at once."""
+    """GenerateHandler over ``n`` particles at once. A call of another
+    ``Gen`` runs its body over the same ``n`` particles."""
 
     def __init__(self, key, trace, constraints, dtype, device, n, pool=None):
         super().__init__(key, trace, constraints, dtype, device, pool=pool)
@@ -63,6 +66,21 @@ class BatchGenerateHandler(GenerateHandler):
 
     def _draw(self, dist, params, addr):
         return _batch_draw(self, dist, params, addr)
+
+    def trace_call(self, gen_fn, args, addr):
+        if not isinstance(gen_fn, Gen):
+            return super().trace_call(gen_fn, args, addr)
+        choices = self.constraints.remove(addr)
+        subtrace, d_weight = _lane_generate(
+            gen_fn, self._subkey(addr), args,
+            Trie() if choices is None else choices, self.n,
+            pool=sub_pool(self.pool, addr), device=self.device)
+        if choices is not None:
+            self.weight = self.weight + d_weight
+        sub = subtrace.data
+        sub.replace_inner(subtrace.retv)
+        self.tr.data.insert(addr, sub)
+        return subtrace.retv
 
 
 class BatchRegenerateHandler(RegenerateHandler):
@@ -88,12 +106,14 @@ def _per_particle(x, n, dtype, device):
     return x
 
 
-def _lane_generate(gen_fn, key, args, constraints, n, pool=None):
-    """``Gen.generate`` over all ``n`` particles with the batch handler.
-    Returns (trace, weight) with a per-particle ``(n,)`` weight."""
+def _lane_generate(gen_fn, key, args, constraints, n, pool=None,
+                   device=None):
+    """``Gen.generate`` over all ``n`` particles with the batch handler, on
+    ``device`` (else the arguments'). Returns (trace, weight) with a
+    per-particle ``(n,)`` weight."""
     constraints = constraints.copy()
     constraints.take_inner()
-    dtype, device = infer_dtype_device(args)
+    dtype, device = infer_dtype_device(args, device)
     g = BatchGenerateHandler(key, Trace(args, Trie(), None, 0.0), constraints,
                              dtype, device, n, pool=pool)
     trace, weight = run_generate(g, gen_fn.fn, args)

@@ -75,11 +75,11 @@ class Gen(GenFn):
     def __repr__(self):
         return f"Gen({self.__name__})"
 
-    def simulate(self, key, args, device=None):
+    def simulate(self, key, args, device=None, pool=None):
         args = _as_args_tuple(args)
         dtype, device = infer_dtype_device(args, device)
         g = SimulateHandler(key, Trace(args, Trie(), None, 0.0), dtype,
-                            device)
+                            device, pool=pool)
         return _finish(g, self.fn(g, *args))
 
     def generate(self, key, args, constraints, device=None, pool=None):

@@ -12,12 +12,13 @@ Randomness comes from an explicit integer key (core/keys.py). Each address
 derives its own key, ``fold_in(key, addr_hash(addr))``, and draws from a
 ``torch.Generator`` seeded with it on the handler's device, so sampling is
 order-independent and reproducible. ``pool`` maps addresses to pre-drawn
-values (or ``Standard`` draws) that replace a fresh draw.
+values (or ``Standard`` draws) that replace a fresh draw; a call of
+another generative function gets the entries below its address.
 """
 
 import torch
 
-from modppl_tpu_torch.core.address import Selection, addr_hash
+from modppl_tpu_torch.core.address import Selection, addr_hash, normalize_addr
 from modppl_tpu_torch.core.gfi import ArgDiff, Trace
 from modppl_tpu_torch.core.keys import fold_in, generator
 from modppl_tpu_torch.core.trie import Trie
@@ -27,6 +28,35 @@ from modppl_tpu_torch.dists.base import Standard
 def addr_subkey(key, addr):
     """The per-address key: ``fold_in(key, addr_hash(addr))``."""
     return fold_in(key, addr_hash(addr))
+
+
+def entry_device(device, what):
+    """The device an entry point runs on: ``"cuda"`` unless the caller
+    names one. With no CUDA device the default raises; there is no CPU
+    fallback."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}: device='cuda' but no CUDA device is "
+                           "available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def to_device(x, device, trie_tensors=False):
+    """``x`` with every tensor in it (through tuples, lists, dicts and the
+    values of Tries) on ``device``; anything else as it is. With
+    ``trie_tensors``, every value of a Trie becomes a tensor on ``device``
+    (a Python number a batched filter's constraint holds)."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, Trie):
+        if trie_tensors:
+            return x.map(lambda v: torch.as_tensor(v, device=device))
+        return x.map(lambda v: to_device(v, device))
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_device(v, device, trie_tensors) for v in x)
+    if isinstance(x, dict):
+        return {k: to_device(v, device, trie_tensors) for k, v in x.items()}
+    return x
 
 
 def infer_dtype_device(args, device=None):
@@ -58,12 +88,29 @@ def infer_dtype_device(args, device=None):
 
 
 def pooled(pool, dist, params, addr):
-    """The pre-drawn value at ``addr``, or None: a tensor is the value, a
-    ``Standard`` the sampler's standard draws at this site's params."""
-    if pool is None or addr not in pool:
+    """The pre-drawn value at ``addr`` (as written, else in its normal
+    form, ``"coeffs / a"``), or None: a tensor is the value, a ``Standard``
+    the sampler's standard draws at this site's params."""
+    if pool is None:
         return None
-    v = pool[addr]
+    v = pool.get(addr)
+    if v is None:
+        v = pool.get(normalize_addr(addr))
+    if v is None:
+        return None
     return dist.from_standard(v.z, params) if isinstance(v, Standard) else v
+
+
+def sub_pool(pool, addr):
+    """The entries of ``pool`` below ``addr``, keyed from there (as the
+    call at ``addr`` sees them), or None if there are none."""
+    if not pool:
+        return None
+    prefix = normalize_addr(addr) + " / "
+    sub = {k[len(prefix):]: v for k, v in
+           ((normalize_addr(a), v) for a, v in pool.items())
+           if k.startswith(prefix)}
+    return sub or None
 
 
 class _Handler:
@@ -89,6 +136,15 @@ class _Handler:
         """Key for a draw or a sub-generative-function call at ``addr``."""
         return addr_subkey(self.key, addr)
 
+    def _sub(self, addr):
+        """The key and keyword arguments of the call at ``addr``: its
+        device and, if the pool holds draws below ``addr``, those."""
+        kw = {"device": self.device}
+        pool = sub_pool(self.pool, addr)
+        if pool is not None:
+            kw["pool"] = pool
+        return self._subkey(addr), kw
+
     def trace(self, gen_fn, args, addr):
         return self.trace_call(gen_fn, args, addr)
 
@@ -105,8 +161,8 @@ class SimulateHandler(_Handler):
         self.tr.data.w_observe(addr, (), logp)
 
     def trace_call(self, gen_fn, args, addr):
-        subtrace = gen_fn.simulate(self._subkey(addr), args,
-                                   device=self.device)
+        k, kw = self._sub(addr)
+        subtrace = gen_fn.simulate(k, args, **kw)
         sub = subtrace.data
         sub.replace_inner(subtrace.retv)
         self.tr.data.insert(addr, sub)
@@ -141,13 +197,12 @@ class GenerateHandler(_Handler):
 
     def trace_call(self, gen_fn, args, addr):
         choices = self.constraints.remove(addr)
-        k = self._subkey(addr)
+        k, kw = self._sub(addr)
         if choices is not None:
-            subtrace, d_weight = gen_fn.generate(k, args, choices,
-                                                 device=self.device)
+            subtrace, d_weight = gen_fn.generate(k, args, choices, **kw)
             self.weight = self.weight + d_weight
         else:
-            subtrace = gen_fn.simulate(k, args, device=self.device)
+            subtrace = gen_fn.simulate(k, args, **kw)
         sub = subtrace.data
         sub.replace_inner(subtrace.retv)
         self.tr.data.insert(addr, sub)
@@ -207,18 +262,17 @@ class UpdateHandler(_Handler):
     def trace_call(self, gen_fn, args, addr):
         self.visitor.visit(addr)
         choices = self.constraints.remove(addr)
-        k = self._subkey(addr)
+        k, kw = self._sub(addr)
         prev = self.tr.data.remove(addr)
         if choices is not None:
             if prev is not None:
                 subtrace, subdiscard, d_weight = gen_fn.update(
                     k, Trace(args, prev, None, prev.weight()), args,
-                    self.diff, choices, device=self.device)
+                    self.diff, choices, **kw)
                 if not subdiscard.is_empty():
                     self.discard.insert(addr, subdiscard)
             else:
-                subtrace, d_weight = gen_fn.generate(k, args, choices,
-                                                     device=self.device)
+                subtrace, d_weight = gen_fn.generate(k, args, choices, **kw)
             self.diff = ArgDiff.UNKNOWN
             self.weight = self.weight + d_weight
         elif prev is not None:
@@ -230,12 +284,12 @@ class UpdateHandler(_Handler):
                 raise ValueError("update: ArgDiff.EXTEND not supported")
             subtrace, subdiscard, d_weight = gen_fn.update(
                 k, Trace(args, prev, None, prev.weight()), args,
-                ArgDiff.UNKNOWN, Trie(), device=self.device)
+                ArgDiff.UNKNOWN, Trie(), **kw)
             if not subdiscard.is_empty():
                 self.discard.insert(addr, subdiscard)
             self.weight = self.weight + d_weight
         else:
-            subtrace = gen_fn.simulate(k, args, device=self.device)
+            subtrace = gen_fn.simulate(k, args, **kw)
             self.diff = ArgDiff.UNKNOWN
         sub = subtrace.data
         sub.replace_inner(subtrace.retv)
@@ -295,15 +349,15 @@ class RegenerateHandler(_Handler):
     def trace_call(self, gen_fn, args, addr):
         self.visitor.visit(addr)
         submask = self.mask.search(addr)
-        k = self._subkey(addr)
+        k, kw = self._sub(addr)
         prev = self.tr.data.remove(addr)
         if prev is None:
-            subtrace = gen_fn.simulate(k, args, device=self.device)
+            subtrace = gen_fn.simulate(k, args, **kw)
             self.diff = ArgDiff.UNKNOWN
         elif submask is not None:
             subtrace, d_weight = gen_fn.regenerate(
                 k, Trace(args, prev, None, prev.weight()), args, self.diff,
-                submask, device=self.device)
+                submask, **kw)
             self.diff = ArgDiff.UNKNOWN
             self.weight = self.weight + d_weight
         elif self.diff is ArgDiff.NO_CHANGE:
@@ -312,8 +366,7 @@ class RegenerateHandler(_Handler):
             return retv
         elif self.diff is ArgDiff.UNKNOWN:
             prev_weight = prev.weight()
-            subtrace, new_weight = gen_fn.generate(k, args, prev,
-                                                   device=self.device)
+            subtrace, new_weight = gen_fn.generate(k, args, prev, **kw)
             self.weight = self.weight + new_weight - prev_weight
         else:
             raise ValueError("regenerate: ArgDiff.EXTEND not supported")

@@ -1,1 +1,25 @@
 """Models, re-expressed with torch ops on batched tensors."""
+
+from modppl_tpu_torch.models.hierarchical import (
+    add_or_remove_param_proposal,
+    hierarchical_drift_proposal,
+    hierarchical_model,
+    read_coeffs,
+)
+from modppl_tpu_torch.models.hmm import HMM, HMMParams, hmm_forward_alg
+from modppl_tpu_torch.models.pointed import DriftProposal, PointedModel
+from modppl_tpu_torch.models.simple import (
+    Bounds,
+    line_model,
+    obs_model,
+    pointed_2d_drift_proposal,
+    pointed_2d_model,
+    uniform_2d,
+)
+from modppl_tpu_torch.models.spiral import spiral_kernel, spiral_model
+
+__all__ = ["Bounds", "DriftProposal", "HMM", "HMMParams", "PointedModel",
+           "add_or_remove_param_proposal", "hierarchical_drift_proposal",
+           "hierarchical_model", "hmm_forward_alg", "line_model",
+           "obs_model", "pointed_2d_drift_proposal", "pointed_2d_model",
+           "read_coeffs", "spiral_kernel", "spiral_model", "uniform_2d"]

@@ -3,7 +3,9 @@ modppl_tpu/models/hierarchical_static.py).
 
 The bernoulli gate is always sampled and its effect on the regression mean
 masked with ``where``, so the trace structure is static. Observations are
-one plated address "ys". With "is_linear" observed, the continuous
+one plated address "ys". The body runs per trace (under ``vmap`` on the
+HMC path) and once over a leading lane axis (the batched tier of
+``importance_sampling``). With "is_linear" observed, the continuous
 (a, b, c) posterior is Gaussian: the quadratic target the HMC chunk
 kernels run. ``make_hierarchical_marginalized`` sums the gate out instead:
 a non-quadratic target for the generic HMC path.
@@ -32,7 +34,9 @@ def make_hierarchical_static(n_points):
         c = h.sample(normal, (0.0, 1.0), "coeffs/c")
         c_eff = torch.where(torch.as_tensor(is_linear, device=xs.device),
                             torch.zeros_like(c), c)
-        mean = a + b * xs + c_eff * xs * xs
+        # the coefficients' trailing unit axis meets the points' axis: (n,)
+        # means per trace, (lanes, n) over the batched tier's lanes
+        mean = a[..., None] + b[..., None] * xs + c_eff[..., None] * xs * xs
         return h.sample(ys_dist, (mean, NOISE), "ys")
 
     return hierarchical_static

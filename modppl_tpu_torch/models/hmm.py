@@ -3,9 +3,9 @@ algorithm as its oracle (counterpart of modppl_tpu/models/hmm.py:18-60,
 108-114, 159-182).
 
 Matrix conventions follow the reference: ``emission_matrix[obs, state]``,
-``transition_matrix[new_state, prev_state]``. The hand-coded sequential
-``HMM`` GenFn belongs with the eager tier that uses it and is not ported yet
-(ROADMAP Queue 1 item 9).
+``transition_matrix[new_state, prev_state]``. ``HMM`` is the hand-coded
+sequential GenFn of the eager particle filter (inference/smc.py,
+modppl_tpu/models/hmm.py:117-156).
 
 The scan kernel's body runs once on the particle-batched state (``z_prev``
 of shape (n,), modeling/autobatch.py), so it indexes the trailing axis:
@@ -17,6 +17,8 @@ index it would be (K, n).
 
 import torch
 
+from modppl_tpu_torch.core.gfi import ArgDiff, GenFn, Trace
+from modppl_tpu_torch.core.keys import generator
 from modppl_tpu_torch.dists import categorical
 from modppl_tpu_torch.modeling import gen
 
@@ -29,6 +31,52 @@ class HMMParams:
         self.prior = torch.as_tensor(prior)
         self.emission_matrix = torch.as_tensor(emission_matrix)
         self.transition_matrix = torch.as_tensor(transition_matrix)
+
+
+class HMM(GenFn):
+    """The HMM as a hand-coded GenFn over args ``(t, _)`` and data
+    ``(states, observations)``, two lists: ``generate`` initializes (T = 1
+    only) and ``update`` appends one step (``ArgDiff.EXTEND`` only). The
+    constraints are ``(states, observations)`` lists too; the last
+    observation is the step's. It runs on its parameters' device."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def _kernel(self, key, data, state_probs, new_observation):
+        # sample the new state, score the observation
+        new_state = categorical.sample(generator(key, state_probs.device),
+                                       (state_probs,))
+        obs_probs = self.params.emission_matrix[:, new_state]
+        states, observations = data
+        data = (states + [new_state], observations + [new_observation])
+        weight = categorical.logpdf(new_observation, (obs_probs,))
+        return data, weight
+
+    def simulate(self, key, args, device=None):
+        raise NotImplementedError("HMM: simulate not implemented")
+
+    def generate(self, key, args, constraints, device=None):
+        t, _ = args
+        if t != 1:
+            raise ValueError(
+                "HMM.generate: only expect generate to initialize (T = 1)")
+        new_observation = constraints[1][0]
+        data, weight = self._kernel(key, ([], []), self.params.prior,
+                                    new_observation)
+        return Trace(args, data, list(data[1]), weight), weight
+
+    def update(self, key, trace, args, argdiff, constraints, device=None):
+        if argdiff is not ArgDiff.EXTEND:
+            raise ValueError(f"HMM.update: can't handle ArgDiff {argdiff}")
+        new_observation = constraints[1][-1]
+        prev_state = trace.data[0][-1]
+        state_probs = self.params.transition_matrix[:, prev_state]
+        data, weight = self._kernel(key, trace.data, state_probs,
+                                    new_observation)
+        new_trace = Trace((trace.args[0] + 1, trace.args[1]), data,
+                          list(data[1]), trace.logjp + weight)
+        return new_trace, ([], []), weight
 
 
 def _f64(x):

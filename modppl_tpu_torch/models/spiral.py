@@ -1,8 +1,10 @@
-"""Spiral tracking (counterpart of modppl_tpu/models/spiral.py:44-66).
+"""Spiral tracking (counterpart of modppl_tpu/models/spiral.py).
 
 A polar-coordinate random walk observed through an mvnormal. The kernels
 are written for the batched tier: the state ``pol`` has a leading particle
-axis, so the body indexes trailing axes (``pol[..., 0]``).
+axis, so the body indexes trailing axes (``pol[..., 0]``), and so runs
+unbatched too. ``spiral_model`` is the eager ``Unfold`` of
+``spiral_kernel``, which branches on the Python int t.
 """
 
 import math
@@ -11,6 +13,7 @@ import torch
 
 from modppl_tpu_torch.dists import mvnormal, normal, uniform
 from modppl_tpu_torch.modeling import gen
+from modppl_tpu_torch.modeling.unfold import Unfold
 
 # constant observation covariance: factored once, broadcast over particles
 OBS_COV = ((0.001, 0.0), (0.0, 0.001))
@@ -53,3 +56,15 @@ def circle_observations(num_steps):
     return [[0.4 * math.cos(2 * math.pi * t / 16.0),
              0.4 * math.sin(2 * math.pi * t / 16.0)]
             for t in range(num_steps)]
+
+
+@gen
+def spiral_kernel(h, t, prev_pol):
+    """The eager kernel: ``spiral_init``'s body at t == 0 (a Python int),
+    ``spiral_step``'s after."""
+    if t == 0:
+        return spiral_init.fn(h, prev_pol)
+    return spiral_step.fn(h, t, prev_pol)
+
+
+spiral_model = Unfold(spiral_kernel)

@@ -26,14 +26,13 @@ from modppl_tpu_torch.inference.adaptation import _tree_sum
 from modppl_tpu_torch.inference.vsmc import (
     SMCState,
     batched_smc_init,
-    filter_device,
     generated_draws,
     guided_step,
     num_steps,
     replay_entry,
-    to_device,
     wrap_kernel,
 )
+from modppl_tpu_torch.modeling.handlers import entry_device, to_device
 from modppl_tpu_torch.ops.fused_resample import parents_from_s
 from modppl_tpu_torch.ops.grid_positions import (
     doubling_cumsum,
@@ -171,15 +170,15 @@ def sharded_batched_particle_filter(mesh, key, kernel, state0,
     if mesh is not None:
         raise NotImplementedError(
             "modppl_tpu_torch: only mesh=None (one device) is ported")
-    device = filter_device(device, "sharded_batched_particle_filter")
+    device = entry_device(device, "sharded_batched_particle_filter")
     kernel, proposal = wrap_kernel(kernel, proposal, rejuvenation,
                                    auto_batch, "sharded filter")
     n = num_particles
     _cdf_block(n)
     resample_step = make_resample_step(None, n, ess_threshold)
     state0, init_constraints, step_constraints, proposal_params = to_device(
-        device, state0, init_constraints, step_constraints,
-        params=proposal_params)
+        (state0, init_constraints, step_constraints, proposal_params),
+        device, trie_tensors=True)
     steps = num_steps(step_constraints, replay)
 
     s, trace = batched_smc_init(key, kernel, state0, init_constraints, n,

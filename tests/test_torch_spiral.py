@@ -159,7 +159,9 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     assert {"hmm.py", "numerics.py", "resample.py", "vsmc.py", "mcmc.py",
             "plate.py", "lgssm.py", "handlers.py", "logreg.py",
-            "adaptation.py"} <= {p.name for p in files}
+            "adaptation.py", "importance.py", "mh.py", "smc.py", "unfold.py",
+            "extra.py", "simple.py", "pointed.py",
+            "hierarchical.py"} <= {p.name for p in files}
     files.append(repo / "chip_smoke.py")
     bad = []
     for path in files:
