@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--profile]
 
-Ten paths, each driven with its kernels' launch counters set to 0 just
-before it and read just after:
+Twelve paths and the small entries, each driven with every kernel's
+launch counter set to 0 just before it and read just after:
 
 - the spiral-tracking bootstrap particle filter
   (``parallel/sharded_smc.sharded_batched_particle_filter``, one device,
@@ -42,8 +42,18 @@ before it and read just after:
 - Metropolis-Hastings (``inference/mh``) on the eager branching model,
   trans-dimensional jumps, drifts and regenerative moves;
 - the eager particle filter (``inference/smc.ParticleSystem``) over the
-  hand-coded HMM and the spiral ``Unfold``.
-The last three reach no kernel of the port, and none may launch.
+  hand-coded HMM and the spiral ``Unfold``;
+- ChEES-HMC (``inference/chees.chees_runner``, ``bench.py:306-367``) on
+  the hierarchical leg's target with the gate observed, 10^4 chains, 200 +
+  300 iterations, float32: each leapfrog step one batched
+  ``vmap(grad_and_value)`` call, the shared step count read back once an
+  iteration;
+- mean-field ADVI (``inference/vi.advi``, ``bench.py:368-421``) on
+  logistic regression at d = 16, n = 256, 1024 Monte Carlo draws a step,
+  2000 steps, float32;
+- the small entries: the Kalman filters, the Laplace approximation, MALA,
+  exact enumeration, and ChEES on the reference tests' small models.
+The last six reach no kernel of the port, and none may launch.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -146,11 +156,37 @@ Phases, in order; any failure raises and the script exits non-zero:
     hand-coded HMM (300 particles, data [0, 0, 1, 2]: log-ML within 0.25 of
     the exact forward algorithm's, ESS in (0, N]) and the spiral
     ``Unfold`` (100 particles, 12 steps: the final mean position within 0.2
-    of the last observation); then times both (particle-steps/s).
+    of the last observation); then times both (particle-steps/s);
+20. runs the ChEES leg with the counters at 0 (no launch): finite draws
+    (10^4 chains x 300), tau finite, every step count >= 1, the pooled
+    posterior mean of a, b, c within 4 posterior sd / sqrt(min ESS) of
+    ``exact_hierarchical_posterior``, the accept rate within 0.1 of the
+    reference's own at this configuration (``CHEES_REF_ACCEPT``); then
+    times it as bench_chees does (median of three runs, keys 0-2, key 0
+    bitwise equal to phase 20's run): min-coordinate ESS/s, tau, mean step
+    count, accept rate, value-and-grad calls and ms a call;
+21. runs the VI leg with the counters at 0 (no launch): finite outputs,
+    mu within ``VI_MU_BOUND`` (twice the reference's own distance at this
+    size) of phase 15's float64 oracle's posterior mean on these data, the
+    last 50 steps' mean ELBO at most the oracle's log evidence; then times
+    it (median of 3 after phase 21's run): MC model evals/s and the final
+    ELBO;
+22. checks each small entry once with the counters at 0 (no launch), with
+    its wall ms: ``kalman_filter_parallel`` against ``kalman_filter`` on a
+    2-D LGSSM at T = 4096 in float64 (within 1e-9) and the guided leg's
+    scalar model's log-ML against the numpy Kalman value;
+    ``laplace_approximation`` on Poisson-gamma (log-ML within 0.05 of
+    log 1/8); ``mala`` on the conjugate model (4 chains x (1000 + 4000))
+    and the gamma scale model (4 x (1000 + 3000)) at the reference tests'
+    bounds; ``enumerate_posterior`` on the bernoulli gate (1e-9); and, at
+    the reference's configuration, the gates the CPU tests shorten: ChEES
+    on the conjugate model (32 chains, 300 + 400, dynamic and
+    ``static_unroll=16``).
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
-path; a profile that lacks a kernel the launch counters saw says so and
-gives no idle share.
+path (phases 20 and 21 included): device ops, device-to-host copies, busy
+ms and the idle share; a profile that lacks a kernel the launch counters
+saw says so and gives no idle share.
 
     python3 chip_smoke.py --turns OTHER_TREE [hmc] [resample]
 
@@ -598,8 +634,10 @@ def profile_run(label, fn, median_s):
              for name, count in launches.items() if count}
     missing = [f"{KERNEL_SYMBOLS[name]} ({name}, {launches[name]} launches)"
                for name, hits in found.items() if not hits]
-    head = (f"# profile {label}: {sum(r[2] for r in rows)} device ops, busy "
-            f"{busy_ms:.3f} ms of a {median_s * 1e3:.3f} ms run")
+    copies = sum(r[2] for r in rows if "DtoH" in r[0])
+    head = (f"# profile {label}: {sum(r[2] for r in rows)} device ops, "
+            f"{copies} device-to-host copies, busy {busy_ms:.3f} ms of a "
+            f"{median_s * 1e3:.3f} ms run")
     if missing:
         print(f"{head}; trace incomplete, no rows for {', '.join(missing)}: "
               f"no idle share")
@@ -1657,7 +1695,8 @@ def logreg_oracle(X, ys, draws=LOGREG_ORACLE_DRAWS, seed=0, chunk=100_000):
     the port: proposal N(w_map, LOGREG_INFLATE H^-1), w_map from
     ``map_newton`` and H the negative Hessian of the log posterior there;
     ``draws`` proposals from ``default_rng(seed)``. Returns (mean, se, the
-    importance sampler's effective sample size)."""
+    importance sampler's effective sample size, the log evidence log
+    p(ys | X))."""
     from modppl_tpu_torch.models.logreg import map_newton
 
     X = np.asarray(X, np.float64)
@@ -1680,11 +1719,15 @@ def logreg_oracle(X, ys, draws=LOGREG_ORACLE_DRAWS, seed=0, chunk=100_000):
         log_w.append(loglik - 0.5 * (w * w).sum(1) + 0.5 * (z * z).sum(1))
         ws.append(w)
     log_w, ws = np.concatenate(log_w), np.concatenate(ws)
-    wt = np.exp(log_w - log_w.max())
+    top = log_w.max()
+    wt = np.exp(log_w - top)
+    # the dropped constants: the prior's and the proposal's normalizers
+    log_ev = (top + math.log(wt.sum() / draws)
+              + float(np.log(np.diag(chol)).sum()))
     wt /= wt.sum()
     mean = wt @ ws
     se = np.sqrt((wt * wt) @ ((ws - mean) ** 2))
-    return mean, se, float(1.0 / (wt * wt).sum())
+    return mean, se, float(1.0 / (wt * wt).sum()), log_ev
 
 
 def logreg_summary(out):
@@ -1706,8 +1749,8 @@ def check_logreg_leg(device="cuda"):
     and the posterior mean within LOGREG_PER_CHAIN_GAP. Returns (the
     pooled runner, what was seen)."""
     X, ys = logreg_data(device)
-    oracle, oracle_se, oracle_ess = logreg_oracle(X.cpu().numpy(),
-                                                  ys.cpu().numpy())
+    oracle, oracle_se, oracle_ess, _ = logreg_oracle(X.cpu().numpy(),
+                                                     ys.cpu().numpy())
     d = LOGREG["dim"]
     with full_fp32():
         run = make_logreg_leg(device)
@@ -2158,6 +2201,431 @@ def time_eager_filter(run, runs=3):
     return statistics.median(times), times
 
 
+# --------------------------------------------------------------------------
+# slice 7: ChEES, ADVI, and the small entries (Kalman, Laplace, MALA,
+# enumeration, the GP model)
+# --------------------------------------------------------------------------
+
+# bench.py:306-367 (bench_chees) at full width: the hierarchical leg's
+# target and data (hierarchical_data), 10^4 chains, 200 + 300, setup key 99
+CHEES = dict(num_chains=10_000, num_warmup=200, num_samples=300)
+CHEES_SE = 4.0
+# the accept rate: within CHEES_ACCEPT_GAP of the reference's own at this
+# configuration (its chees_runner on the CPU, float64, key PRNGKey(0):
+# 0.910; tests/test_torch_card_bounds.py recomputes it). Its adaptation
+# targets 0.75, but the short last step-size window leaves the sampling
+# phase well above that, so a band around 0.75 would reject the reference
+CHEES_ACCEPT_GAP = 0.1
+CHEES_REF_ACCEPT = 0.910
+# bench.py:368-421 (bench_vi) at full width: d = 16, n = 256, 1024 Monte
+# Carlo draws a step, 2000 steps, lr 5e-3; data simulate_logreg(7), float32
+VI = dict(dim=16, n_data=256, num_mc=1024, num_steps=2000,
+          learning_rate=5e-3)
+# the largest coordinate distance of ADVI's mu from the oracle posterior
+# mean allowed: twice the reference's own at this size (the JAX package's
+# advi on the CPU, float64, on bench_vi's data simulate_logreg(PRNGKey(7)),
+# key PRNGKey(0): 0.4164; tests/test_torch_card_bounds.py recomputes it),
+# set before the leg first ran on the card
+VI_MU_BOUND = 0.833
+# phase 22: the 2-D LGSSM's length, the reference gates' configurations
+KALMAN_T = 4096
+KALMAN_TOL = 1e-9
+MALA_CONJ = dict(num_samples=4000, num_warmup=1000, num_chains=4)
+MALA_SCALE = dict(num_samples=3000, num_warmup=1000, num_chains=4)
+MALA_SCALE_DATA = (0.3, -0.5, 0.8, 0.1, -0.2)
+CHEES_CONJ = dict(num_samples=400, num_warmup=300, num_chains=32)
+
+
+@contextlib.contextmanager
+def counting_vag(module):
+    """Count the batched value-and-grad calls of a runner built inside the
+    context (the calls are counted for the runner's life)."""
+    calls = [0]
+    orig = module._value_and_grad
+
+    def wrapped(logprob):
+        vag = orig(logprob)
+
+        def counted_vag(U):
+            calls[0] += 1
+            return vag(U)
+
+        return counted_vag
+
+    module._value_and_grad = wrapped
+    try:
+        yield calls
+    finally:
+        module._value_and_grad = orig
+
+
+def make_chees_leg(device):
+    """bench_chees's runner through the user's entry point,
+    ``chees_runner``."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.chees import chees_runner
+    from modppl_tpu_torch.models.hierarchical_static import (
+        make_hierarchical_static,
+    )
+
+    xs, ys = hierarchical_data(device)
+    return chees_runner(make_hierarchical_static(10), (xs,),
+                        Trie.from_dict({"ys": ys, "is_linear": False}),
+                        setup_key=99, device=device, **CHEES)
+
+
+def chees_exact():
+    """(posterior mean (3,), sd (3,)) of a, b, c with the gate observed
+    quadratic, float64 numpy, on hierarchical_data's points."""
+    from modppl_tpu_torch.models.hierarchical_static import (
+        exact_hierarchical_posterior,
+    )
+
+    xs, ys = (x.numpy() for x in hierarchical_data("cpu"))
+    _, _, _, mean, cov, _ = exact_hierarchical_posterior(xs, ys)
+    return mean, np.sqrt(np.diag(cov))
+
+
+def check_chees_leg(device="cuda"):
+    """Phase 20: the ChEES leg with the counters at 0 (no launch): finite
+    draws, tau finite, every num_leapfrog >= 1, the pooled posterior mean
+    of a, b, c within CHEES_SE posterior sd / sqrt(min ESS) of the exact
+    one, the accept rate within CHEES_ACCEPT_GAP of the reference's at
+    this configuration (CHEES_REF_ACCEPT). Returns (the runner, its
+    value-and-grad call counter, the run's output, what was seen)."""
+    import importlib
+
+    # the module (the package exports a function of the same name)
+    chees = importlib.import_module("modppl_tpu_torch.inference.chees")
+    with counting_vag(chees) as calls, full_fp32():
+        run = make_chees_leg(device)
+        out, launches = counted(lambda: run(0))
+    require_launches("chees leg", launches, {})
+    for what in ("unconstrained", "logp", "accept_prob", "step_size",
+                 "trajectory_length"):
+        if not bool(torch.isfinite(out[what]).all()):
+            raise AssertionError(f"chees leg: {what} is not finite")
+    us, ess = logreg_summary(out)
+    mean = us.reshape(-1, 3).mean(0)
+    exact, sd = chees_exact()
+    bound = CHEES_SE * sd / math.sqrt(ess.min())
+    accept = float(out["accept_prob"].double().mean())
+    nl = out["num_leapfrog"]
+    seen = {"means": mean.tolist(), "exact": exact.tolist(),
+            "bound": bound.tolist(), "ess": ess.tolist(), "accept": accept,
+            "tau": float(out["trajectory_length"]),
+            "eps": float(out["step_size"]),
+            "mean_leapfrog": float(nl.double().mean()),
+            "vag_calls": calls[0],
+            "divergences": int(out["divergences"].sum())}
+    if us.shape != (CHEES["num_chains"], CHEES["num_samples"], 3) or \
+            not (np.abs(mean - exact) <= bound).all() or \
+            abs(accept - CHEES_REF_ACCEPT) > CHEES_ACCEPT_GAP or \
+            int(nl.min()) < 1 or not math.isfinite(seen["tau"]):
+        raise AssertionError(f"chees leg: {seen}")
+    return run, calls, out, seen
+
+
+def time_chees_leg(run, calls, first, device="cuda"):
+    """Phase 20's timing, as bench_chees measures: the median wall time of
+    three runs, keys 0, 1, 2, after phase 20's run of key 0 warmed the
+    runner up; key 0 again must equal ``first`` (that run) bitwise. The
+    min-coordinate ESS, mean leapfrog count, accept rate and tau of the
+    last, and each run's value-and-grad calls."""
+    times, counts = [], []
+    with full_fp32():
+        for key in range(3):
+            sync(device)
+            before = calls[0]
+            t0 = time.perf_counter()
+            out = run(key)
+            sync(device)
+            times.append(time.perf_counter() - t0)
+            counts.append(calls[0] - before)
+            if key == 0:
+                for what in ("unconstrained", "logp", "accept_prob",
+                             "step_size", "trajectory_length",
+                             "num_leapfrog", "divergences"):
+                    if not torch.equal(out[what], first[what]):
+                        raise AssertionError(f"chees leg: {what} differs "
+                                             "between two runs of key 0")
+    _, ess = logreg_summary(out)
+    return {"median_s": statistics.median(times), "times": times,
+            "ess_min": float(ess.min()),
+            "mean_leapfrog": float(out["num_leapfrog"].double().mean()),
+            "accept": float(out["accept_prob"].double().mean()),
+            "tau": float(out["trajectory_length"]),
+            "vag_calls": counts}
+
+
+def vi_data(device):
+    """bench_vi's (X (256, 16), ys (256,)), float32, from seed 7."""
+    from modppl_tpu_torch.models.logreg import simulate_logreg
+
+    X, ys, _ = simulate_logreg(7, VI["n_data"], VI["dim"], device=device)
+    return X, ys
+
+
+def run_vi(device, key, data=None):
+    """bench_vi's call: mean-field ADVI through ``advi``."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.vi import advi
+    from modppl_tpu_torch.models.logreg import make_logreg
+
+    return advi(key, make_logreg(VI["dim"]),
+                data if data is not None else vi_data(device), Trie(),
+                num_steps=VI["num_steps"], num_mc=VI["num_mc"],
+                learning_rate=VI["learning_rate"], device=device)
+
+
+def check_vi_leg(device="cuda"):
+    """Phase 21: the VI leg with the counters at 0 (no launch): finite mu,
+    log_sigma and ELBO trace; mu within VI_MU_BOUND of the float64
+    importance-sampling oracle's posterior mean on these data (phase 15's
+    ``logreg_oracle``); the last 50 steps' mean ELBO at most the oracle's
+    log evidence. Returns what was seen."""
+    data = vi_data(device)
+    oracle, oracle_se, _, log_ev = logreg_oracle(*(x.cpu().numpy()
+                                                   for x in data))
+    with full_fp32():
+        out, launches = counted(lambda: run_vi(device, 0, data))
+    require_launches("vi leg", launches, {})
+    mu = out["mu"].double().cpu().numpy()
+    final_elbo = float(out["elbo"][-50:].double().mean())
+    gap = float(np.abs(mu - oracle).max())
+    seen = {"gap": gap, "bound": VI_MU_BOUND, "final_elbo": final_elbo,
+            "log_evidence": float(log_ev),
+            "oracle_se": float(oracle_se.max()),
+            "sigma_mean": float(torch.exp(out["log_sigma"]).mean())}
+    if not (np.isfinite(mu).all()
+            and bool(torch.isfinite(out["log_sigma"]).all())
+            and bool(torch.isfinite(out["elbo"]).all())) or \
+            gap > VI_MU_BOUND or not final_elbo <= log_ev:
+        raise AssertionError(f"vi leg: {seen}")
+    return seen
+
+
+def time_vi_leg(reps=3, device="cuda"):
+    """Phase 21's timing, as bench_vi measures: the median wall time of
+    ``reps`` runs (keys 1..reps) after phase 21's run; MC model evals/s and
+    the last run's final ELBO (mean of its last 50 steps)."""
+    data = vi_data(device)
+    times = []
+    with full_fp32():
+        for i in range(reps):
+            sync(device)
+            t0 = time.perf_counter()
+            out = run_vi(device, i + 1, data)
+            sync(device)
+            times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    return {"median_s": med, "times": times,
+            "evals_per_s": VI["num_steps"] * VI["num_mc"] / med,
+            "final_elbo": float(out["elbo"][-50:].double().mean())}
+
+
+def _timed_check(name, fn, results, device="cuda"):
+    """Run one phase-22 check with the counters at 0, require no launch,
+    and keep its wall ms."""
+    sync(device)
+    t0 = time.perf_counter()
+    seen, launches = counted(fn)
+    results[name] = {"ms": (time.perf_counter() - t0) * 1e3, **seen}
+    require_launches(name, launches, {})
+
+
+def kalman_check(device):
+    """``kalman_filter_parallel`` against ``kalman_filter`` on a 2-D LGSSM
+    at T = KALMAN_T in float64 (every output within KALMAN_TOL), and the
+    guided leg's scalar model's log-ML against ``lg_kalman_log_ml``."""
+    from modppl_tpu_torch.inference.kalman import (
+        kalman_filter,
+        kalman_filter_parallel,
+    )
+    from modppl_tpu_torch.models.lgssm import LGSSMParams, lgssm_simulate
+
+    f64 = dict(dtype=torch.float64, device=device)
+    th = 0.3
+    params = LGSSMParams(
+        torch.tensor([[0.95 * math.cos(th), -0.95 * math.sin(th)],
+                      [0.95 * math.sin(th), 0.95 * math.cos(th)]], **f64),
+        0.1 * torch.eye(2, **f64), torch.tensor([[1.0, 0.5], [0.0, 1.0]],
+                                                **f64),
+        0.5 * torch.eye(2, **f64), torch.zeros(2, **f64), torch.eye(2, **f64))
+    _, ys = lgssm_simulate(5, params, KALMAN_T)
+    seq = kalman_filter(params, ys, device=device)
+    par = kalman_filter_parallel(params, ys, device=device)
+    errs = {k: float((par[k] - seq[k]).abs().max()) for k in seq}
+    scale = {k: float(seq[k].abs().max()) for k in seq}
+    lg = LGSSMParams(*(torch.tensor(v, **f64) for v in (
+        [[LG_A]], [[LG_Q ** 2]], [[1.0]], [[LG_R ** 2]], [0.0], [[1.0]])))
+    lg_ys = lg_observations()
+    lg_ml = float(kalman_filter(lg, torch.tensor(lg_ys, **f64)[:, None],
+                                device=device)["log_ml"])
+    exact = lg_kalman_log_ml(lg_ys)
+    seen = {"max_err": errs, "log_ml": float(seq["log_ml"]),
+            "lg_log_ml": lg_ml, "lg_exact": float(exact)}
+    if any(errs[k] > KALMAN_TOL * (1.0 + scale[k]) for k in errs) or \
+            abs(lg_ml - exact) > KALMAN_TOL * (1.0 + abs(exact)):
+        raise AssertionError(f"kalman: {seen}")
+    return seen
+
+
+def small_models(device):
+    """The reference tests' small models: conjugate N(0, 1) -> N(mu, 1)
+    (tests/test_mala.py), the gamma scale model, Poisson-gamma
+    (tests/test_map_laplace.py), conjugate N(0, 1) -> N(mu, 0.5)
+    (tests/test_chees.py) and the bernoulli-gated mixture
+    (tests/test_enumerate.py, float64 constants)."""
+    from modppl_tpu_torch.dists import bernoulli, gamma, iid, normal, poisson
+    from modppl_tpu_torch.modeling import gen
+
+    ys5 = iid(normal, 5)
+    f64 = dict(dtype=torch.float64, device=device)
+
+    @gen
+    def conj1(h):
+        mu = h.sample(normal, (0.0, 1.0), "mu")
+        h.sample(normal, (mu, 1.0), "x")
+        return mu
+
+    @gen
+    def scale_model(h):
+        scale = h.sample(gamma, (2.0, 1.0), "scale")
+        h.sample(ys5, (0.0, scale), "ys")
+
+    @gen
+    def poisson_gamma(h):
+        lam = h.sample(gamma, (2.0, 1.0), "lam")
+        h.sample(poisson, (lam,), "k")
+        return lam
+
+    @gen
+    def conj_half(h):
+        mu = h.sample(normal, (0.0, 1.0), "mu")
+        h.sample(normal, (mu, 0.5), "x")
+        return mu
+
+    @gen
+    def mixture(h):
+        z = h.sample(bernoulli, torch.tensor(0.3, **f64), "z")
+        mu = torch.where(torch.as_tensor(z), torch.tensor(2.0, **f64),
+                         torch.tensor(-1.0, **f64))
+        h.sample(normal, (mu, 1.0), "x")
+        return z
+
+    return dict(conj1=conj1, scale_model=scale_model,
+                poisson_gamma=poisson_gamma, conj_half=conj_half,
+                mixture=mixture)
+
+
+def scale_model_oracle():
+    """E[scale | ys] of the gamma scale model by quadrature (numpy)."""
+    grid = np.linspace(1e-3, 6.0, 4001)
+    d = np.asarray(MALA_SCALE_DATA, np.float32).astype(np.float64)
+    lps = (np.log(grid) - grid
+           + np.sum(-0.5 * (d[None, :] / grid[:, None]) ** 2
+                    - np.log(grid[:, None]), axis=1))
+    w = np.exp(lps - lps.max())
+    return float(np.sum(grid * w) / np.sum(w))
+
+
+def check_small_entries(device="cuda"):
+    """Phase 22: each small entry once with the counters at 0 (no launch),
+    against its reference gate, with its wall ms; the reference's full
+    configurations of the ChEES conjugate gates the CPU tests shorten
+    (dynamic and static_unroll=16). Returns {check: seen}."""
+    import scipy.stats as st
+
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.chees import chees
+    from modppl_tpu_torch.inference.enumerate import enumerate_posterior
+    from modppl_tpu_torch.inference.map_laplace import laplace_approximation
+    from modppl_tpu_torch.inference.mala import mala
+
+    m = small_models(device)
+    out = {}
+
+    def fail(name, seen):
+        raise AssertionError(f"{name}: {seen}")
+
+    _timed_check("kalman", lambda: kalman_check(device), out, device)
+
+    def laplace():
+        r = laplace_approximation(0, m["poisson_gamma"], (),
+                                  Trie.from_dict({"k": 3}), num_steps=600,
+                                  learning_rate=0.03, device=device)
+        seen = {"log_ml": float(r["log_ml"]), "exact": math.log(0.125)}
+        if abs(seen["log_ml"] - seen["exact"]) > 0.05:
+            fail("laplace", seen)
+        return seen
+
+    def mala_conj():
+        r = mala(0, m["conj1"], (), Trie.from_dict({"x": 1.0}),
+                 device=device, **MALA_CONJ)
+        mus = r["samples"]["mu"].double().cpu().numpy().ravel()
+        seen = {"mean": float(mus.mean()), "sd": float(mus.std()),
+                "accept": float(r["accept_prob"].double().mean())}
+        if abs(seen["mean"] - 0.5) > 0.05 or \
+                abs(seen["sd"] - math.sqrt(0.5)) > 0.05 or \
+                not 0.35 < seen["accept"] < 0.8:
+            fail("mala conjugate", seen)
+        return seen
+
+    def mala_scale():
+        data = torch.tensor(MALA_SCALE_DATA, device=device)
+        r = mala(1, m["scale_model"], (), Trie.from_dict({"ys": data}),
+                 device=device, **MALA_SCALE)
+        s = r["samples"]["scale"].double().cpu().numpy().ravel()
+        seen = {"mean": float(s.mean()), "exact": scale_model_oracle(),
+                "min": float(s.min())}
+        if not seen["min"] > 0.0 or abs(seen["mean"] - seen["exact"]) > 0.08:
+            fail("mala scale", seen)
+        return seen
+
+    def enumerate_gate():
+        r = enumerate_posterior(m["mixture"], (), Trie.from_dict({"x": 1.0}),
+                                {"z": torch.tensor([False, True])},
+                                device=device)
+        j0 = math.log(0.7) + st.norm(-1, 1).logpdf(1.0)
+        j1 = math.log(0.3) + st.norm(2, 1).logpdf(1.0)
+        exact = float(np.logaddexp(j0, j1))
+        seen = {"log_ml": float(r["log_ml"]), "exact": exact,
+                "p_z": float(r["marginals"]["z"][1]),
+                "p_z_exact": math.exp(j1 - exact)}
+        if abs(seen["log_ml"] - exact) > 1e-9 or \
+                abs(seen["p_z"] - seen["p_z_exact"]) > 1e-9:
+            fail("enumerate", seen)
+        return seen
+
+    def chees_conj(static_unroll):
+        r = chees(0, m["conj_half"], (), Trie.from_dict({"x": 1.0}),
+                  static_unroll=static_unroll, device=device, **CHEES_CONJ)
+        mus = r["samples"]["mu"][:, 100:].double().cpu().numpy().ravel()
+        nl = r["num_leapfrog"]
+        seen = {"mean": float(mus.mean()), "sd": float(mus.std()),
+                "divergences": int(r["divergences"].sum()),
+                "max_leapfrog": int(nl.max()),
+                "tau": float(r["trajectory_length"])}
+        if abs(seen["mean"] - 0.8) > 0.05 or \
+                abs(seen["sd"] - math.sqrt(0.2)) > 0.05 or \
+                seen["divergences"] or \
+                tuple(nl.shape) != (CHEES_CONJ["num_samples"],) or \
+                (static_unroll and seen["max_leapfrog"] > static_unroll):
+            fail(f"chees conjugate static_unroll={static_unroll}", seen)
+        return seen
+
+    with full_fp32():
+        for name, fn in (("laplace", laplace), ("mala_conjugate", mala_conj),
+                         ("mala_scale", mala_scale),
+                         ("enumerate", enumerate_gate),
+                         ("chees_conjugate", lambda: chees_conj(None)),
+                         ("chees_conjugate_static16",
+                          lambda: chees_conj(16))):
+            _timed_check(name, fn, out, device)
+    return out
+
+
 SOURCES = {
     "stats_cumsum": ("modppl_tpu_torch/csrc/grid_positions.cu",
                      "modppl_tpu/ops/grid_positions_pallas.py:59"),
@@ -2357,6 +2825,58 @@ def turns(other, groups=tuple(TURN_GROUPS)):
         print(json.dumps(rows[-1]))
         sys.stdout.flush()
     return 0
+
+
+def slice7_phases(card, profile, device="cuda"):
+    """Phases 20-22 (slice 7), with their lines of output; ``profile``
+    adds phases 20 and 21's profiler breakdowns."""
+    chees_run, chees_calls, chees_out, ch = check_chees_leg(device)
+    print(f"# main path: ChEES on the hierarchical model {CHEES} float32 "
+          f"through chees_runner(device={device!r}), no kernel launched; "
+          f"mean a, b, c {[round(x, 5) for x in ch['means']]} exact "
+          f"{[round(x, 5) for x in ch['exact']]} (bound "
+          f"{[round(x, 5) for x in ch['bound']]}); accept {ch['accept']!r}; "
+          f"tau {ch['tau']!r}; eps {ch['eps']!r}; mean leapfrog "
+          f"{ch['mean_leapfrog']!r}; {ch['vag_calls']} value-and-grad calls; "
+          f"divergences {ch['divergences']}; min ESS {min(ch['ess']):.1f}")
+    ct = time_chees_leg(chees_run, chees_calls, chees_out, device)
+    print(f"# chees leg: key 0 twice bitwise equal; median "
+          f"{ct['median_s'] * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in ct['times']]} ms; min-coord ESS "
+          f"{ct['ess_min']:.1f} -> {ct['ess_min'] / ct['median_s']:.1f} "
+          f"ESS/s; tau {ct['tau']:.4f}; mean leapfrog "
+          f"{ct['mean_leapfrog']:.3f}; accept {ct['accept']:.4f}; "
+          f"value-and-grad calls {ct['vag_calls']} -> "
+          f"{ct['median_s'] * 1e3 / statistics.median(ct['vag_calls']):.4f} "
+          f"ms a call ({card})")
+    if profile:
+        with full_fp32():
+            profile_run("chees leg", lambda: chees_run(11), ct["median_s"])
+    sys.stdout.flush()
+    vi = check_vi_leg(device)
+    print(f"# main path: ADVI on logistic regression {VI} float32 through "
+          f"advi(device={device!r}), no kernel launched; mu within "
+          f"{vi['gap']!r} of the importance-sampling oracle (bound "
+          f"{VI_MU_BOUND}; oracle se {vi['oracle_se']!r}); final ELBO "
+          f"{vi['final_elbo']!r} <= log evidence {vi['log_evidence']!r}")
+    vt = time_vi_leg(device=device)
+    print(f"# vi leg: median {vt['median_s'] * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in vt['times']]} ms -> "
+          f"{vt['evals_per_s']:.1f} MC model evals/s; final ELBO "
+          f"{vt['final_elbo']:.4f}; "
+          f"{vt['median_s'] * 1e3 / VI['num_steps']:.4f} ms a step ({card})")
+    if profile:
+        data = vi_data(device)
+        with full_fp32():
+            profile_run("vi leg", lambda: run_vi(device, 11, data),
+                        vt["median_s"])
+    sys.stdout.flush()
+    small = check_small_entries(device)
+    for name, seen in small.items():
+        rest = {k: v for k, v in seen.items() if k != "ms"}
+        print(f"# small entry {name}: {seen['ms']:.1f} ms, no kernel "
+              f"launched; {rest} ({card})")
+    sys.stdout.flush()
 
 
 def main(argv):
@@ -2607,6 +3127,7 @@ def main(argv):
             profile_run(f"eager {name} filter", lambda: run("cuda", 61),
                         pf_s)
     sys.stdout.flush()
+    slice7_phases(card, "--profile" in argv)
     launches.update(hmc_launches)
     launches.update(quad_launches)
     launches["grid_rank"] = rank_launches

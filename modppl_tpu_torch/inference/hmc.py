@@ -20,12 +20,14 @@ Adaptation state, accept probabilities and flags stay on the device: the
 generic path reads nothing back to the host per transition.
 """
 
+from typing import Callable, NamedTuple
+
 import numpy as np
 import torch
 
 from modppl_tpu_torch.core.keys import fold_in, generator, split
 from modppl_tpu_torch.inference.transforms import transform_for
-from modppl_tpu_torch.modeling.handlers import entry_device, to_device
+from modppl_tpu_torch.modeling.handlers import entry_inputs
 
 MULTI_SHARD_TODO = ("axis_name: pooling across shards is not ported (ROADMAP "
                     "Queue 1 item 14, multi-device); the port runs on one "
@@ -117,6 +119,28 @@ def ravel_latents(u):
         return out
 
     return flat, unravel
+
+
+class FlatTarget(NamedTuple):
+    """An unconstrained log-joint over one flat coordinate vector."""
+
+    logprob: Callable      # u (d,) -> 0-dim tensor
+    u0: torch.Tensor       # (d,): the initial trace's latents, unconstrained
+    constrain: Callable    # u (..., d) -> {addr: value}, constrained
+    unravel: Callable      # u (..., d) -> {addr: value}, unconstrained
+    bijectors: dict        # {addr: Bijector}
+
+
+def flat_target(model, args, trace, observed, selection=None,
+                include_jacobian=True, device=None):
+    """:func:`make_unconstrained_logprob` raveled to one flat coordinate
+    vector (in ``ravel_latents``' order), u0 on ``device``."""
+    logprob, u0, bijectors, constrain = make_unconstrained_logprob(
+        model, args, trace, observed, selection,
+        include_jacobian=include_jacobian, device=device)
+    u0_flat, unravel = ravel_latents(u0)
+    return FlatTarget(lambda u: logprob(unravel(u)), u0_flat.to(device),
+                      lambda u: constrain(unravel(u)), unravel, bijectors)
 
 
 def _value_and_grad(logprob):
@@ -332,12 +356,18 @@ def _phase_steps(phase_key, length, u0s, draws=None):
 
 
 def _drawn_steps(phase_key, length, u0s):
+    return _segments(phase_key, length, lambda k, w: _phase_randoms(
+        k, u0s.shape[0], w, u0s.shape[1], u0s.dtype, u0s.device))
+
+
+def _segments(phase_key, length, draw):
+    """A phase's per-iteration draws from segments of ``_PREDRAW_SEG``
+    iterations: ``draw(fold_in(phase_key, seg), w)`` gives segment
+    ``seg``'s tensors, each with a leading axis of its w iterations."""
     done, seg = 0, 0
     while done < length:
         w = min(_PREDRAW_SEG, length - done)
-        yield from zip(*_phase_randoms(fold_in(phase_key, seg), u0s.shape[0],
-                                       w, u0s.shape[1], u0s.dtype,
-                                       u0s.device))
+        yield from zip(*draw(fold_in(phase_key, seg), w))
         done += w
         seg += 1
 
@@ -549,22 +579,17 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     """
     if axis_name is not None:
         raise NotImplementedError(f"hmc_runner: {MULTI_SHARD_TODO}")
-    device = entry_device(device, "hmc_runner")
-    args = to_device(args if isinstance(args, tuple) else (args,), device)
-    observed = to_device(observed, device)
+    device, args, observed = entry_inputs(device, args, observed,
+                                          "hmc_runner")
     if init_trace is None:
         init_trace, _ = model.generate(setup_key, args, observed,
                                        device=device)
-    logprob, u0, _, constrain = make_unconstrained_logprob(
-        model, args, init_trace, observed, selection, device=device)
-    u0_flat, unravel = ravel_latents(u0)
-    u0_flat = u0_flat.to(device)
+    target = flat_target(model, args, init_trace, observed, selection,
+                         device=device)
+    logprob_flat, u0_flat = target.logprob, target.u0
     dim = u0_flat.shape[0]
     if pooled_adaptation is None:
         pooled_adaptation = num_chains > 1
-
-    def logprob_flat(u_flat):
-        return logprob(unravel(u_flat))
 
     quad = None
     # automatic dispatch needs num_warmup >= 1 (a zero-length warmup kernel
@@ -600,7 +625,7 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                 step_size, num_leapfrog, target_accept)
             dev, quad_ok = _quad_check(logprob_flat, us, logps)
         return {
-            "samples": constrain(unravel(us)),
+            "samples": target.constrain(us),
             "logp": logps,
             "accept_prob": aprobs,
             "divergences": divs,

@@ -6,7 +6,8 @@ both sides the same inputs. Imports neither jax nor modppl_tpu. For HMC:
 ``quadratic_from_numpy`` carries a detected (Λ, b), ``phase_streams`` a
 phase's pre-drawn randoms for the chunk kernels, ``pooled_phase_draws``
 and ``chain_phase_draws`` the generic path's (a pooled phase's
-``_phase_randoms`` segments, a phase's per-chain transition draws), and
+``_phase_randoms`` segments, a phase's per-chain transition draws),
+``chees_phase_draws`` a ChEES phase's (momenta and accept uniforms), and
 ``logreg_data_from_numpy`` a logistic-regression dataset; start positions
 and an adapted (eps, inv_mass) go through ``tensor``. For the filters:
 ``hmm_params_from_numpy`` and ``lgssm_params_from_numpy`` carry a model's
@@ -77,6 +78,15 @@ def pooled_phase_draws(segments, device="cpu"):
     uniforms (W, C)); they are joined along the iteration axis."""
     return tuple(tensor(np.concatenate([np.asarray(s[i]) for s in segments]),
                         device) for i in range(3))
+
+
+def chees_phase_draws(segments, device="cpu"):
+    """One phase of the reference's ChEES pipeline as the port's ``draws``
+    entry (``chees_runner``'s ``run.chains``): ``segments`` are the phase's
+    ``chees._phase_randoms`` results in order, each (momenta (W, C, d),
+    accept uniforms (W, C)); they are joined along the iteration axis."""
+    return tuple(tensor(np.concatenate([np.asarray(s[i]) for s in segments]),
+                        device) for i in range(2))
 
 
 def chain_phase_draws(mom, acc, jit, device="cpu"):

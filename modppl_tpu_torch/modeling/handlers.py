@@ -41,6 +41,15 @@ def entry_device(device, what):
     return device
 
 
+def entry_inputs(device, args, observed, what):
+    """An entry point's device (``entry_device``) with its model arguments
+    (as a tuple) and observations moved there."""
+    device = entry_device(device, what)
+    return (device,
+            to_device(args if isinstance(args, tuple) else (args,), device),
+            to_device(observed, device))
+
+
 def to_device(x, device, trie_tensors=False):
     """``x`` with every tensor in it (through tuples, lists, dicts and the
     values of Tries) on ``device``; anything else as it is. With
