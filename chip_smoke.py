@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py [--profile]
 
-Twelve paths and the small entries, each driven with every kernel's
-launch counter set to 0 just before it and read just after:
+Sixteen paths, the small entries and the lane key streams, each driven
+with every kernel's launch counter set to 0 just before it and read just
+after:
 
 - the spiral-tracking bootstrap particle filter
   (``parallel/sharded_smc.sharded_batched_particle_filter``, one device,
@@ -52,8 +53,21 @@ launch counter set to 0 just before it and read just after:
   logistic regression at d = 16, n = 256, 1024 Monte Carlo draws a step,
   2000 steps, float32;
 - the small entries: the Kalman filters, the Laplace approximation, MALA,
-  exact enumeration, and ChEES on the reference tests' small models.
-The last six reach no kernel of the port, and none may launch.
+  exact enumeration, and ChEES on the reference tests' small models;
+- NUTS (``inference/nuts.nuts_runner``, ``bench.py:246-305``, BASELINE
+  configs[3]) on the hierarchical leg's target with the gate observed,
+  10^4 chains, 200 + 300 iterations, max_depth 6, float32: every leaf one
+  batched ``vmap(grad_and_value)`` call, one host read a subtree;
+- the vmapped particle filter (``inference/vsmc.particle_filter``,
+  BASELINE configs[2]): the spiral ScanKernel at 10^4 particles and 12
+  steps, one key stream a particle, each step resampling through kernel 3;
+  and the reference's HMM gate at 10^4 particles (systematic: S ->
+  ``grid_rank``);
+- ``inference/mcmc.mcmc_chains``: drift MH on the conjugate model over
+  10^4 chains, one key stream a chain.
+ChEES, ADVI, the small entries, NUTS and ``mcmc_chains`` reach no kernel of
+the port, and none may launch; nor do importance sampling, MH and the eager
+filters.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -133,7 +147,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     1.5x, 10^6 draws); the same key again must give bitwise-equal draws;
     then the per-chain path (``pooled_adaptation=False``, 256 chains,
     200 + 200): inverse mass (256, 16), posterior mean within 0.1;
-16. times the leg (median of 3 after phase 15's warm-up run; min-coordinate
+16. times the leg (one run after phase 15's warm-up run; min-coordinate
     ESS/s, transitions/s, accept rate and step size) and one batched
     value-and-grad call at its 10^4 chains;
 17. runs the importance leg with the counters at 0 and requires no launch:
@@ -161,16 +175,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     (10^4 chains x 300), tau finite, every step count >= 1, the pooled
     posterior mean of a, b, c within 4 posterior sd / sqrt(min ESS) of
     ``exact_hierarchical_posterior``, the accept rate within 0.1 of the
-    reference's own at this configuration (``CHEES_REF_ACCEPT``); then
-    times it as bench_chees does (median of three runs, keys 0-2, key 0
-    bitwise equal to phase 20's run): min-coordinate ESS/s, tau, mean step
-    count, accept rate, value-and-grad calls and ms a call;
+    reference's own at this configuration (``CHEES_REF_ACCEPT``); that run
+    is the timed one (min-coordinate ESS/s, value-and-grad calls and ms a
+    call); then key 0 twice at 10^3 chains, 50 + 50 (``CHEES_RERUN``),
+    bitwise equal;
 21. runs the VI leg with the counters at 0 (no launch): finite outputs,
     mu within ``VI_MU_BOUND`` (twice the reference's own distance at this
     size) of phase 15's float64 oracle's posterior mean on these data, the
     last 50 steps' mean ELBO at most the oracle's log evidence; then times
-    it (median of 3 after phase 21's run): MC model evals/s and the final
-    ELBO;
+    one run after phase 21's: MC model evals/s and the final ELBO;
 22. checks each small entry once with the counters at 0 (no launch), with
     its wall ms: ``kalman_filter_parallel`` against ``kalman_filter`` on a
     2-D LGSSM at T = 4096 in float64 (within 1e-9) and the guided leg's
@@ -181,7 +194,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     bounds; ``enumerate_posterior`` on the bernoulli gate (1e-9); and, at
     the reference's configuration, the gates the CPU tests shorten: ChEES
     on the conjugate model (32 chains, 300 + 400, dynamic and
-    ``static_unroll=16``).
+    ``static_unroll=16``);
+23. lane key streams at C = 2^20 (``core/keys.py``): lane keys, splits,
+    words and float32 / float64 uniforms on the card bitwise equal to the
+    same calls on the CPU, the normals within 1e-5 (float32) and 1e-12
+    (float64) of (1 + |z|) (the devices' ``ndtri`` rounds differently), and
+    the first C lanes of a 2C draw equal to the C draw;
+24. runs the NUTS leg once with the counters at 0 (no launch), timed:
+    finite draws, the posterior mean of a, b, c within 4 posterior sd /
+    sqrt(min ESS) of ``exact_hierarchical_posterior``, divergences below
+    1%, mean tree depth above 1; prints min-coordinate ESS/s, mean tree
+    depth, accept, leaves a transition and value-and-grad calls; then a
+    3 + 3 run timed and then profiled (the idle share);
+25. runs the vmapped spiral filter with the counters at 0: 11 launches of
+    kernel 3 and none other, the weighted mean position within 0.1 of the
+    last observation, every output bitwise equal to its rerun through the
+    plain versions on the card fed the run's recorded draws; the HMM gate
+    at 10^4 particles, multinomial (no launch) and systematic (3 launches
+    of ``grid_rank``, every output bitwise equal to its rerun through
+    ``grid_rank_plain`` on the recorded draws), log-ML within 0.03 of the
+    exact one; then times the spiral (median of 5, particle-steps/s). No
+    plain-version rerun of any phase may launch a kernel;
+26. runs ``mcmc_chains`` with the counters at 0 (no launch): 10^4 chains
+    x 400 iterations of drift MH on the conjugate model, the pooled draws
+    after 100 with mean 0.5 and sd sqrt(0.5) within 0.03, timed.
+
+Each group of phases prints its seconds as it ends (``# seconds:``).
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
 path (phases 20 and 21 included): device ops, device-to-host copies, busy
@@ -440,18 +478,15 @@ def wrappers():
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Run the main path with each kernel's plain version in its place. On
-    a CUDA tensor the wrappers only launch kernels, so the reference run on
-    the card swaps the functions the filter calls."""
-    from modppl_tpu_torch.ops import fused_resample as fr
-    from modppl_tpu_torch.ops import grid_positions as gp
-    from modppl_tpu_torch.parallel import resample
-    from modppl_tpu_torch.parallel import sharded_smc as smc
-
-    swaps = [(smc, "stats_cumsum", gp.stats_cumsum_plain),
-             (smc, "positions_cummax", gp.positions_cummax_plain),
-             (resample, "resample_fused_from_s", fr.resample_fused_plain)]
+def swapped(swaps):
+    """Each ``(module, name, plain)`` of ``swaps`` in the module's global
+    ``name`` for the block. On a CUDA tensor the wrappers only launch
+    kernels, so a reference run on the card swaps the functions its path
+    calls. No kernel may launch in the block: a launch there means the
+    path reached a kernel through a name the swaps missed, and would hold
+    the kernel against itself."""
+    fns = all_wrappers()
+    before = {k: f.launches for k, f in fns.items()}
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -460,6 +495,28 @@ def plain_versions():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+    moved = {k: f.launches - before[k] for k, f in fns.items()
+             if f.launches != before[k]}
+    if moved:
+        raise AssertionError(f"a plain-version rerun launched kernels: "
+                             f"{moved}")
+
+
+def plain_versions():
+    """Kernels 1-3's plain versions in their places: kernels 1-2 where the
+    sharded filter calls them, kernel 3 where the sharded filter's gather
+    (``parallel.resample``) and the fused systematic resampler of
+    ``inference/vsmc._resample`` (``ops.fused_resample``) call it."""
+    from modppl_tpu_torch.ops import fused_resample as fr
+    from modppl_tpu_torch.ops import grid_positions as gp
+    from modppl_tpu_torch.parallel import resample
+    from modppl_tpu_torch.parallel import sharded_smc as smc
+
+    return swapped([(smc, "stats_cumsum", gp.stats_cumsum_plain),
+                    (smc, "positions_cummax", gp.positions_cummax_plain),
+                    (resample, "resample_fused_from_s",
+                     fr.resample_fused_plain),
+                    (fr, "resample_fused_from_s", fr.resample_fused_plain)])
 
 
 def check_main_path(device, n=N, seed=7):
@@ -1234,17 +1291,12 @@ def require_launches(what, launches, want):
                                  f"{want.get(k, 0)}")
 
 
-@contextlib.contextmanager
 def plain_grid_rank():
-    """grid_rank's plain version in the kernel's place on the card."""
+    """grid_rank's plain version in the kernel's place on the card (where
+    ``ops.resample.systematic_parents`` calls it)."""
     from modppl_tpu_torch.ops import resample
 
-    saved = resample.grid_rank
-    resample.grid_rank = resample.grid_rank_plain
-    try:
-        yield
-    finally:
-        resample.grid_rank = saved
+    return swapped([(resample, "grid_rank", resample.grid_rank_plain)])
 
 
 def check_slice3_kernels(device):
@@ -1795,10 +1847,11 @@ def check_logreg_leg(device="cuda"):
                  "accept": float(out["accept_prob"].mean())}
 
 
-def time_logreg_leg(run, reps=3, device="cuda"):
+def time_logreg_leg(run, reps=1, device="cuda"):
     """Phase 16: bench.py's measure on the runner phase 15 warmed up: the
-    median wall time of ``reps`` runs, keys 1..reps, and min-coordinate ESS
-    of the last. Returns (median s, times, ess_min, ess_median, accept,
+    median wall time of ``reps`` runs (one by default: the script's time
+    went to the NUTS leg), keys 1..reps, and min-coordinate ESS of the
+    last. Returns (median s, times, ess_min, ess_median, accept,
     eps)."""
     times = []
     with full_fp32():
@@ -2209,6 +2262,8 @@ def time_eager_filter(run, runs=3):
 # bench.py:306-367 (bench_chees) at full width: the hierarchical leg's
 # target and data (hierarchical_data), 10^4 chains, 200 + 300, setup key 99
 CHEES = dict(num_chains=10_000, num_warmup=200, num_samples=300)
+# the determinism rerun: key 0 twice at 10^3 chains, 50 + 50
+CHEES_RERUN = dict(num_chains=1000, num_warmup=50, num_samples=50)
 CHEES_SE = 4.0
 # the accept rate: within CHEES_ACCEPT_GAP of the reference's own at this
 # configuration (its chees_runner on the CPU, float64, key PRNGKey(0):
@@ -2259,7 +2314,7 @@ def counting_vag(module):
         module._value_and_grad = orig
 
 
-def make_chees_leg(device):
+def make_chees_leg(device, config=None):
     """bench_chees's runner through the user's entry point,
     ``chees_runner``."""
     from modppl_tpu_torch.core.trie import Trie
@@ -2271,7 +2326,7 @@ def make_chees_leg(device):
     xs, ys = hierarchical_data(device)
     return chees_runner(make_hierarchical_static(10), (xs,),
                         Trie.from_dict({"ys": ys, "is_linear": False}),
-                        setup_key=99, device=device, **CHEES)
+                        setup_key=99, device=device, **(config or CHEES))
 
 
 def chees_exact():
@@ -2287,19 +2342,23 @@ def chees_exact():
 
 
 def check_chees_leg(device="cuda"):
-    """Phase 20: the ChEES leg with the counters at 0 (no launch): finite
-    draws, tau finite, every num_leapfrog >= 1, the pooled posterior mean
-    of a, b, c within CHEES_SE posterior sd / sqrt(min ESS) of the exact
-    one, the accept rate within CHEES_ACCEPT_GAP of the reference's at
-    this configuration (CHEES_REF_ACCEPT). Returns (the runner, its
-    value-and-grad call counter, the run's output, what was seen)."""
+    """Phase 20: the ChEES leg with the counters at 0 (no launch), run once
+    and timed: finite draws, tau finite, every num_leapfrog >= 1, the
+    pooled posterior mean of a, b, c within CHEES_SE posterior sd / sqrt(min
+    ESS) of the exact one, the accept rate within CHEES_ACCEPT_GAP of the
+    reference's at this configuration (CHEES_REF_ACCEPT). Returns (the
+    runner, the run's output, what was seen: its wall time and
+    value-and-grad calls too)."""
     import importlib
 
     # the module (the package exports a function of the same name)
     chees = importlib.import_module("modppl_tpu_torch.inference.chees")
     with counting_vag(chees) as calls, full_fp32():
         run = make_chees_leg(device)
+        sync(device)
+        t0 = time.perf_counter()
         out, launches = counted(lambda: run(0))
+        wall = time.perf_counter() - t0
     require_launches("chees leg", launches, {})
     for what in ("unconstrained", "logp", "accept_prob", "step_size",
                  "trajectory_length"):
@@ -2316,46 +2375,27 @@ def check_chees_leg(device="cuda"):
             "tau": float(out["trajectory_length"]),
             "eps": float(out["step_size"]),
             "mean_leapfrog": float(nl.double().mean()),
-            "vag_calls": calls[0],
+            "vag_calls": calls[0], "wall_s": wall,
             "divergences": int(out["divergences"].sum())}
     if us.shape != (CHEES["num_chains"], CHEES["num_samples"], 3) or \
             not (np.abs(mean - exact) <= bound).all() or \
             abs(accept - CHEES_REF_ACCEPT) > CHEES_ACCEPT_GAP or \
             int(nl.min()) < 1 or not math.isfinite(seen["tau"]):
         raise AssertionError(f"chees leg: {seen}")
-    return run, calls, out, seen
+    return run, out, seen
 
 
-def time_chees_leg(run, calls, first, device="cuda"):
-    """Phase 20's timing, as bench_chees measures: the median wall time of
-    three runs, keys 0, 1, 2, after phase 20's run of key 0 warmed the
-    runner up; key 0 again must equal ``first`` (that run) bitwise. The
-    min-coordinate ESS, mean leapfrog count, accept rate and tau of the
-    last, and each run's value-and-grad calls."""
-    times, counts = [], []
+def check_chees_rerun(device="cuda"):
+    """Phase 20's determinism check, at CHEES_RERUN: key 0 twice through
+    one runner, every output bitwise equal."""
     with full_fp32():
-        for key in range(3):
-            sync(device)
-            before = calls[0]
-            t0 = time.perf_counter()
-            out = run(key)
-            sync(device)
-            times.append(time.perf_counter() - t0)
-            counts.append(calls[0] - before)
-            if key == 0:
-                for what in ("unconstrained", "logp", "accept_prob",
-                             "step_size", "trajectory_length",
-                             "num_leapfrog", "divergences"):
-                    if not torch.equal(out[what], first[what]):
-                        raise AssertionError(f"chees leg: {what} differs "
-                                             "between two runs of key 0")
-    _, ess = logreg_summary(out)
-    return {"median_s": statistics.median(times), "times": times,
-            "ess_min": float(ess.min()),
-            "mean_leapfrog": float(out["num_leapfrog"].double().mean()),
-            "accept": float(out["accept_prob"].double().mean()),
-            "tau": float(out["trajectory_length"]),
-            "vag_calls": counts}
+        run = make_chees_leg(device, CHEES_RERUN)
+        first, second = run(0), run(0)
+    for what in ("unconstrained", "logp", "accept_prob", "step_size",
+                 "trajectory_length", "num_leapfrog", "divergences"):
+        if not torch.equal(first[what], second[what]):
+            raise AssertionError(f"chees leg: {what} differs between two "
+                                 f"runs of key 0 at {CHEES_RERUN}")
 
 
 def vi_data(device):
@@ -2405,10 +2445,11 @@ def check_vi_leg(device="cuda"):
     return seen
 
 
-def time_vi_leg(reps=3, device="cuda"):
+def time_vi_leg(reps=1, device="cuda"):
     """Phase 21's timing, as bench_vi measures: the median wall time of
-    ``reps`` runs (keys 1..reps) after phase 21's run; MC model evals/s and
-    the last run's final ELBO (mean of its last 50 steps)."""
+    ``reps`` runs (keys 1..reps; one by default) after phase 21's run; MC
+    model evals/s and the last run's final ELBO (mean of its last 50
+    steps)."""
     data = vi_data(device)
     times = []
     with full_fp32():
@@ -2626,6 +2667,391 @@ def check_small_entries(device="cuda"):
     return out
 
 
+# --------------------------------------------------------------------------
+# slice 8: lane key streams, NUTS, the vmapped particle filter, mcmc_chains
+# --------------------------------------------------------------------------
+
+# phase 23: lane streams at C = 2^20; the card's ndtri against the CPU's
+LANES = 1 << 20
+LANE_NORMAL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# bench.py:246-305 (bench_nuts, BASELINE configs[3]) at full width: the
+# hierarchical leg's target and data with the gate observed, 10^4 chains,
+# 200 + 300, max_depth 6, setup key 99, run key 0
+NUTS = dict(num_chains=10_000, num_warmup=200, num_samples=300, max_depth=6)
+NUTS_SE = 4.0
+NUTS_MAX_DIVERGENCE = 0.01
+NUTS_MIN_DEPTH = 1.0
+# the window whose profile gives the idle share (the profiler's own cost
+# grows with the ops)
+NUTS_PROFILED = dict(num_warmup=3, num_samples=3)
+# BASELINE configs[2]: the spiral ScanKernel at 10^4 particles through the
+# vmapped particle_filter, tests/test_vsmc.py:82-101's observations
+PF_PARTICLES = 10_000
+PF_STEPS = 12
+PF_TRACK_GAP = 0.1
+PF_TIMED_RUNS = 5
+# tests/test_vsmc.py:26-59's HMM gate at 10^4 particles
+PF_HMM_GATE_DATA = (0, 0, 1, 2)
+# tests/test_mcmc_compiled.py:46-59's gate at 10^4 chains
+MCMC_CHAINS = 10_000
+MCMC_ITERS = 400
+MCMC_BURN = 100
+MCMC_GAP = 0.03
+
+
+def check_lane_streams(device="cuda"):
+    """Phase 23: lane keys and their draws on ``device`` against the same
+    calls on the CPU at C = LANES: keys, words and uniforms bitwise, the
+    normals (``ndtri`` rounds per device) within LANE_NORMAL_TOL (1 + |z|);
+    and the first C lanes of a 2C draw equal the C draw on the card.
+    Returns what was seen."""
+    from modppl_tpu_torch.core import keys as K
+
+    def calls(dev):
+        ks = K.lanes(12345, LANES, dev)
+        sk = K.split_keys(6789, LANES, dev)
+        data = torch.arange(LANES, dtype=torch.int64, device=dev) * 7919
+        return {"lanes": ks, "split_keys": sk,
+                "split_lanes": K.split_lanes(ks, 4),
+                "fold_in_lanes": K.fold_in_lanes(sk, data),
+                "lane_bits": K.lane_bits(sk, 4),
+                "uniform32": K.uniform_lanes(ks, (3,), torch.float32),
+                "uniform64": K.uniform_lanes(ks, (3,), torch.float64),
+                "normal32": K.normal_lanes(sk, (2,), torch.float32),
+                "normal64": K.normal_lanes(sk, (2,), torch.float64)}
+
+    card, host = calls(device), calls("cpu")
+    seen = {}
+    for name, x in card.items():
+        y = host[name]
+        if name.startswith("normal"):
+            tol = LANE_NORMAL_TOL[y.dtype]
+            err = float(((x.cpu() - y).abs() / (1 + y.abs())).max())
+            seen[name] = err
+            if not err <= tol:
+                raise AssertionError(f"lane streams: {name} on the card "
+                                     f"differs from the CPU's by {err} "
+                                     f"(1 + |z|), over {tol}")
+        elif not torch.equal(x.cpu(), y):
+            raise AssertionError(f"lane streams: {name} on the card differs "
+                                 "from the CPU's")
+    for draw in (K.uniform_lanes, K.normal_lanes):
+        one = draw(K.split_keys(3, LANES, device), (2,), torch.float32)
+        two = draw(K.split_keys(3, 2 * LANES, device), (2,), torch.float32)
+        if not torch.equal(two[:LANES], one):
+            raise AssertionError(f"lane streams: {draw.__name__}'s first C "
+                                 "lanes of a 2C draw differ from the C draw")
+    return seen
+
+
+def make_nuts_leg(device, **overrides):
+    """bench_nuts's runner through the user's entry point,
+    ``nuts_runner``."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.nuts import nuts_runner
+    from modppl_tpu_torch.models.hierarchical_static import (
+        make_hierarchical_static,
+    )
+
+    xs, ys = hierarchical_data(device)
+    return nuts_runner(make_hierarchical_static(10), (xs,),
+                       Trie.from_dict({"ys": ys, "is_linear": False}),
+                       setup_key=99, device=device,
+                       **{**NUTS, **overrides})
+
+
+def check_nuts_leg(device="cuda"):
+    """Phase 24: the NUTS leg with the counters at 0 (no launch), run once
+    and timed: finite draws, the pooled posterior mean of a, b, c within
+    NUTS_SE posterior sd / sqrt(min ESS) of the exact one, divergences
+    below NUTS_MAX_DIVERGENCE, mean tree depth above NUTS_MIN_DEPTH.
+    Returns what was seen: wall time, ESS, value-and-grad calls and leaves
+    a transition too."""
+    import importlib
+
+    nuts_mod = importlib.import_module("modppl_tpu_torch.inference.nuts")
+    with counting_vag(nuts_mod) as calls, full_fp32():
+        run = make_nuts_leg(device)
+        sync(device)
+        t0 = time.perf_counter()
+        out, launches = counted(lambda: run(0))
+        wall = time.perf_counter() - t0
+    require_launches("nuts leg", launches, {})
+    for what in ("unconstrained", "logp", "accept_prob", "step_size"):
+        if not bool(torch.isfinite(out[what]).all()):
+            raise AssertionError(f"nuts leg: {what} is not finite")
+    us, ess = logreg_summary(out)
+    mean = us.reshape(-1, 3).mean(0)
+    exact, sd = chees_exact()
+    bound = NUTS_SE * sd / math.sqrt(ess.min())
+    transitions = NUTS["num_warmup"] + NUTS["num_samples"]
+    seen = {"means": mean.tolist(), "exact": exact.tolist(),
+            "bound": bound.tolist(), "ess": ess.tolist(),
+            "accept": float(out["accept_prob"].double().mean()),
+            "eps": float(out["step_size"]),
+            "divergence_rate": float(out["divergences"].double().mean()),
+            "mean_depth": float(out["tree_depth"].double().mean()),
+            "max_depth": int(out["tree_depth"].max()),
+            "vag_calls": calls[0], "leaves": run.chains.leaves,
+            "leaves_a_transition": run.chains.leaves / transitions,
+            "wall_s": wall}
+    if us.shape != (NUTS["num_chains"], NUTS["num_samples"], 3) or \
+            not (np.abs(mean - exact) <= bound).all() or \
+            not seen["divergence_rate"] < NUTS_MAX_DIVERGENCE or \
+            not seen["mean_depth"] > NUTS_MIN_DEPTH:
+        raise AssertionError(f"nuts leg: {seen}")
+    return seen
+
+
+def timed_nuts_run(device, key, **config):
+    """One timed run of a leg-width runner at ``config``: (output, wall s,
+    leaves a transition)."""
+    with full_fp32():
+        run = make_nuts_leg(device, **config)
+        sync(device)
+        t0 = time.perf_counter()
+        out = run(key)
+        sync(device)
+    transitions = config["num_warmup"] + config["num_samples"]
+    return out, time.perf_counter() - t0, run.chains.leaves / transitions
+
+
+def profile_nuts(device="cuda"):
+    """Phase 24's idle share, after the leg warmed the process up:
+    NUTS_PROFILED at the leg's width timed, then profiled."""
+    _, wall, _ = timed_nuts_run(device, 7, **NUTS_PROFILED)
+    run = make_nuts_leg(device, **NUTS_PROFILED)
+    with full_fp32():
+        profile_run(f"nuts leg {NUTS_PROFILED}", lambda: run(7), wall)
+
+
+def run_pf_spiral(device, seed, **kwargs):
+    """BASELINE configs[2]: the spiral ScanKernel through the vmapped
+    ``particle_filter``, float32, systematic, PF_PARTICLES x PF_STEPS."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.vsmc import particle_filter
+    from modppl_tpu_torch.models.spiral import spiral_scan_kernel
+
+    obs = torch.tensor(pf_observations(), dtype=torch.float32, device=device)
+    return particle_filter(
+        seed, spiral_scan_kernel(),
+        torch.zeros(2, dtype=torch.float32, device=device),
+        Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}),
+        PF_PARTICLES, resampling="systematic", ess_threshold=1.0,
+        store_traces=False, device=device, **kwargs)
+
+
+def pf_observations():
+    """tests/test_vsmc.py:82-101: a circle of radius 0.4, PF_STEPS points
+    a turn."""
+    return [[0.4 * math.cos(2 * math.pi * t / PF_STEPS),
+             0.4 * math.sin(2 * math.pi * t / PF_STEPS)]
+            for t in range(PF_STEPS)]
+
+
+def run_pf_hmm(device, seed, resampling, **kwargs):
+    """tests/test_vsmc.py:26-59's HMM through the vmapped filter."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.vsmc import particle_filter
+    from modppl_tpu_torch.interop import hmm_params_from_numpy
+    from modppl_tpu_torch.models.hmm import hmm_scan_kernel
+
+    params = hmm_params_from_numpy(*(a.astype(np.float32)
+                                     for a in hmm_arrays()), device=device)
+    obs = torch.tensor(PF_HMM_GATE_DATA, dtype=torch.int32, device=device)
+    return particle_filter(
+        seed, hmm_scan_kernel(params),
+        torch.zeros((), dtype=torch.float32, device=device),
+        Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}),
+        PF_PARTICLES, resampling=resampling, ess_threshold=1.0,
+        store_traces=False, device=device, **kwargs)
+
+
+def check_pf_leg(device="cuda"):
+    """Phase 25: the vmapped filter with the counters at 0. The spiral:
+    PF_STEPS - 1 launches of kernel 3 and none other, the weighted mean
+    position within PF_TRACK_GAP of the last observation, and every output
+    bitwise equal to its rerun through the plain versions on the card fed
+    the run's recorded draws (a rerun that launches no kernel). The HMM
+    gate, multinomial (no launch) and systematic (S -> grid_rank, one
+    launch a step, every output bitwise equal to its rerun through
+    grid_rank's plain version on the recorded draws): log-ML within
+    HMM_LOG_ML_GAP of the exact one. Returns what was seen."""
+    from modppl_tpu_torch.models.hmm import hmm_forward_log_ml
+    from modppl_tpu_torch.models.spiral import polar_to_cartesian
+
+    record = []
+    out, launches = counted(lambda: run_pf_spiral(device, 17, record=record))
+    require_launches("vmapped spiral", launches,
+                     {"resample_fused_from_s": PF_STEPS - 1})
+    pos = polar_to_cartesian(out["state"].double())
+    w = torch.softmax(out["log_weights"].double(), 0)
+    mean = torch.sum(w[:, None] * pos, 0).cpu()
+    gap = float(torch.linalg.norm(mean - torch.tensor(
+        pf_observations()[-1], dtype=torch.float64)))
+    if not (gap < PF_TRACK_GAP and math.isfinite(float(out["log_ml"]))):
+        raise AssertionError(f"vmapped spiral: mean position {gap} from the "
+                             f"last observation, log_ml {out['log_ml']}")
+    with plain_versions():
+        plain = run_pf_spiral(device, 18, replay=record)
+    for what in ("state", "log_weights", "log_ml", "ancestors", "ess",
+                 "resampled"):
+        if not torch.equal(out[what], plain[what]):
+            raise AssertionError(f"vmapped spiral: {what} differs from its "
+                                 "rerun through the plain versions")
+    exact = float(hmm_forward_log_ml(*hmm_arrays(), PF_HMM_GATE_DATA))
+    seen = {"spiral_gap": gap, "spiral_log_ml": float(out["log_ml"]),
+            "launches": launches["resample_fused_from_s"], "exact": exact}
+    steps = len(PF_HMM_GATE_DATA) - 1
+    for seed, resampling, want in ((0, "multinomial", {}),
+                                   (1, "systematic", {"grid_rank": steps})):
+        rec = []
+        hmm, hl = counted(lambda: run_pf_hmm(device, seed, resampling,
+                                             record=rec))
+        require_launches(f"vmapped HMM ({resampling})", hl, want)
+        if want:
+            with plain_grid_rank():
+                plain = run_pf_hmm(device, seed + 10, resampling, replay=rec)
+            for what in ("state", "log_weights", "log_ml", "ancestors",
+                         "ess", "resampled"):
+                if not torch.equal(hmm[what], plain[what]):
+                    raise AssertionError(
+                        f"vmapped HMM ({resampling}): {what} differs from "
+                        "its rerun through grid_rank's plain version")
+        log_ml = float(hmm["log_ml"])
+        if not abs(log_ml - exact) <= HMM_LOG_ML_GAP:
+            raise AssertionError(f"vmapped HMM ({resampling}): log_ml "
+                                 f"{log_ml} vs exact {exact}")
+        seen[f"hmm_{resampling}"] = log_ml
+        seen[f"grid_rank_{resampling}"] = hl["grid_rank"]
+    return seen
+
+
+def time_pf_leg(runs=PF_TIMED_RUNS, device="cuda"):
+    """Phase 25's timing: the median wall time of ``runs`` spiral filters
+    after a warm-up (particle-steps/s)."""
+    run_pf_spiral(device, 40)
+    times = []
+    for i in range(runs):
+        sync(device)
+        t0 = time.perf_counter()
+        run_pf_spiral(device, 41 + i)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def check_mcmc_chains(device="cuda"):
+    """Phase 26: tests/test_mcmc_compiled.py:46-59's gate at MCMC_CHAINS
+    chains with the counters at 0 (no launch): the drift-MH kernel on the
+    conjugate model, MCMC_ITERS iterations, the pooled draws after
+    MCMC_BURN with mean 0.5 and sd sqrt(0.5) within MCMC_GAP. Returns
+    what was seen, its wall time too."""
+    from modppl_tpu_torch.core.keys import split_keys
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.dists import normal
+    from modppl_tpu_torch.inference.mcmc import mcmc_chains, mh_kernel
+    from modppl_tpu_torch.modeling import gen
+
+    @gen
+    def conjugate(h):
+        mu = h.sample(normal, (0.0, 1.0), "mu")
+        h.sample(normal, (mu, 1.0), "x")
+        return mu
+
+    @gen
+    def drift(h, trace, scale):
+        h.sample(normal, (trace.data.read("mu"), scale), "mu")
+
+    obs = Trie.from_dict({"x": torch.tensor(1.0, device=device)})
+
+    def run():
+        traces0, _ = conjugate.generate(split_keys(2, MCMC_CHAINS, device),
+                                        (), obs)
+        return mcmc_chains(3, mh_kernel(conjugate, drift, (0.8,)), traces0,
+                           MCMC_ITERS, MCMC_CHAINS,
+                           extract=lambda t: t.data.read("mu"))
+
+    sync(device)
+    t0 = time.perf_counter()
+    (_, mus, accepts), launches = counted(run)
+    wall = time.perf_counter() - t0
+    require_launches("mcmc_chains", launches, {})
+    kept = mus[:, MCMC_BURN:].double()
+    seen = {"mean": float(kept.mean()), "sd": float(kept.std()),
+            "accept": float(accepts.double().mean()), "wall_s": wall}
+    if mus.shape != (MCMC_CHAINS, MCMC_ITERS) or \
+            abs(seen["mean"] - 0.5) > MCMC_GAP or \
+            abs(seen["sd"] - math.sqrt(0.5)) > MCMC_GAP:
+        raise AssertionError(f"mcmc_chains: {seen}")
+    return seen
+
+
+def slice8_phases(card, profile, device="cuda", clock=None):
+    """Phases 23-26 (slice 8), with their lines of output."""
+    lanes_seen = check_lane_streams(device)
+    print(f"# lane streams at C={LANES}: keys, words and uniforms on the "
+          f"card == the CPU's, bitwise; normals within "
+          f"{lanes_seen}"
+          f" (1 + |z|); the first C lanes of 2C draws == the C draws "
+          f"({card})")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("23 lane streams")
+    nu = check_nuts_leg(device)
+    ess_min = min(nu["ess"])
+    print(f"# main path: NUTS on the hierarchical model {NUTS} float32 "
+          f"through nuts_runner(device={device!r}), no kernel launched; "
+          f"mean a, b, c {[round(x, 5) for x in nu['means']]} exact "
+          f"{[round(x, 5) for x in nu['exact']]} (bound "
+          f"{[round(x, 5) for x in nu['bound']]}); divergences "
+          f"{nu['divergence_rate']!r}; mean tree depth {nu['mean_depth']!r} "
+          f"(max {nu['max_depth']}); accept {nu['accept']!r}; eps "
+          f"{nu['eps']!r}")
+    print(f"# nuts leg: {nu['wall_s'] * 1e3:.3f} ms (one timed run, key 0); "
+          f"min-coord ESS {ess_min:.1f} -> {ess_min / nu['wall_s']:.1f} "
+          f"ESS/s; {nu['leaves_a_transition']:.3f} leaves a transition, "
+          f"{nu['vag_calls']} value-and-grad calls "
+          f"({nu['wall_s'] * 1e3 / nu['vag_calls']:.4f} ms a call) ({card})")
+    sys.stdout.flush()
+    profile_nuts(device)
+    sys.stdout.flush()
+    if clock:
+        clock.mark("24 NUTS leg")
+    pf = check_pf_leg(device)
+    pf_s, pf_times = time_pf_leg(device=device)
+    print(f"# main path: the spiral ScanKernel through the vmapped "
+          f"particle_filter, N={PF_PARTICLES} T={PF_STEPS} float32, "
+          f"systematic; launches resample_fused_from_s {pf['launches']}, no "
+          f"other kernel; mean position {pf['spiral_gap']!r} from the last "
+          f"observation; == its rerun through the plain versions on the "
+          f"recorded draws (no kernel launched), bitwise; HMM gate at "
+          f"N={PF_PARTICLES}: log_ml multinomial {pf['hmm_multinomial']!r}, "
+          f"systematic {pf['hmm_systematic']!r} (grid_rank launches "
+          f"{pf['grid_rank_systematic']}; == its rerun through grid_rank's "
+          f"plain version on the recorded draws, bitwise), exact "
+          f"{pf['exact']!r}")
+    print(f"# vmapped spiral filter: median {pf_s * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in pf_times]} ms -> "
+          f"{PF_PARTICLES * PF_STEPS / pf_s:.1f} particle-steps/s ({card})")
+    if profile:
+        profile_run("vmapped spiral filter",
+                    lambda: run_pf_spiral(device, 61), pf_s)
+    sys.stdout.flush()
+    if clock:
+        clock.mark("25 vmapped filter")
+    mc = check_mcmc_chains(device)
+    print(f"# main path: mcmc_chains, drift MH on the conjugate model, "
+          f"{MCMC_CHAINS} chains x {MCMC_ITERS}, no kernel launched; mean "
+          f"{mc['mean']!r} sd {mc['sd']!r} (0.5, {math.sqrt(0.5):.5f}); "
+          f"accept {mc['accept']!r}; {mc['wall_s'] * 1e3:.3f} ms -> "
+          f"{MCMC_CHAINS * MCMC_ITERS / mc['wall_s']:.4g} transitions/s "
+          f"({card})")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("26 mcmc_chains")
+
+
 SOURCES = {
     "stats_cumsum": ("modppl_tpu_torch/csrc/grid_positions.cu",
                      "modppl_tpu/ops/grid_positions_pallas.py:59"),
@@ -2827,10 +3253,24 @@ def turns(other, groups=tuple(TURN_GROUPS)):
     return 0
 
 
-def slice7_phases(card, profile, device="cuda"):
+class PhaseClock:
+    """Prints the seconds of each phase group as it ends, and the total."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def mark(self, name):
+        now = time.perf_counter()
+        print(f"# seconds: phase {name} {now - self.last:.1f} s (total "
+              f"{now - self.start:.1f} s)")
+        sys.stdout.flush()
+        self.last = now
+
+
+def slice7_phases(card, profile, device="cuda", clock=None):
     """Phases 20-22 (slice 7), with their lines of output; ``profile``
     adds phases 20 and 21's profiler breakdowns."""
-    chees_run, chees_calls, chees_out, ch = check_chees_leg(device)
+    chees_run, chees_out, ch = check_chees_leg(device)
     print(f"# main path: ChEES on the hierarchical model {CHEES} float32 "
           f"through chees_runner(device={device!r}), no kernel launched; "
           f"mean a, b, c {[round(x, 5) for x in ch['means']]} exact "
@@ -2839,20 +3279,18 @@ def slice7_phases(card, profile, device="cuda"):
           f"tau {ch['tau']!r}; eps {ch['eps']!r}; mean leapfrog "
           f"{ch['mean_leapfrog']!r}; {ch['vag_calls']} value-and-grad calls; "
           f"divergences {ch['divergences']}; min ESS {min(ch['ess']):.1f}")
-    ct = time_chees_leg(chees_run, chees_calls, chees_out, device)
-    print(f"# chees leg: key 0 twice bitwise equal; median "
-          f"{ct['median_s'] * 1e3:.3f} ms of "
-          f"{[round(t * 1e3, 3) for t in ct['times']]} ms; min-coord ESS "
-          f"{ct['ess_min']:.1f} -> {ct['ess_min'] / ct['median_s']:.1f} "
-          f"ESS/s; tau {ct['tau']:.4f}; mean leapfrog "
-          f"{ct['mean_leapfrog']:.3f}; accept {ct['accept']:.4f}; "
-          f"value-and-grad calls {ct['vag_calls']} -> "
-          f"{ct['median_s'] * 1e3 / statistics.median(ct['vag_calls']):.4f} "
-          f"ms a call ({card})")
+    check_chees_rerun(device)
+    wall = ch["wall_s"]
+    print(f"# chees leg: {wall * 1e3:.3f} ms (one timed run, key 0); "
+          f"min-coord ESS {min(ch['ess']):.1f} -> {min(ch['ess']) / wall:.1f} "
+          f"ESS/s; {wall * 1e3 / ch['vag_calls']:.4f} ms a value-and-grad "
+          f"call; key 0 twice bitwise equal at {CHEES_RERUN} ({card})")
     if profile:
         with full_fp32():
-            profile_run("chees leg", lambda: chees_run(11), ct["median_s"])
+            profile_run("chees leg", lambda: chees_run(11), wall)
     sys.stdout.flush()
+    if clock:
+        clock.mark("20 ChEES leg")
     vi = check_vi_leg(device)
     print(f"# main path: ADVI on logistic regression {VI} float32 through "
           f"advi(device={device!r}), no kernel launched; mu within "
@@ -2860,8 +3298,8 @@ def slice7_phases(card, profile, device="cuda"):
           f"{VI_MU_BOUND}; oracle se {vi['oracle_se']!r}); final ELBO "
           f"{vi['final_elbo']!r} <= log evidence {vi['log_evidence']!r}")
     vt = time_vi_leg(device=device)
-    print(f"# vi leg: median {vt['median_s'] * 1e3:.3f} ms of "
-          f"{[round(t * 1e3, 3) for t in vt['times']]} ms -> "
+    print(f"# vi leg: {vt['median_s'] * 1e3:.3f} ms (median of "
+          f"{[round(t * 1e3, 3) for t in vt['times']]} ms) -> "
           f"{vt['evals_per_s']:.1f} MC model evals/s; final ELBO "
           f"{vt['final_elbo']:.4f}; "
           f"{vt['median_s'] * 1e3 / VI['num_steps']:.4f} ms a step ({card})")
@@ -2871,12 +3309,16 @@ def slice7_phases(card, profile, device="cuda"):
             profile_run("vi leg", lambda: run_vi(device, 11, data),
                         vt["median_s"])
     sys.stdout.flush()
+    if clock:
+        clock.mark("21 VI leg")
     small = check_small_entries(device)
     for name, seen in small.items():
         rest = {k: v for k, v in seen.items() if k != "ms"}
         print(f"# small entry {name}: {seen['ms']:.1f} ms, no kernel "
               f"launched; {rest} ({card})")
     sys.stdout.flush()
+    if clock:
+        clock.mark("22 small entries")
 
 
 def main(argv):
@@ -2894,6 +3336,7 @@ def main(argv):
 
     from modppl_tpu_torch.ops import _build
 
+    clock = PhaseClock()
     path, seconds, log = _build.build()
     print(f"# build: {seconds:.2f} s -> {path.name}")
     for line in log.splitlines():
@@ -2908,6 +3351,7 @@ def main(argv):
           f"N in {list(GRID_SIZES)} and on {GRID_ODD_ROWS} rows of "
           f"{list(GRID_ODD_WIDTHS)}")
     sys.stdout.flush()
+    clock.mark("2-3 build, kernels")
 
     launches, seen = check_main_path("cuda")
     print(f"# main path: spiral filter N={N} T={T} float32 on cuda; "
@@ -2931,6 +3375,7 @@ def main(argv):
         profile_run("spiral filter", lambda: run_filter(
             "cuda", N, 201, store_ancestry=False), median_s)
     sys.stdout.flush()
+    clock.mark("4-5 spiral filter")
 
     hmc_errs, agree, bitwise = check_hmc_kernels("cuda")
     print("# HMC d <= 12 kernels == plain versions on the card, bitwise "
@@ -2966,6 +3411,7 @@ def main(argv):
         print(f"# {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms at its leg's shapes")
     sys.stdout.flush()
+    clock.mark("6-8 HMC legs")
 
     s3_errs = check_slice3_kernels("cuda")
     print(f"# slice 3 kernels on the card: grid_rank == plain bitwise (N in "
@@ -3018,6 +3464,7 @@ def main(argv):
         lib = "" if l_ms is None else f", library {l_ms:.4f} ms"
         print(f"# {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms{lib}, "
               f"bound {b_ms:.4f} ms ({by}) at its main path's shapes")
+    clock.mark("9-12 HMM, hmc_quadratic, slice-3 kernels")
     guided_launches, guided_seen = check_guided_leg("cuda")
     print(f"# main path: guided and rejuvenated LG filter N={N} T={T} "
           f"float32 through sharded_batched_particle_filter (locally optimal "
@@ -3039,6 +3486,7 @@ def main(argv):
         profile_run("guided LG filter", lambda: run_guided("cuda", N, 201),
                     guided_s)
     sys.stdout.flush()
+    clock.mark("13-14 guided leg")
     logreg_run, lr_seen = check_logreg_leg("cuda")
     print(f"# main path: logistic regression {LOGREG} float32 through "
           f"hmc_runner(device='cuda'), generic pooled path, no kernel "
@@ -3069,6 +3517,7 @@ def main(argv):
         with full_fp32():
             profile_run("logreg leg", lambda: logreg_run(11), lr_s)
     sys.stdout.flush()
+    clock.mark("15-16 logistic leg")
     is_seen = check_is_leg("cuda")
     print(f"# main path: importance_sampling(vectorized=True) on the "
           f"saturated hierarchical model, N={IS_LANES} lanes float32, no "
@@ -3127,7 +3576,9 @@ def main(argv):
             profile_run(f"eager {name} filter", lambda: run("cuda", 61),
                         pf_s)
     sys.stdout.flush()
-    slice7_phases(card, "--profile" in argv)
+    clock.mark("17-19 importance, MH, eager filters")
+    slice7_phases(card, "--profile" in argv, clock=clock)
+    slice8_phases(card, "--profile" in argv, clock=clock)
     launches.update(hmc_launches)
     launches.update(quad_launches)
     launches["grid_rank"] = rank_launches

@@ -19,6 +19,12 @@ the reference's draws passes them so.
 
 import torch
 
+from modppl_tpu_torch.core.keys import normal_lanes, uniform_lanes
+
+LANE_TODO = ("no lane form (sample_lanes): only normal, uniform, bernoulli "
+             "and categorical draw from per-lane key streams so far (ROADMAP "
+             "Queue 1 item 13)")
+
 
 def as_param_tuple(params):
     """Normalize params: a bare scalar becomes a 1-tuple."""
@@ -67,6 +73,10 @@ class Distribution:
     #: default unconstraining bijector (inference/transforms.py)
     support = "real"
 
+    #: the standard variates ``_from_standard`` finishes, "normal" or
+    #: "uniform"; None: no lane form (``sample_lanes`` raises)
+    standard = None
+
     def logpdf(self, x, params):
         """log p(x; params), elementwise over leading batch axes."""
         return self._logpdf(x, *as_param_tuple(params))
@@ -85,6 +95,30 @@ class Distribution:
     def from_standard(self, z, params):
         """The draw that the standard variates ``z`` give at ``params``."""
         return self._from_standard(z, *as_param_tuple(params))
+
+    def sample_lanes(self, key_lanes, params, dtype=None):
+        """One draw a lane, each from its lane's own stream: ``key_lanes``
+        is a (C,) tensor of lane keys (core/keys.py). Parameters with a
+        lane axis (``batched``) give draws of their own shape; shared ones
+        give ``(C,)`` + their shape. The standard variates of a lane's draw
+        depend only on its key and its shape, never on C."""
+        if self.standard is None:
+            raise NotImplementedError(f"{self!r}: {LANE_TODO}")
+        params = as_param_tuple(params)
+        dtype = _sample_dtype(params, dtype)
+        shape = self._lane_shape(params)
+        c = key_lanes.shape[0]
+        if not self.batched(params):
+            shape = (c,) + shape
+        elif shape[:1] != (c,):
+            raise ValueError(f"{self!r}: parameters of shape {shape} have "
+                             f"no leading axis of the {c} lanes")
+        draw = normal_lanes if self.standard == "normal" else uniform_lanes
+        return self._from_standard(draw(key_lanes, shape[1:], dtype), *params)
+
+    def _lane_shape(self, params):
+        """One draw's shape at ``params``, a lane axis included."""
+        return tuple(torch.broadcast_shapes(*(shape_of(p) for p in params)))
 
     def batched(self, params):
         """True if a parameter carries a batch axis beyond the event rank:

@@ -42,6 +42,7 @@ class Bernoulli(Distribution):
 
     is_discrete = True
     support = "discrete"
+    standard = "uniform"
 
     def _logpdf(self, x, p):
         if not torch.is_tensor(x) and not torch.is_tensor(p):
@@ -55,11 +56,15 @@ class Bernoulli(Distribution):
         return torch.rand(shape, generator=gen, device=gen.device,
                           dtype=dtype) < p
 
+    def _from_standard(self, u, p):
+        return u < p
+
 
 class UniformContinuous(Distribution):
     """Uniform on [a, b], inclusive bounds, -inf outside."""
 
     support = "other"  # an interval whose bounds are parameters
+    standard = "uniform"
 
     @staticmethod
     def _check(a, b):
@@ -137,11 +142,16 @@ class Categorical(Distribution):
 
     is_discrete = True
     support = "discrete"
+    standard = "uniform"
 
     def batched(self, params):
         # the probability axis is the event; a batch is any axis before it
         (probs,) = params
         return torch.is_tensor(probs) and probs.ndim > 1
+
+    def _lane_shape(self, params):
+        (probs,) = params
+        return tuple(probs.shape[:-1])
 
     def _logpdf(self, x, probs):
         k = probs.shape[-1]
@@ -155,33 +165,38 @@ class Categorical(Distribution):
 
     def _sample(self, gen, shape, dtype, probs):
         batch = torch.broadcast_shapes(shape, probs.shape[:-1])
+        u = torch.rand(batch, generator=gen, device=gen.device,
+                       dtype=probs.dtype)
+        return self._from_standard(u, probs)
+
+    def _from_standard(self, u, probs):
+        """The index one uniform ``u`` a draw gives (``u`` the draws' batch
+        shape)."""
         k = probs.shape[-1]
         if k > SMALL_K:
-            return self._sample_search(gen, batch, probs)
+            return self._search(u, probs)
         # the running sums over the K columns, one elementwise add each (a
         # torch.cumsum over K = 3 columns of 2^20 rows is a slow scan on the
         # card)
         cdf = [probs[..., 0]]
         for j in range(1, k):
             cdf.append(cdf[-1] + probs[..., j])
-        u = torch.rand(batch, generator=gen, device=gen.device,
-                       dtype=probs.dtype) * cdf[-1]
+        u = u * cdf[-1]
         # index = #{k < K - 1 : cdf_k <= u}: a zero-probability index is
         # never drawn
-        idx = torch.zeros(batch, dtype=torch.int32, device=gen.device)
+        idx = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
         for c in cdf[:-1]:
             idx += c <= u
         return idx
 
     @staticmethod
-    def _sample_search(gen, batch, probs):
+    def _search(u, probs):
         """The large-K arm: the same rule, #{k : cdf_k <= u} clamped to
         K - 1, by ``searchsorted(cdf, u, right=True)``: one row searched
         by every draw, or one row a draw."""
         k = probs.shape[-1]
+        batch = u.shape
         cdf = _row_cdf(probs.reshape(-1, k))
-        u = torch.rand(batch, generator=gen, device=gen.device,
-                       dtype=probs.dtype)
         if cdf.shape[0] == 1:
             u = u.reshape(1, -1)
         else:
@@ -193,6 +208,8 @@ class Categorical(Distribution):
 
 class Normal(Distribution):
     """Gaussian with (mu, std-dev) parameters: -(z^2 + ln 2pi)/2 - ln sigma."""
+
+    standard = "normal"
 
     def _logpdf(self, x, mu, std):
         z = (x - mu) / std

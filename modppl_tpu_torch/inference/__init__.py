@@ -1,8 +1,8 @@
 """Inference: importance sampling, Metropolis-Hastings, the eager particle
 filter, exact enumeration, the Kalman filters, MALA, ChEES-HMC, ADVI and
-MAP / Laplace over any GenFn; the batched filters (``vsmc``), HMC
-(``hmc``) and the batched MCMC kernels (``mcmc``) are modules of their
-own."""
+MAP / Laplace over any GenFn; the vmapped and batched filters (``vsmc``),
+HMC (``hmc``), NUTS (``nuts``) and the batched MCMC kernels and chains
+(``mcmc``) are modules of their own."""
 
 from modppl_tpu_torch.inference.chees import chees, chees_runner
 from modppl_tpu_torch.inference.enumerate import (

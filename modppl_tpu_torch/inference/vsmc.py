@@ -1,6 +1,15 @@
-"""Batched SMC: the state, its initialisation and the batched-tier particle
-filter, bootstrap, guided and rejuvenated (counterpart of
-modppl_tpu/inference/vsmc.py:38-152, 199-337).
+"""Batched SMC: the state, its initialisation, the vmapped filter and the
+batched-tier particle filter, bootstrap, guided and rejuvenated
+(counterpart of modppl_tpu/inference/vsmc.py).
+
+Two tiers. The vmapped one (``smc_init``, ``smc_step``,
+``particle_filter``) is the reference's ``vmap`` over particles: particle
+i is keyed by its own lane (``split(k, N)[i]``, core/keys.py) and the
+per-particle kernel runs ONCE over the lane axis with lane keys
+(modeling/handlers.py), so particle i's draws are those of its key alone.
+The batched tier (``batched_smc_init``, ``batched_smc_step``,
+``batched_particle_filter``) draws a site for every particle from one
+stream, as the reference's batched tier does.
 
 The particle axis is an ordinary tensor axis: one generate per step extends
 every particle at once, and resampling is one scheme of
@@ -33,10 +42,23 @@ from typing import Any
 import torch
 from torch.utils import _pytree as pytree
 
-from modppl_tpu_torch.core.gfi import ArgDiff
-from modppl_tpu_torch.core.keys import fold_in, split
+from modppl_tpu_torch.core.gfi import ArgDiff, Trace
+from modppl_tpu_torch.core.keys import (
+    fold_in,
+    fold_in_lanes,
+    split,
+    split_keys,
+    split_lanes,
+    uniform_lanes,
+)
+from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.inference.mcmc import accept_uniform, tree_select
-from modppl_tpu_torch.modeling.handlers import entry_device, to_device
+from modppl_tpu_torch.modeling.autobatch import _per_particle
+from modppl_tpu_torch.modeling.handlers import (
+    entry_device,
+    infer_dtype_device,
+    to_device,
+)
 from modppl_tpu_torch.ops.resample import uniform
 from modppl_tpu_torch.parallel.resample import (
     RESAMPLERS,
@@ -338,5 +360,198 @@ def batched_particle_filter(key, kernel, state0, init_constraints,
     return {"state": s.state, "log_weights": s.log_weights, "log_ml": log_ml,
             "ancestors": torch.stack(parents), "ess": torch.stack(ess),
             "resampled": torch.stack(resampled),
+            "acceptance": (torch.stack(acceptance)
+                           if rejuvenation is not None else None)}
+
+
+# --------------------------------------------------------------------------
+# The vmapped tier: one key stream a particle
+# --------------------------------------------------------------------------
+
+def smc_init(key, kernel, state0, constraints, num_particles, pool=None):
+    """Initialize N particles: ONE generate of ``kernel.init`` over args
+    ``(state0,)`` with the N lane keys ``split(k_sim, N)``, the
+    reference's vmapped ``init.generate``. ``pool`` replaces the draws of
+    the addresses it holds. Returns (state, the batched init trace)."""
+    k_sim, k_carry = split(key)
+    dtype, device = infer_dtype_device((state0,))
+    keys = split_keys(k_sim, num_particles, device)
+    trace, log_weights = kernel.init.generate(keys, (state0,), constraints,
+                                              pool=pool)
+    log_ml = torch.zeros((), dtype=dtype, device=device)
+    log_weights = _per_particle(log_weights, num_particles, dtype, device)
+    return SMCState(k_carry, trace.retv, log_weights, log_ml, 1), trace
+
+
+def _rejuvenate_lanes(key, trace, kernel, selection, num_moves, moves=None,
+                      record=None):
+    """The reference's ``_rejuvenate``: ``num_moves`` regenerative-MH moves
+    of every particle over ``selection``, particle i keyed ``split(key,
+    N)[i]``, move r ``fold_in(k_i, r)`` split into the regenerate's key and
+    the accept uniform's. ``moves`` replays ``(pool, accept_u)`` a move;
+    ``record`` receives them. Returns (trace, the accept flags of each
+    move)."""
+    missing = [a for a in selection.leaf_addresses()
+               if trace.data.search(a) is None]
+    if missing:
+        raise ValueError(
+            f"rejuvenation: selection addresses {missing} not in the step "
+            f"kernel's trace (has {trace.data.addresses()})")
+    n = trace.logjp.shape[0]
+    keys = split_keys(key, n, trace.logjp.device)
+    accepts = []
+    for r in range(num_moves):
+        pool, u = moves[r] if moves else (None, None)
+        k_regen, k_acc = split_lanes(fold_in_lanes(keys, r), 2).unbind(-1)
+        new, w = kernel.step.regenerate(k_regen, trace, trace.args,
+                                        ArgDiff.NO_CHANGE, selection,
+                                        pool=pool)
+        w = _per_particle(w, n, trace.logjp.dtype, trace.logjp.device)
+        if u is None:
+            u = uniform_lanes(k_acc, (), w.dtype)
+        accept = torch.log(u) < w
+        if record is not None:
+            record.append(({a: new.data[a]
+                            for a in selection.leaf_addresses()}, u))
+        trace = tree_select(accept, new, trace)
+        accepts.append(accept)
+    return trace, accepts
+
+
+def smc_step(s, kernel, constraints_t, num_particles, resampler,
+             ess_threshold, store_traces=True, rejuvenation=None,
+             proposal=None, proposal_params=None, replay=None, record=None):
+    """One step of the vmapped filter: (maybe) resample, extend every
+    particle with ONE generate of ``kernel.step`` over the N lane keys
+    ``split(k_gen, N)``, optionally guided by ``proposal`` (particle i's
+    lane split into the proposal's key and the model's) and rejuvenated.
+    The key splits four ways, as the reference's does. ``replay`` / ``record``
+    as ``batched_smc_step``'s. Returns (state, (trace or None, parents,
+    ess, resampled, acceptance))."""
+    n = num_particles
+    key, k_res, k_gen, k_rej = split(s.key, 4)
+    u, pool, proposal_pool, moves = replay_entry(replay)
+    s, parents, ess, resampled, u = _resample(
+        k_res, s, resampler, ess_threshold, n, u=u)
+    keys = split_keys(k_gen, n, s.log_weights.device)
+    proposed = None
+    if proposal is None:
+        trace, w = kernel.step.generate(keys, (s.t, s.state), constraints_t,
+                                        pool=pool)
+    else:
+        k_p, k_m = split_lanes(keys, 2).unbind(-1)
+        pargs = ((s.t, s.state, constraints_t) if proposal_params is None
+                 else (s.t, s.state, constraints_t, proposal_params))
+        ptrace = proposal.simulate(k_p, pargs, pool=proposal_pool)
+        cons = constraints_t.copy()
+        cons.merge(ptrace.data)
+        trace, w = kernel.step.generate(k_m, (s.t, s.state), cons,
+                                        pool=pool)
+        w = w - ptrace.logjp
+        proposed = {a: ptrace.data[a] for a in ptrace.data.addresses()}
+    w = _per_particle(w, n, s.log_weights.dtype, s.log_weights.device)
+    moved = [] if record is not None else None
+    if record is not None:
+        drawn = generated_draws(trace, constraints_t.addresses()
+                                + list(proposed or ()))
+        record.append((u, drawn) if proposal is None and rejuvenation is None
+                      else (u, drawn, proposed, moved))
+    acceptance = None
+    if rejuvenation is not None:
+        selection, num_moves = rejuvenation
+        trace, accepts = _rejuvenate_lanes(k_rej, trace, kernel, selection,
+                                           num_moves, moves=moves,
+                                           record=moved)
+        acceptance = torch.stack(accepts).to(w.dtype).mean(dim=1)
+    new = SMCState(key, trace.retv, s.log_weights + w, s.log_ml, s.t + 1)
+    return new, (trace if store_traces else None, parents, ess, resampled,
+                 acceptance)
+
+
+def _stack_tries(tries):
+    """One Trie whose values and log-probabilities are the given Tries'
+    stacked on a new leading axis."""
+    first = tries[0]
+    out = Trie()
+    out.dist = first.dist
+    if first.has_inner():
+        out.value = torch.stack([torch.as_tensor(t.value) for t in tries])
+    out.logp = (torch.stack([torch.as_tensor(t.logp) for t in tries])
+                if any(torch.is_tensor(t.logp) for t in tries) else first.logp)
+    out.children = {k: _stack_tries([t.children[k] for t in tries])
+                    for k in first.children}
+    return out
+
+
+def _stack_traces(traces):
+    """The per-step batched traces as one Trace with a leading time axis
+    (the reference's scanned ``step_traces``)."""
+    return Trace(None, _stack_tries([t.data for t in traces]),
+                 pytree.tree_map(lambda *xs: torch.stack(xs),
+                                 *[t.retv for t in traces]),
+                 torch.stack([t.logjp for t in traces]))
+
+
+def particle_filter(key, kernel, state0, init_constraints, step_constraints,
+                    num_particles, resampling="systematic", ess_threshold=1.0,
+                    store_traces=True, rejuvenation=None, proposal=None,
+                    proposal_params=None, replay=None, record=None,
+                    device=None):
+    """The vmapped particle filter (the reference's ``particle_filter``), on
+    the card unless ``device`` names another (``device="cpu"``);
+    ``state0``, the constraints and ``proposal_params`` are moved there.
+
+    ``kernel`` is a per-particle ScanKernel; each step's kernel body runs
+    once over the particle axis with one key stream a particle.
+    ``step_constraints`` holds the T-1 steps' values stacked on their
+    leading axis. ``resampling`` names a scheme of ``RESAMPLERS``; a step
+    resamples when ESS < ``ess_threshold`` * N (systematic resampling of a
+    float32 state takes kernel 3 alone, of an int32 state S ->
+    ``grid_rank``).
+    ``proposal`` takes ``(t, state, constraints_t[, proposal_params])``;
+    ``rejuvenation`` is ``(Selection, num_moves)``. ``replay`` / ``record``
+    carry every draw, as ``batched_particle_filter``'s.
+
+    Returns a dict: ``state``, ``log_weights``, ``log_ml``, ``ancestors``
+    ((T-1, N) int32), ``ess`` and ``resampled`` ((T-1,) each),
+    ``init_traces``, ``step_traces`` (the steps' traces stacked on a
+    leading time axis; None without ``store_traces``) and ``acceptance``
+    ((T-1, num_moves); None without rejuvenation). Nothing is read back to
+    the host.
+    """
+    device = entry_device(device, "particle_filter")
+    if resampling not in RESAMPLERS:
+        raise ValueError(f"resampling: expected one of {sorted(RESAMPLERS)}, "
+                         f"got {resampling!r}")
+    resampler = RESAMPLERS[resampling]
+    state0, init_constraints, step_constraints, proposal_params = to_device(
+        (state0, init_constraints, step_constraints, proposal_params), device,
+        trie_tensors=True)
+    steps = num_steps(step_constraints, replay)
+    s, init_traces = smc_init(key, kernel, state0, init_constraints,
+                              num_particles,
+                              pool=replay[0][1] if replay else None)
+    if record is not None:
+        record.append((None, generated_draws(init_traces, init_constraints)))
+    traces, parents, ess, resampled, acceptance = [], [], [], [], []
+    for i in range(steps):
+        cons_t = step_constraints.map(lambda v: v[i])
+        s, (tr, p, e, r, a) = smc_step(
+            s, kernel, cons_t, num_particles, resampler, ess_threshold,
+            store_traces=store_traces, rejuvenation=rejuvenation,
+            proposal=proposal, proposal_params=proposal_params,
+            replay=replay[i + 1] if replay else None, record=record)
+        traces.append(tr)
+        parents.append(p)
+        ess.append(e)
+        resampled.append(r)
+        acceptance.append(a)
+    log_ml = (s.log_ml + logsumexp(s.log_weights)
+              - math.log(float(num_particles)))
+    return {"state": s.state, "log_weights": s.log_weights, "log_ml": log_ml,
+            "ancestors": torch.stack(parents), "ess": torch.stack(ess),
+            "resampled": torch.stack(resampled),
+            "init_traces": init_traces,
+            "step_traces": _stack_traces(traces) if store_traces else None,
             "acceptance": (torch.stack(acceptance)
                            if rejuvenation is not None else None)}

@@ -8,6 +8,8 @@ with no tensor arguments must be given one; ``update`` and ``regenerate``
 otherwise run on the previous trace's device).
 """
 
+import torch
+
 from modppl_tpu_torch.core.gfi import GenFn, Trace
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.modeling.handlers import (
@@ -64,6 +66,11 @@ def _trace_dtype_device(args, trace, device):
     return infer_dtype_device(tuple(args) + (trace.data.values(),), device)
 
 
+def _key_device(key, device):
+    """A tensor of lane keys names the device when the caller does not."""
+    return key.device if device is None and torch.is_tensor(key) else device
+
+
 class Gen(GenFn):
     """A generative function defined by a Python body over a handler."""
 
@@ -77,7 +84,7 @@ class Gen(GenFn):
 
     def simulate(self, key, args, device=None, pool=None):
         args = _as_args_tuple(args)
-        dtype, device = infer_dtype_device(args, device)
+        dtype, device = infer_dtype_device(args, _key_device(key, device))
         g = SimulateHandler(key, Trace(args, Trie(), None, 0.0), dtype,
                             device, pool=pool)
         return _finish(g, self.fn(g, *args))
@@ -86,7 +93,7 @@ class Gen(GenFn):
         args = _as_args_tuple(args)
         constraints = constraints.copy()
         constraints.take_inner()  # in case constraints came from a proposal
-        dtype, device = infer_dtype_device(args, device)
+        dtype, device = infer_dtype_device(args, _key_device(key, device))
         g = GenerateHandler(key, Trace(args, Trie(), None, 0.0), constraints,
                             dtype, device, pool=pool)
         return run_generate(g, self.fn, args)

@@ -14,19 +14,29 @@ derives its own key, ``fold_in(key, addr_hash(addr))``, and draws from a
 order-independent and reproducible. ``pool`` maps addresses to pre-drawn
 values (or ``Standard`` draws) that replace a fresh draw; a call of
 another generative function gets the entries below its address.
+
+A key may also be a (C,) tensor of lane keys (core/keys.py), one a chain or
+particle: the body then runs once over the lane axis, as on the batched
+tier, each address's lane keys are ``fold_in_lanes(keys, addr_hash(addr))``
+and a site draws one value a lane from its lane's own stream
+(``Distribution.sample_lanes``). Lane i's draws are then those of the key
+``keys[i]`` alone, whatever the other lanes; the weights are per lane.
 """
 
 import torch
 
 from modppl_tpu_torch.core.address import Selection, addr_hash, normalize_addr
 from modppl_tpu_torch.core.gfi import ArgDiff, Trace
-from modppl_tpu_torch.core.keys import fold_in, generator
+from modppl_tpu_torch.core.keys import fold_in, fold_in_lanes, generator
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.dists.base import Standard
 
 
 def addr_subkey(key, addr):
-    """The per-address key: ``fold_in(key, addr_hash(addr))``."""
+    """The per-address key: ``fold_in(key, addr_hash(addr))``, lane by lane
+    for a tensor of lane keys."""
+    if torch.is_tensor(key):
+        return fold_in_lanes(key, addr_hash(addr))
     return fold_in(key, addr_hash(addr))
 
 
@@ -138,6 +148,9 @@ class _Handler:
         x = pooled(self.pool, dist, params, addr)
         if x is not None:
             return x
+        if torch.is_tensor(self.key):
+            return dist.sample_lanes(self._subkey(addr), params,
+                                     dtype=self.dtype)
         g = generator(self._subkey(addr), self.device)
         return dist.sample(g, params, dtype=self.dtype)
 
