@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py [--profile]
 
-Sixteen paths, the small entries and the lane key streams, each driven
-with every kernel's launch counter set to 0 just before it and read just
-after:
+Twenty-two paths, the small entries and the lane key streams, each
+driven with every kernel's launch counter set to 0 just before it and read
+just after:
 
 - the spiral-tracking bootstrap particle filter
   (``parallel/sharded_smc.sharded_batched_particle_filter``, one device,
@@ -64,10 +64,26 @@ after:
   and the reference's HMM gate at 10^4 particles (systematic: S ->
   ``grid_rank``);
 - ``inference/mcmc.mcmc_chains``: drift MH on the conjugate model over
-  10^4 chains, one key stream a chain.
-ChEES, ADVI, the small entries, NUTS and ``mcmc_chains`` reach no kernel of
-the port, and none may launch; nor do importance sampling, MH and the eager
-filters.
+  10^4 chains, one key stream a chain;
+- the stochastic volatility filter (``models/stochvol.sv_scan_kernel``
+  through ``batched_particle_filter(auto_batch=True)``) at 2^20 particles
+  and 100 steps, ``ess_threshold=0.5``: kernel 3 every step;
+- PMMH (``inference/pmcmc.pmmh`` with ``smc_log_ml_fn(auto_batch=True)``)
+  on the reference test's 1-D LGSSM: 64 chains x 4096 particles in one
+  chain-blocked filter a step (``inference/blocked_smc.py``), kernel 3
+  once a step for all chains, 1200 iterations;
+- particle Gibbs with ancestor sampling (``inference/pgibbs``) on the
+  reference test's LGSSM, and one conditional sweep at 2^16 x 100;
+- FIVO (``inference/fivo.fit_proposal``) at the reference test's
+  configuration, and the gradient of ``fivo_objective`` through a
+  systematically resampled filter at 2^20, through kernel 3's backward;
+- the tempered SMC samplers (``inference/smc_sampler``, HMC, MALA and the
+  adaptive ladder) on the reference test's conjugate model at 2^20
+  particles, ``grid_rank`` once a rung; parallel tempering
+  (``inference/tempering``) at 6 replicas x 4 chains x 400 rounds.
+ChEES, ADVI, the small entries, NUTS, ``mcmc_chains``, particle Gibbs,
+``fit_proposal`` and parallel tempering reach no kernel of the port, and
+none may launch; nor do importance sampling, MH and the eager filters.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -217,7 +233,46 @@ Phases, in order; any failure raises and the script exits non-zero:
     plain-version rerun of any phase may launch a kernel;
 26. runs ``mcmc_chains`` with the counters at 0 (no launch): 10^4 chains
     x 400 iterations of drift MH on the conjugate model, the pooled draws
-    after 100 with mean 0.5 and sd sqrt(0.5) within 0.03, timed.
+    after 100 with mean 0.5 and sd sqrt(0.5) within 0.03, timed;
+27. runs the SV filter (SVParams(), 2^20 x 100, ``simulate_sv``'s data
+    from key 2027) with the counters at 0: 99 launches of kernel 3 and
+    none other, the log-ML within 0.1 of a float64 grid oracle (m = 400 on
+    [-4, 2]; it must move less than 0.01 at m = 1600 on [-5, 3]),
+    resampling on 0 < k < 99 steps, every output bitwise equal to its
+    rerun through the plain versions on the recorded draws; then times it
+    (median of 5, particle-steps/s);
+28. holds kernel 3 on a chain-blocked S (64 x 4096) bitwise against its
+    plain version, one launch for all chains, and a NaN chain against the
+    others (unmoved, bitwise); then runs PMMH (64 chains x 4096 particles,
+    1200 iterations, step 0.15, the reference test's data) with the
+    counters at 0: 1201 x 9 launches of kernel 3 and none other, the
+    posterior mean after 300 within 0.07 of the float64 quadrature oracle,
+    every chain's accept in (0.05, 0.9), the estimator at a = 0.7 over 4
+    keys within 0.1 of the Kalman log-ML; timed (ms an iteration,
+    chain-iterations/s);
+29. runs particle Gibbs (T = 6, N = 32, 1500 sweeps, 300 burn-in) with the
+    counters at 0 (no launch): the trajectory's means and sds within 0.12
+    of the Kalman smoother's; then without ancestor sampling at N = 64, the
+    last step's mean within 0.12; one ``csmc_sweep`` at N = 2^16, T = 100,
+    its log-ML within 1.0 of the Kalman filter's; each timed;
+30. runs ``fit_proposal`` (N = 256, 400 steps, lr 0.03, batch 4, no
+    resampling) with the counters at 0 (no launch): the learned w_obs
+    within 0.15 and std within 0.1 of the optimal proposal's, the bound's
+    sd over 32 runs under half the initial proposal's, its mean within 0.1
+    of the Kalman log-ML; then the value and gradient of ``fivo_objective``
+    (auto-batched, systematic, ``ess_threshold=1.0``) at N = 2^20: 7
+    launches of kernel 3 and none other, the value bitwise equal to the
+    same call through the plain versions, the gradient finite, nonzero and
+    within 1e-5 relative of theirs; each timed;
+31. runs ``smc_sampler`` (HMC: 16 rungs, 2 moves, step 0.3, L = 8; MALA:
+    3 moves) and ``adaptive_smc_sampler`` on the conjugate model at 2^20
+    particles with the counters at 0: one ``grid_rank`` launch a rung and
+    none other, the reference tests' gates (weighted mean within 0.05,
+    0.07 for MALA; sd within 0.06; log-ML within 0.15, 0.2 for MALA; accept
+    above 0.4; 1 < rungs < 100, betas increasing to 1); then
+    ``parallel_tempering`` (6 replicas x 4 chains x 400 rounds, no launch):
+    the cold chain's mean and sd after 100 within 0.06, swap accept above
+    0.1; each timed.
 
 Each group of phases prints its seconds as it ends (``# seconds:``).
 
@@ -3052,6 +3107,768 @@ def slice8_phases(card, profile, device="cuda", clock=None):
         clock.mark("26 mcmc_chains")
 
 
+# --------------------------------------------------------------------------
+# slice 9: stochastic volatility, PMMH, particle Gibbs, FIVO, the tempered
+# SMC samplers and parallel tempering
+# --------------------------------------------------------------------------
+
+SV_PARTICLES = 1 << 20
+SV_STEPS = 100
+SV_ESS = 0.5
+SV_GAP = 0.1             # tests/test_stochvol.py's bound on the log-ML
+SV_ORACLE_MOVE = 0.01    # the grid oracle at m = 400 vs m = 1600, wider
+SV_TIMED_RUNS = 5
+PMMH = dict(num_chains=64, num_particles=4096, num_samples=1200, burn=300,
+            step_size=0.15, steps=10)
+# tests/test_pmcmc.py's data: the reference's lgssm_simulate(PRNGKey(0),
+# _params(0.7), 10) as the tests compute it (float64)
+PMMH_YS = (1.8543003223768244, 1.8803144089710702, 1.102049900121674,
+           -1.0271285071015643, -0.9514388130130933, -1.7638284387600267,
+           -1.0782675411112455, -0.4312744368291923, -0.4602346485465222,
+           -0.0508029016176299)
+PMMH_MEAN_GAP = 0.07     # tests/test_pmcmc.py's bounds
+PMMH_ACCEPT = (0.05, 0.9)
+PMMH_ML_GAP = 0.1
+PG = dict(steps=6, num_particles=32, num_sweeps=1500, burn=300)
+PG_GAP = 0.12            # tests/test_pgibbs.py's bound
+CSMC = dict(steps=100, num_particles=1 << 16)
+CSMC_GAP = 1.0
+FIVO = dict(num_particles=256, num_steps=400, learning_rate=0.03,
+            batch_size=4)
+FIVO_YS = (0.3, 0.5, 0.1, -0.2, 0.4, 0.9, 0.7, 0.2)  # test_batched_filter
+FIVO_GRAD_PARTICLES = 1 << 20
+FIVO_GRAD_RTOL = 1e-5
+SMCS_PARTICLES = 1 << 20
+SMCS_YS = (0.8, 1.2, 1.0)                           # tests/test_smc_sampler
+PT = dict(num_replicas=6, num_chains=4, num_rounds=400, burn=100)
+
+
+def normal_pdf(x, mu, sd):
+    return np.exp(-0.5 * ((x - mu) / sd) ** 2) / (sd * math.sqrt(2 * math.pi))
+
+
+def sv_grid_log_ml(ys, m=400, lo=-4.0, hi=2.0):
+    """tests/test_stochvol.py:27-47's oracle in float64 numpy: exact
+    filtering of SVParams() on an m-point grid of h."""
+    from modppl_tpu_torch.models.stochvol import SVParams
+
+    p = SVParams()
+    grid = np.linspace(lo, hi, m)
+    w = grid[1] - grid[0]
+    sd0 = p.sigma / math.sqrt(1 - p.phi * p.phi)
+    trans = normal_pdf(grid[None, :], p.mu + p.phi * (grid[:, None] - p.mu),
+                       p.sigma) * w
+    alpha = normal_pdf(grid, p.mu, sd0) * w
+    total = 0.0
+    for t, y in enumerate(np.asarray(ys, np.float64)):
+        if t > 0:
+            alpha = alpha @ trans
+        alpha = alpha * normal_pdf(y, 0.0, p.beta * np.exp(grid / 2.0))
+        s = alpha.sum()
+        total += math.log(s)
+        alpha /= s
+    return total
+
+
+_SV_DATA = {}
+
+
+def sv_data(device):
+    """T = SV_STEPS observations of SVParams() from simulate_sv (key 2027)
+    on ``device``, float32."""
+    from modppl_tpu_torch.models.stochvol import simulate_sv
+
+    if device not in _SV_DATA:
+        _SV_DATA[device] = simulate_sv(2027, SV_STEPS, device=device)[1].to(
+            torch.float32)
+    return _SV_DATA[device]
+
+
+def run_sv(device, seed, n=SV_PARTICLES, **kwargs):
+    """Phase 27's filter: sv_scan_kernel(SVParams()) on the batched tier,
+    systematic, ess_threshold SV_ESS."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.vsmc import batched_particle_filter
+    from modppl_tpu_torch.models.stochvol import sv_scan_kernel
+
+    ys = sv_data(device)
+    return batched_particle_filter(
+        seed, sv_scan_kernel(), torch.zeros((), device=device),
+        Trie.from_dict({"y": ys[0]}), Trie.from_dict({"y": ys[1:]}), n,
+        ess_threshold=SV_ESS, auto_batch=True, device=device, **kwargs)
+
+
+FILTER_OUTPUTS = ("state", "log_weights", "log_ml", "ancestors", "ess",
+                  "resampled")
+
+
+def require_equal(what, out, plain, keys=FILTER_OUTPUTS):
+    for k in keys:
+        if not torch.equal(out[k], plain[k]):
+            raise AssertionError(f"{what}: {k} differs from its rerun "
+                                 "through the plain versions")
+
+
+def check_sv_leg(device="cuda"):
+    """Phase 27: the SV filter at SV_PARTICLES x SV_STEPS with the counters
+    at 0: SV_STEPS - 1 launches of kernel 3 (both arms run every step) and
+    none other, the log-ML within SV_GAP of the grid oracle (which moves
+    less than SV_ORACLE_MOVE at m = 1600 on [-5, 3]), resampling on
+    0 < k < SV_STEPS - 1 steps, every output bitwise equal to its rerun
+    through the plain versions on the recorded draws."""
+    record = []
+    out, launches = counted(lambda: run_sv(device, 5, record=record))
+    require_launches("sv filter", launches,
+                     {"resample_fused_from_s": SV_STEPS - 1})
+    ys = sv_data(device).double().cpu().numpy()
+    oracle = sv_grid_log_ml(ys)
+    fine = sv_grid_log_ml(ys, m=1600, lo=-5.0, hi=3.0)
+    fired = int(out["resampled"].sum())
+    seen = {"log_ml": float(out["log_ml"]), "oracle": oracle,
+            "oracle_fine": fine, "resampled": fired,
+            "launches": launches["resample_fused_from_s"]}
+    if not (abs(seen["log_ml"] - oracle) <= SV_GAP
+            and abs(fine - oracle) < SV_ORACLE_MOVE
+            and 0 < fired < SV_STEPS - 1):
+        raise AssertionError(f"sv filter: {seen}")
+    with plain_versions():
+        plain = run_sv(device, 6, replay=record)
+    require_equal("sv filter", out, plain)
+    return seen
+
+
+def time_runs(fn, runs, device="cuda"):
+    """The median wall time of ``runs`` calls of ``fn(i)`` after a warm-up
+    call, synchronised."""
+    fn(-1)
+    times = []
+    for i in range(runs):
+        sync(device)
+        t0 = time.perf_counter()
+        fn(i)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), times
+
+
+def pmmh_model(device):
+    """tests/test_pmcmc.py:18-36's 1-D LGSSM and data (PMMH_YS), a ~
+    U(-0.99, 0.99): ``make_kernel(a_lanes)`` with normal sites, x_t ~
+    N(a x_{t-1}, sqrt(0.2)), obs ~ N(x, sqrt(0.3)), x_0 ~ N(0, 1). Returns
+    (make_kernel, ys (T,) float32 on ``device``)."""
+    from modppl_tpu_torch.dists import normal
+    from modppl_tpu_torch.inference.vsmc import ScanKernel
+    from modppl_tpu_torch.modeling import gen
+
+    q, r = math.sqrt(0.2), math.sqrt(0.3)
+
+    def make_kernel(a):
+        @gen
+        def init(h, _s0):
+            x = h.sample(normal, (0.0, 1.0), "x")
+            h.sample(normal, (x, r), "obs")
+            return x
+
+        @gen
+        def step(h, t, prev):
+            x = h.sample(normal, (a * prev, q), "x")
+            h.sample(normal, (x, r), "obs")
+            return x
+
+        return ScanKernel(init, step)
+
+    return make_kernel, torch.tensor(PMMH_YS, dtype=torch.float32,
+                                     device=device)
+
+
+def lgssm_1d(a, q, r):
+    from modppl_tpu_torch.models.lgssm import make_lgssm
+
+    return make_lgssm([[a]], [[q]], [[1.0]], [[r]], [0.0], [[1.0]],
+                      device="cpu")
+
+
+def pmmh_oracle(ys):
+    """The exact posterior mean of a by quadrature over the port's
+    float64 kalman_filter (397 points, tests/test_pmcmc.py:43-47), and the
+    Kalman log-ML at a = 0.7."""
+    from modppl_tpu_torch.inference.kalman import kalman_filter
+
+    y = torch.as_tensor(ys, dtype=torch.float64, device="cpu")[:, None]
+    grid = np.linspace(-0.99, 0.99, 397)
+    saved = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        lml = np.array([float(kalman_filter(lgssm_1d(a, 0.2, 0.3), y,
+                                            device="cpu")["log_ml"])
+                        for a in grid])
+        at_true = float(kalman_filter(lgssm_1d(0.7, 0.2, 0.3), y,
+                                      device="cpu")["log_ml"])
+    finally:
+        torch.set_default_dtype(saved)
+    w = np.exp(lml - lml.max())
+    return float((grid * w).sum() / w.sum()), at_true
+
+
+def check_blocked_kernel3(device="cuda"):
+    """Kernel 3 on the chain-blocked S at PMMH's shape (C x N = 64 x 4096):
+    one launch for every chain, bitwise its plain version; chain C / 2's
+    weights at NaN leave every other chain's ancestors and states bitwise
+    unchanged."""
+    from modppl_tpu_torch.parallel.resample import blocked_resample
+
+    c, n = PMMH["num_chains"], PMMH["num_particles"]
+    rng = np.random.default_rng(28)
+    lw = torch.from_numpy(rng.standard_normal((c, n)).astype(np.float32))
+    lw = (lw - torch.logsumexp(lw, 1, keepdim=True)).to(device)
+    u = torch.from_numpy(rng.uniform(size=c).astype(np.float32)).to(device)
+    state = torch.from_numpy(rng.standard_normal((c * n, 1)).astype(
+        np.float32)).to(device)
+    (new, parents), launches = counted(
+        lambda: blocked_resample("systematic", lw, state, u))
+    require_launches("chain-blocked kernel 3", launches,
+                     {"resample_fused_from_s": 1})
+    with plain_versions():
+        p_new, p_parents = blocked_resample("systematic", lw, state, u)
+    if not (torch.equal(new, p_new) and torch.equal(parents, p_parents)):
+        raise AssertionError("chain-blocked kernel 3 differs from its plain "
+                             "version")
+    bad = lw.clone()
+    bad[c // 2] = float("nan")
+    d_new, d_parents = blocked_resample("systematic", bad, state, u)
+    keep = torch.ones(c * n, dtype=torch.bool, device=device)
+    keep[c // 2 * n:(c // 2 + 1) * n] = False
+    if not (torch.equal(d_parents[keep], parents[keep])
+            and torch.equal(d_new[keep], new[keep])):
+        raise AssertionError("chain-blocked kernel 3: a NaN chain moved "
+                             "another chain's ancestors")
+
+
+def check_pmmh_leg(device="cuda"):
+    """Phase 28: PMMH over C x N = 64 x 4096 lanes a filter with the
+    counters at 0: (1 + num_samples) filters x (T - 1) launches of kernel
+    3 (one a step for every chain) and none other; the posterior mean of
+    a after burn-in within PMMH_MEAN_GAP of the quadrature oracle, every
+    chain's accept rate in PMMH_ACCEPT; the estimator at a = 0.7 over 4
+    chain keys within PMMH_ML_GAP of the Kalman log-ML. Timed."""
+    from modppl_tpu_torch.core.keys import split_keys
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.pmcmc import pmmh, smc_log_ml_fn
+
+    check_blocked_kernel3(device)
+    make_kernel, ys = pmmh_model(device)
+    exact_mean, exact_ml = pmmh_oracle(PMMH_YS)
+    fn = smc_log_ml_fn(make_kernel, torch.zeros((), device=device),
+                       Trie.from_dict({"obs": ys[0]}),
+                       Trie.from_dict({"obs": ys[1:]}),
+                       PMMH["num_particles"], auto_batch=True, device=device)
+    steps = PMMH["steps"] - 1
+    est, launches = counted(lambda: fn(
+        split_keys(11, 4, device), torch.full((4,), 0.7, device=device)))
+    require_launches("pmmh estimator", launches,
+                     {"resample_fused_from_s": steps})
+    est = float(est.double().mean())
+
+    def log_prior(a):
+        return torch.where(a.abs() < 0.99, 0.0, -math.inf)
+
+    sync(device)
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: pmmh(
+        1, log_prior, fn, torch.tensor(0.2), num_samples=PMMH["num_samples"],
+        num_chains=PMMH["num_chains"], step_size=PMMH["step_size"],
+        device=device))
+    wall = time.perf_counter() - t0
+    require_launches("pmmh", launches, {
+        "resample_fused_from_s": (1 + PMMH["num_samples"]) * steps})
+    samples = out["samples"][:, PMMH["burn"]:].double()
+    acc = out["accept_rate"].cpu()
+    seen = {"mean": float(samples.mean()), "exact_mean": exact_mean,
+            "accept_min": float(acc.min()), "accept_max": float(acc.max()),
+            "estimate": est, "kalman": exact_ml, "wall_s": wall,
+            "launches": launches["resample_fused_from_s"]}
+    if not (abs(seen["mean"] - exact_mean) < PMMH_MEAN_GAP
+            and PMMH_ACCEPT[0] < seen["accept_min"]
+            and seen["accept_max"] < PMMH_ACCEPT[1]
+            and abs(est - exact_ml) < PMMH_ML_GAP):
+        raise AssertionError(f"pmmh: {seen}")
+    return seen
+
+
+def pg_model(device, steps, key):
+    """tests/test_pgibbs.py:20-31's LGSSM (A 0.8, Q 0.3, H 1, R 0.4, mu0
+    0, P0 1) on ``device``: (params, ys (steps, 1), kernel, init and step
+    constraints), data from the port's lgssm_simulate."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.models.lgssm import (
+        lgssm_scan_kernel,
+        lgssm_simulate,
+        make_lgssm,
+    )
+
+    one = [[1.0]]
+    params = make_lgssm([[0.8]], [[0.3]], one, [[0.4]], [0.0], one,
+                        device=device)
+    _, ys = lgssm_simulate(key, params, steps)
+    return (params, ys, lgssm_scan_kernel(params),
+            Trie.from_dict({"obs": ys[0]}), Trie.from_dict({"obs": ys[1:]}))
+
+
+def pg_exact(ys, smoother=True):
+    """The float64 Kalman smoother's (means, sds) of x, or the filter's
+    log-ML, on the CPU."""
+    from modppl_tpu_torch.inference.kalman import (
+        kalman_filter,
+        kalman_smoother,
+    )
+    from modppl_tpu_torch.models.lgssm import make_lgssm
+
+    saved = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        params = make_lgssm([[0.8]], [[0.3]], [[1.0]], [[0.4]], [0.0],
+                            [[1.0]], device="cpu")
+        y = ys.double().cpu()
+        if not smoother:
+            return float(kalman_filter(params, y, device="cpu")["log_ml"])
+        s = kalman_smoother(params, y, device="cpu")
+        return s["means"][:, 0].numpy(), s["covs"][:, 0, 0].sqrt().numpy()
+    finally:
+        torch.set_default_dtype(saved)
+
+
+def check_pg_leg(device="cuda"):
+    """Phase 29: particle Gibbs with ancestor sampling at the reference's
+    gate configuration (PG) with the counters at 0 (no launch): the
+    trajectory's means and sds after burn-in within PG_GAP of the Kalman
+    smoother's; without ancestor sampling at twice the particles, the last
+    step's mean within PG_GAP; then one csmc_sweep at CSMC, log-ML within
+    CSMC_GAP of the Kalman filter's. Timed."""
+    from modppl_tpu_torch.inference.pgibbs import csmc_sweep, particle_gibbs
+
+    _, ys, kernel, ic, sc = pg_model(device, PG["steps"], 3)
+    sync(device)
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: particle_gibbs(
+        1, kernel, torch.zeros(1, device=device), ic, sc,
+        latent_init_addrs=("x",), latent_step_addrs=("x",),
+        num_particles=PG["num_particles"], num_sweeps=PG["num_sweeps"],
+        device=device))
+    wall = time.perf_counter() - t0
+    require_launches("particle gibbs", launches, {})
+    burn = PG["burn"]
+    traj = torch.cat([out["init"]["x"][burn:, 0][:, None],
+                      out["steps"]["x"][burn:, :, 0]], 1).double().cpu()
+    means, sds = pg_exact(ys)
+    seen = {"mean_gap": float(np.abs(traj.mean(0).numpy() - means).max()),
+            "sd_gap": float(np.abs(traj.std(0).numpy() - sds).max()),
+            "wall_s": wall}
+    plain, launches = counted(lambda: particle_gibbs(
+        3, kernel, torch.zeros(1, device=device), ic, sc,
+        latent_init_addrs=("x",), latent_step_addrs=("x",),
+        num_particles=2 * PG["num_particles"], num_sweeps=PG["num_sweeps"],
+        ancestor_sampling=False, device=device))
+    require_launches("particle gibbs without ancestor sampling", launches,
+                     {})
+    seen["no_as_gap"] = abs(float(plain["steps"]["x"][burn:, -1, 0].double()
+                                  .mean()) - float(means[-1]))
+    _, ys100, kernel100, ic100, sc100 = pg_model(device, CSMC["steps"], 4)
+    sync(device)
+    t0 = time.perf_counter()
+    sweep, launches = counted(lambda: csmc_sweep(
+        2, kernel100, torch.zeros(1, device=device), ic100, sc100,
+        {"x": torch.zeros(1, device=device)},
+        {"x": torch.zeros((CSMC["steps"] - 1, 1), device=device)},
+        CSMC["num_particles"], device=device))
+    seen["csmc_wall_s"] = time.perf_counter() - t0
+    require_launches("csmc sweep", launches, {})
+    seen["csmc_log_ml"] = float(sweep["log_ml"])
+    seen["csmc_exact"] = pg_exact(ys100, smoother=False)
+    if not (seen["mean_gap"] < PG_GAP and seen["sd_gap"] < PG_GAP
+            and seen["no_as_gap"] < PG_GAP
+            and abs(seen["csmc_log_ml"] - seen["csmc_exact"]) < CSMC_GAP
+            and sweep["ref_steps"]["x"].shape == (CSMC["steps"] - 1, 1)):
+        raise AssertionError(f"particle gibbs: {seen}")
+    return seen
+
+
+_FIVO_PROP = {}
+
+
+def fivo_proposal():
+    """tests/test_batched_filter.py:143-148's learnable proposal."""
+    from modppl_tpu_torch.dists import normal
+    from modppl_tpu_torch.modeling import gen
+
+    if not _FIVO_PROP:
+        @gen
+        def lg_learnable_proposal(h, t, prev, cons, params):
+            y = cons.read("y")
+            m = params["w_prev"] * prev + params["w_obs"] * y + \
+                params["bias"]
+            std = torch.nn.functional.softplus(params["raw_std"])
+            h.sample(normal, (m, std), "x")
+
+        _FIVO_PROP["prop"] = lg_learnable_proposal
+    return _FIVO_PROP["prop"]
+
+
+def fivo_inputs(device):
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.vsmc import ScanKernel
+
+    init, step, _ = lg_models()
+    ys = torch.tensor(FIVO_YS, dtype=torch.float32, device=device)
+    return (ScanKernel(init, step), fivo_proposal(),
+            torch.zeros((), device=device), Trie.from_dict({"y": ys[0]}),
+            Trie.from_dict({"y": ys[1:]}))
+
+
+def fivo_params(device, w_prev, w_obs, bias, raw_std):
+    return {k: torch.tensor(v, dtype=torch.float32, device=device)
+            for k, v in (("w_prev", w_prev), ("w_obs", w_obs),
+                         ("bias", bias), ("raw_std", raw_std))}
+
+
+def check_fivo_leg(device="cuda"):
+    """Phase 30: fit_proposal at the reference's configuration (FIVO,
+    ess_threshold 0: no resampling, no launch) and its gates
+    (tests/test_batched_filter.py:151-187); then the gradient of
+    fivo_objective(auto_batch=True, systematic, ess_threshold=1.0) at
+    FIVO_GRAD_PARTICLES with respect to the params: kernel 3 launches in
+    it (one a step), the value bitwise equal to the same call through the
+    plain versions, the gradient finite, nonzero and within FIVO_GRAD_RTOL
+    of the plain run's (the scatter-adds may add in other orders)."""
+    from modppl_tpu_torch.core.keys import split
+    from modppl_tpu_torch.inference.fivo import fit_proposal, fivo_objective
+
+    kernel, prop, s0, ic, sc = fivo_inputs(device)
+    want = lg_kalman_log_ml(FIVO_YS)
+    prec = 1.0 / LG_Q ** 2 + 1.0 / LG_R ** 2
+    sync(device)
+    t0 = time.perf_counter()
+    (params, bounds), launches = counted(lambda: fit_proposal(
+        0, kernel, prop, fivo_params(device, 0.0, 0.0, 0.0, 0.5), s0, ic, sc,
+        FIVO["num_particles"], num_steps=FIVO["num_steps"],
+        learning_rate=FIVO["learning_rate"], batch_size=FIVO["batch_size"],
+        ess_threshold=0.0, device=device))
+    wall = time.perf_counter() - t0
+    require_launches("fit_proposal", launches, {})
+
+    def bound_stats(p):
+        vals = torch.stack([fivo_objective(
+            k, kernel, prop, p, s0, ic, sc, FIVO["num_particles"],
+            device=device) for k in split(99, 32)]).double()
+        return float(vals.mean()), float(vals.std())
+
+    (mean_tr, std_tr), launches = counted(lambda: bound_stats(params))
+    require_launches("fivo bounds", launches, {})
+    _, std_init = bound_stats(fivo_params(device, 0.0, 0.0, 0.0, 0.5))
+    std = float(torch.nn.functional.softplus(params["raw_std"]))
+    seen = {"w_obs": float(params["w_obs"]), "w_obs_opt": 1 / LG_R ** 2 / prec,
+            "std": std, "std_opt": 1 / math.sqrt(prec), "mean": mean_tr,
+            "kalman": want, "std_trained": std_tr, "std_init": std_init,
+            "wall_s": wall, "last_bound": float(bounds[-1])}
+    if not (abs(seen["w_obs"] - seen["w_obs_opt"]) <= 0.15
+            and abs(std - seen["std_opt"]) <= 0.1
+            and std_tr < 0.5 * std_init and abs(mean_tr - want) <= 0.1):
+        raise AssertionError(f"fit_proposal: {seen}")
+
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+
+    def grad_run():
+        val = fivo_objective(7, kernel, prop, leaves, s0, ic, sc,
+                             FIVO_GRAD_PARTICLES, resampling="systematic",
+                             ess_threshold=1.0, auto_batch=True,
+                             device=device)
+        return val, torch.autograd.grad(val, tuple(leaves.values()))
+
+    sync(device)
+    t0 = time.perf_counter()
+    (val, grads), launches = counted(grad_run)
+    seen["grad_wall_s"] = time.perf_counter() - t0
+    require_launches("fivo gradient", launches,
+                     {"resample_fused_from_s": len(FIVO_YS) - 1})
+    with plain_versions():
+        p_val, p_grads = grad_run()
+    g, p_g = torch.stack(grads).double(), torch.stack(p_grads).double()
+    rel = float(((g - p_g).abs() / p_g.abs().clamp_min(1e-30)).max())
+    seen.update(grad_value=float(val.detach()), grad=g.tolist(),
+                grad_rel_err=rel,
+                grad_launches=launches["resample_fused_from_s"])
+    if not (torch.equal(val, p_val) and bool(torch.isfinite(g).all())
+            and bool((g != 0).all()) and rel <= FIVO_GRAD_RTOL):
+        raise AssertionError(f"fivo gradient through kernel 3: {seen}, "
+                             f"plain {float(p_val)!r} {p_g.tolist()}")
+    return seen
+
+
+_NN_MODEL = {}
+
+
+def nn_model():
+    """tests/test_smc_sampler.py:37-41: mu ~ N(0, 1), ys ~ iid N(mu, 0.5)."""
+    from modppl_tpu_torch.dists import normal
+    from modppl_tpu_torch.dists.iid import iid
+    from modppl_tpu_torch.modeling import gen
+
+    if not _NN_MODEL:
+        ys3 = iid(normal, 3)
+
+        @gen
+        def model(h):
+            mu = h.sample(normal, (0.0, 1.0), "mu")
+            h.sample(ys3, (mu, 0.5), "ys")
+            return mu
+
+        _NN_MODEL["model"] = model
+    return _NN_MODEL["model"]
+
+
+def nn_exact():
+    """The conjugate posterior's mean and sd and the exact log-ML."""
+    ys = np.array(SMCS_YS)
+    prec = 1.0 + 3.0 / 0.25
+    cov = 0.25 * np.eye(3) + np.ones((3, 3))
+    _, logdet = np.linalg.slogdet(2 * np.pi * cov)
+    return ((ys.sum() / 0.25) / prec, 1.0 / math.sqrt(prec),
+            float(-0.5 * (logdet + ys @ np.linalg.solve(cov, ys))))
+
+
+def check_smc_sampler_leg(device="cuda"):
+    """Phase 31: the tempered SMC samplers on nn_model at SMCS_PARTICLES
+    and parallel tempering at PT, with the counters at 0: one grid_rank
+    launch a rung (both arms every rung) and none other for the samplers,
+    none for parallel tempering; tests/test_smc_sampler.py's gates. Each
+    run timed."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.smc_sampler import (
+        adaptive_smc_sampler,
+        smc_sampler,
+    )
+    from modppl_tpu_torch.inference.tempering import parallel_tempering
+
+    obs = Trie.from_dict({"ys": torch.tensor(SMCS_YS, dtype=torch.float32,
+                                             device=device)})
+    mean, sd, lml = nn_exact()
+    model = nn_model()
+    seen = {"exact": (mean, sd, lml)}
+    runs = {
+        "hmc": (lambda: smc_sampler(
+            0, model, (), obs, num_particles=SMCS_PARTICLES, num_temps=16,
+            num_moves=2, move="hmc", step_size=0.3, num_leapfrog=8,
+            device=device), (0.05, 0.06, 0.15)),
+        "mala": (lambda: smc_sampler(
+            1, model, (), obs, num_particles=SMCS_PARTICLES, num_temps=16,
+            num_moves=3, move="mala", step_size=0.3, device=device),
+            (0.07, None, 0.2)),
+        "adaptive": (lambda: adaptive_smc_sampler(
+            4, model, (), obs, num_particles=SMCS_PARTICLES, target_ess=0.9,
+            num_moves=2, move="hmc", step_size=0.3, device=device),
+            (0.05, None, 0.15)),
+    }
+    for name, (run, (mean_tol, sd_tol, lml_tol)) in runs.items():
+        sync(device)
+        t0 = time.perf_counter()
+        out, launches = counted(run)
+        wall = time.perf_counter() - t0
+        rungs = out.get("num_temps", 16)
+        require_launches(f"smc_sampler {name}", launches,
+                         {"grid_rank": rungs})
+        w = torch.exp(out["log_weights"].double())
+        mus = out["particles"]["mu"].double()
+        m = float((w * mus).sum())
+        s = float(((w * (mus - m) ** 2).sum()).sqrt())
+        acc = out["accept_rate"][:rungs].double().mean()
+        got = {"mean": m, "sd": s, "log_ml": float(out["log_ml"]),
+               "accept": float(acc), "rungs": rungs, "wall_s": wall,
+               "grid_rank": launches["grid_rank"]}
+        seen[name] = got
+        ok = (abs(m - mean) <= mean_tol and abs(got["log_ml"] - lml) <= lml_tol
+              and (sd_tol is None or abs(s - sd) <= sd_tol))
+        if name == "hmc":
+            ok = ok and got["accept"] > 0.4
+        if name == "adaptive":
+            betas = out["betas"][:rungs].double().cpu()
+            ok = (ok and 1 < rungs < 100 and bool((betas.diff() > 0).all())
+                  and abs(float(betas[-1]) - 1.0) < 1e-6)
+        if not ok:
+            raise AssertionError(f"smc_sampler {name}: {got}")
+    sync(device)
+    t0 = time.perf_counter()
+    runs["hmc"][0]()
+    sync(device)
+    seen["hmc"]["rerun_s"] = time.perf_counter() - t0
+    sync(device)
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: parallel_tempering(
+        3, model, (), obs, num_replicas=PT["num_replicas"],
+        num_chains=PT["num_chains"], num_rounds=PT["num_rounds"], move="hmc",
+        step_size=0.3, num_leapfrog=8, device=device))
+    wall = time.perf_counter() - t0
+    require_launches("parallel tempering", launches, {})
+    mus = out["samples"]["mu"][:, PT["burn"]:].double().reshape(-1)
+    got = {"mean": float(mus.mean()), "sd": float(mus.std()),
+           "swap": float(out["swap_accept"].double().mean()), "wall_s": wall}
+    seen["tempering"] = got
+    if not (abs(got["mean"] - mean) <= 0.06 and abs(got["sd"] - sd) <= 0.06
+            and got["swap"] > 0.1):
+        raise AssertionError(f"parallel tempering: {got}")
+    return seen
+
+
+def slice9_phases(card, profile, device="cuda", clock=None):
+    """Phases 27-31 (slice 9), with their lines of output."""
+    sv = check_sv_leg(device)
+    sv_s, sv_times = time_runs(lambda i: run_sv(device, 40 + i),
+                               SV_TIMED_RUNS, device)
+    print(f"# main path: the SV filter (SVParams()) N={SV_PARTICLES} "
+          f"T={SV_STEPS} float32 through batched_particle_filter(auto_batch="
+          f"True), systematic, ess_threshold {SV_ESS}; launches "
+          f"resample_fused_from_s {sv['launches']}, no other kernel; "
+          f"resampled on {sv['resampled']} steps; log_ml {sv['log_ml']!r} "
+          f"grid oracle {sv['oracle']!r} (m=1600 on [-5, 3]: "
+          f"{sv['oracle_fine']!r}); == its rerun through the plain versions "
+          f"on the recorded draws, bitwise")
+    print(f"# sv filter: median {sv_s * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in sv_times]} ms -> "
+          f"{SV_PARTICLES * SV_STEPS / sv_s:.4g} particle-steps/s ({card})")
+    if profile:
+        profile_run("sv filter", lambda: run_sv(device, 61), sv_s)
+    sys.stdout.flush()
+    if clock:
+        clock.mark("27 SV filter")
+    pm = check_pmmh_leg(device)
+    iters = PMMH["num_samples"]
+    print(f"# main path: PMMH {PMMH} on the 1-D LGSSM through "
+          f"smc_log_ml_fn(auto_batch=True), one chain-blocked filter of "
+          f"{PMMH['num_chains'] * PMMH['num_particles']} lanes a step; "
+          f"launches resample_fused_from_s {pm['launches']}, no other "
+          f"kernel; chain-blocked S through kernel 3 == plain, bitwise, a "
+          f"NaN chain moves no other; posterior mean {pm['mean']!r} exact "
+          f"{pm['exact_mean']!r}; accept in [{pm['accept_min']!r}, "
+          f"{pm['accept_max']!r}]; estimator at a=0.7 {pm['estimate']!r} "
+          f"Kalman {pm['kalman']!r}")
+    print(f"# pmmh leg: {pm['wall_s'] * 1e3:.1f} ms for {iters} iterations "
+          f"-> {pm['wall_s'] * 1e3 / iters:.3f} ms an iteration, "
+          f"{PMMH['num_chains'] * iters / pm['wall_s']:.1f} "
+          f"chain-iterations/s ({card})")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("28 PMMH")
+    pg = check_pg_leg(device)
+    print(f"# main path: particle_gibbs {PG} on the LGSSM, ancestor "
+          f"sampling, no kernel launched; trajectory mean gap "
+          f"{pg['mean_gap']!r} sd gap {pg['sd_gap']!r} (bound {PG_GAP}); "
+          f"without it (N={2 * PG['num_particles']}) the last step's mean "
+          f"gap {pg['no_as_gap']!r}; "
+          f"csmc_sweep {CSMC}: log_ml {pg['csmc_log_ml']!r} Kalman "
+          f"{pg['csmc_exact']!r}")
+    print(f"# pgibbs leg: {pg['wall_s'] * 1e3:.1f} ms -> "
+          f"{pg['wall_s'] * 1e3 / PG['num_sweeps']:.3f} ms a sweep; "
+          f"csmc_sweep {pg['csmc_wall_s'] * 1e3:.1f} ms ({card})")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("29 particle Gibbs")
+    fv = check_fivo_leg(device)
+    print(f"# main path: fit_proposal {FIVO} on the LG model, no kernel "
+          f"launched; w_obs {fv['w_obs']!r} (optimum {fv['w_obs_opt']!r}), "
+          f"std {fv['std']!r} (optimum {fv['std_opt']!r}); bound mean "
+          f"{fv['mean']!r} Kalman {fv['kalman']!r}; bound sd trained "
+          f"{fv['std_trained']!r} initial {fv['std_init']!r}; gradient of "
+          f"fivo_objective at N={FIVO_GRAD_PARTICLES} (systematic, "
+          f"ess_threshold 1.0): launches resample_fused_from_s "
+          f"{fv['grad_launches']}, value {fv['grad_value']!r} == plain "
+          f"bitwise, gradient {[round(x, 6) for x in fv['grad']]} within "
+          f"{fv['grad_rel_err']!r} relative of plain")
+    print(f"# fivo leg: fit_proposal {fv['wall_s'] * 1e3:.1f} ms -> "
+          f"{fv['wall_s'] * 1e3 / FIVO['num_steps']:.3f} ms a step; value "
+          f"and gradient at N={FIVO_GRAD_PARTICLES} "
+          f"{fv['grad_wall_s'] * 1e3:.1f} ms ({card})")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("30 FIVO")
+    sm = check_smc_sampler_leg(device)
+    for name in ("hmc", "mala", "adaptive"):
+        r = sm[name]
+        print(f"# main path: smc_sampler {name} on nn_model, "
+              f"N={SMCS_PARTICLES}: {r['rungs']} rungs, grid_rank launches "
+              f"{r['grid_rank']}, no other kernel; mean {r['mean']!r} sd "
+              f"{r['sd']!r} log_ml {r['log_ml']!r} (exact "
+              f"{[round(x, 6) for x in sm['exact']]}); accept "
+              f"{r['accept']!r}; {r['wall_s'] * 1e3:.1f} ms"
+              + (f" (again: {r['rerun_s'] * 1e3:.1f} ms)" if "rerun_s" in r
+                 else "") + f" ({card})")
+    pt = sm["tempering"]
+    print(f"# main path: parallel_tempering {PT}, no kernel launched; cold "
+          f"mean {pt['mean']!r} sd {pt['sd']!r}; swap accept {pt['swap']!r}; "
+          f"{pt['wall_s'] * 1e3:.1f} ms -> "
+          f"{pt['wall_s'] * 1e3 / PT['num_rounds']:.3f} ms a round ({card})")
+    if profile:
+        profile_slice9(device)
+    sys.stdout.flush()
+    if clock:
+        clock.mark("31 SMC samplers, tempering")
+
+
+def profile_slice9(device="cuda"):
+    """``--profile``'s breakdowns of phases 28-31: one PMMH estimate (an
+    iteration's filter, 64 chains), 20 particle-Gibbs sweeps, FIVO's value
+    and gradient at 2^20, one MALA smc_sampler at 2^20 and 20 rounds of
+    parallel tempering, each against the median of 3 unprofiled runs."""
+    from modppl_tpu_torch.core.keys import split_keys
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.fivo import fivo_objective
+    from modppl_tpu_torch.inference.pgibbs import particle_gibbs
+    from modppl_tpu_torch.inference.pmcmc import smc_log_ml_fn
+    from modppl_tpu_torch.inference.smc_sampler import smc_sampler
+    from modppl_tpu_torch.inference.tempering import parallel_tempering
+
+    make_kernel, ys = pmmh_model(device)
+    est = smc_log_ml_fn(make_kernel, torch.zeros((), device=device),
+                        Trie.from_dict({"obs": ys[0]}),
+                        Trie.from_dict({"obs": ys[1:]}),
+                        PMMH["num_particles"], auto_batch=True, device=device)
+    c = PMMH["num_chains"]
+    _, pg_kernel, pg_ic, pg_sc = pg_model(device, PG["steps"], 3)[1:]
+    kernel, prop, s0, ic, sc = fivo_inputs(device)
+    params = {k: v.requires_grad_() for k, v in
+              fivo_params(device, 0.3, 0.7, 0.0, -1.0).items()}
+    obs = Trie.from_dict({"ys": torch.tensor(SMCS_YS, dtype=torch.float32,
+                                             device=device)})
+
+    def fivo_grad():
+        val = fivo_objective(7, kernel, prop, params, s0, ic, sc,
+                             FIVO_GRAD_PARTICLES, resampling="systematic",
+                             ess_threshold=1.0, auto_batch=True,
+                             device=device)
+        return torch.autograd.grad(val, tuple(params.values()))
+
+    legs = {
+        "pmmh estimate (64 x 4096)": lambda i: est(
+            split_keys(20 + i, c, device), torch.full((c,), 0.7,
+                                                      device=device)),
+        "particle gibbs (20 sweeps)": lambda i: particle_gibbs(
+            i, pg_kernel, torch.zeros(1, device=device), pg_ic, pg_sc,
+            latent_init_addrs=("x",), latent_step_addrs=("x",),
+            num_particles=PG["num_particles"], num_sweeps=20, device=device),
+        "fivo value and gradient (2^20)": lambda i: fivo_grad(),
+        "smc_sampler mala (2^20)": lambda i: smc_sampler(
+            i, nn_model(), (), obs, num_particles=SMCS_PARTICLES,
+            num_temps=16, num_moves=3, move="mala", step_size=0.3,
+            device=device),
+        "parallel tempering (20 rounds)": lambda i: parallel_tempering(
+            i, nn_model(), (), obs, num_replicas=PT["num_replicas"],
+            num_chains=PT["num_chains"], num_rounds=20, step_size=0.3,
+            device=device),
+    }
+    for label, fn in legs.items():
+        med, _ = time_runs(fn, 3, device)
+        profile_run(label, lambda: fn(99), med)
+        sys.stdout.flush()
+
+
 SOURCES = {
     "stats_cumsum": ("modppl_tpu_torch/csrc/grid_positions.cu",
                      "modppl_tpu/ops/grid_positions_pallas.py:59"),
@@ -3579,6 +4396,7 @@ def main(argv):
     clock.mark("17-19 importance, MH, eager filters")
     slice7_phases(card, "--profile" in argv, clock=clock)
     slice8_phases(card, "--profile" in argv, clock=clock)
+    slice9_phases(card, "--profile" in argv, clock=clock)
     launches.update(hmc_launches)
     launches.update(quad_launches)
     launches["grid_rank"] = rank_launches

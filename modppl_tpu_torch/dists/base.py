@@ -21,9 +21,9 @@ import torch
 
 from modppl_tpu_torch.core.keys import normal_lanes, uniform_lanes
 
-LANE_TODO = ("no lane form (sample_lanes): only normal, uniform, bernoulli "
-             "and categorical draw from per-lane key streams so far (ROADMAP "
-             "Queue 1 item 13)")
+LANE_TODO = ("no lane form (sample_lanes): only normal, uniform, bernoulli, "
+             "categorical, mvnormal and iid over a scalar one of these draw "
+             "from per-lane key streams so far (ROADMAP Queue 1 item 13)")
 
 
 def as_param_tuple(params):
@@ -44,6 +44,18 @@ def _sample_dtype(params, dtype):
         if torch.is_tensor(p) and p.is_floating_point():
             return p.dtype
     return dtype if dtype is not None else torch.get_default_dtype()
+
+
+def standard_lanes(kind, key_lanes, shape, dtype, block=1):
+    """(C * block,) + ``shape`` standard variates (``kind`` "normal" or
+    "uniform"), key i's stream giving lanes [i * block, (i + 1) * block)
+    as one plate; with ``block`` 1 a lane's variates are its key's
+    ``shape`` draw."""
+    draw = normal_lanes if kind == "normal" else uniform_lanes
+    if block == 1:
+        return draw(key_lanes, shape, dtype)
+    z = draw(key_lanes, (block,) + tuple(shape), dtype)
+    return z.reshape((key_lanes.shape[0] * block,) + tuple(shape))
 
 
 class Standard:
@@ -96,25 +108,31 @@ class Distribution:
         """The draw that the standard variates ``z`` give at ``params``."""
         return self._from_standard(z, *as_param_tuple(params))
 
-    def sample_lanes(self, key_lanes, params, dtype=None):
+    def sample_lanes(self, key_lanes, params, dtype=None, block=1):
         """One draw a lane, each from its lane's own stream: ``key_lanes``
         is a (C,) tensor of lane keys (core/keys.py). Parameters with a
         lane axis (``batched``) give draws of their own shape; shared ones
         give ``(C,)`` + their shape. The standard variates of a lane's draw
-        depend only on its key and its shape, never on C."""
+        depend only on its key and its shape, never on C.
+
+        With ``block`` > 1 each key serves a block of that many consecutive
+        lanes (C * block in all), drawn from the key's stream as one
+        ``(block,) + shape`` plate: the batched tier's one stream a site,
+        once a chain (inference/blocked_smc.py)."""
         if self.standard is None:
             raise NotImplementedError(f"{self!r}: {LANE_TODO}")
         params = as_param_tuple(params)
         dtype = _sample_dtype(params, dtype)
         shape = self._lane_shape(params)
-        c = key_lanes.shape[0]
+        c = key_lanes.shape[0] * block
         if not self.batched(params):
             shape = (c,) + shape
         elif shape[:1] != (c,):
             raise ValueError(f"{self!r}: parameters of shape {shape} have "
                              f"no leading axis of the {c} lanes")
-        draw = normal_lanes if self.standard == "normal" else uniform_lanes
-        return self._from_standard(draw(key_lanes, shape[1:], dtype), *params)
+        return self._from_standard(
+            standard_lanes(self.standard, key_lanes, shape[1:], dtype, block),
+            *params)
 
     def _lane_shape(self, params):
         """One draw's shape at ``params``, a lane axis included."""

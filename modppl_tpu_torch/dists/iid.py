@@ -9,11 +9,23 @@ log-density is elementwise over leading axes, so only the plate's own axis
 is summed and a leading lane axis survives. Under the batched tier
 (modeling/autobatch.py) ``x`` is (lanes, n, ...) and the log-density
 (lanes,); per lane under ``vmap`` it is a scalar.
+
+Over a scalar base, a parameter whose last axis is not the plate's (a
+per-lane parameter, (lanes,)) takes a plate axis at the end, so that lane
+i's parameter meets lane i's n draws; and the lane form (``sample_lanes``)
+draws each lane's n standard variates from its own stream.
 """
 
 import torch
 
-from modppl_tpu_torch.dists.base import Distribution, as_param_tuple
+from modppl_tpu_torch.dists.base import (
+    LANE_TODO,
+    Distribution,
+    _sample_dtype,
+    as_param_tuple,
+    shape_of,
+    standard_lanes,
+)
 
 
 def _has_batch_axis(p, n):
@@ -31,9 +43,35 @@ class IID(Distribution):
         self.n = n
         self.is_discrete = base.is_discrete
         self.support = base.support
+        self.standard = base.standard if base.event_rank == 0 else None
+
+    def _plated(self, params):
+        """Over a scalar base: each per-lane parameter (a tensor whose last
+        axis is neither the plate's nor 1) with a plate axis at its end."""
+        params = as_param_tuple(params)
+        if self.base.event_rank:
+            return params
+        return tuple(p[..., None] if torch.is_tensor(p) and p.ndim >= 1
+                     and p.shape[-1] not in (self.n, 1) else p
+                     for p in params)
 
     def logpdf(self, x, params):
-        return torch.sum(self.base.logpdf(x, params), dim=-1)
+        return torch.sum(self.base.logpdf(x, self._plated(params)), dim=-1)
+
+    def sample_lanes(self, key_lanes, params, dtype=None, block=1):
+        """Each lane's n draws from its lane's stream, (C,) + (n,)."""
+        if self.standard is None:
+            raise NotImplementedError(f"{self!r}: {LANE_TODO}")
+        params = self._plated(params)
+        dtype = _sample_dtype(params, dtype)
+        c = key_lanes.shape[0] * block
+        shape = torch.broadcast_shapes((c, self.n),
+                                       *(shape_of(p) for p in params))
+        if shape[0] != c:
+            raise ValueError(f"{self!r}: parameters broadcast to {shape}, "
+                             f"not to the {c} lanes")
+        z = standard_lanes(self.standard, key_lanes, shape[1:], dtype, block)
+        return self.base._from_standard(z, *params)
 
     def sample(self, gen, params, dtype=None):
         return self.base.sample_batch(gen, (self.n,), as_param_tuple(params),

@@ -64,14 +64,37 @@ def cholesky(cov):
 
 
 class MvNormal(Distribution):
-    """Multivariate Gaussian over vectors; params (mean vector, covariance)."""
+    """Multivariate Gaussian over vectors; params (mean vector, covariance).
+    A draw is mu + L z for standard normals z (``_from_standard``, the lane
+    form)."""
 
     event_rank = 1
+    standard = "normal"
 
     def batched(self, params):
         mu, cov = params
         return ((torch.is_tensor(mu) and mu.ndim > 1)
                 or (torch.is_tensor(cov) and cov.ndim > 2))
+
+    def _lane_shape(self, params):
+        mu, cov = params
+        batch = torch.broadcast_shapes(
+            tuple(mu.shape[:-1]) if torch.is_tensor(mu) else (),
+            tuple(cov.shape[:-2]) if torch.is_tensor(cov) else ())
+        return tuple(batch) + (_dim(mu, cov),)
+
+    def _from_standard(self, z, mu, cov):
+        if _dim(mu, cov) > SMALL_DIM_MAX:
+            L = torch.linalg.cholesky_ex(_as_tensor(cov, z)).L
+            return mu + (L @ z[..., None])[..., 0]
+        L = cholesky(cov)
+        rows = []
+        for i in range(len(L)):
+            acc = L[i][0] * z[..., 0]
+            for j in range(1, i + 1):
+                acc = acc + L[i][j] * z[..., j]
+            rows.append(acc)
+        return mu + torch.stack(rows, dim=-1)
 
     def _logpdf(self, x, mu, cov):
         if _dim(mu, cov) > SMALL_DIM_MAX:
@@ -96,24 +119,10 @@ class MvNormal(Distribution):
         return -(k * math.log(2.0 * math.pi) + logdet + maha) / 2.0
 
     def _sample(self, gen, shape, dtype, mu, cov):
-        if _dim(mu, cov) > SMALL_DIM_MAX:
-            L = torch.linalg.cholesky_ex(_as_tensor(cov, mu)).L
-            shape = torch.broadcast_shapes(shape + (L.shape[-1],),
-                                           tuple(mu.shape))
-            z = torch.randn(shape, generator=gen, device=gen.device,
-                            dtype=dtype)
-            return mu + (L @ z[..., None])[..., 0]
-        L = cholesky(cov)
-        k = len(L)
-        shape = torch.broadcast_shapes(shape + (k,), tuple(mu.shape))
+        shape = torch.broadcast_shapes(shape + (_dim(mu, cov),),
+                                       tuple(mu.shape))
         z = torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
-        rows = []
-        for i in range(k):
-            acc = L[i][0] * z[..., 0]
-            for j in range(1, i + 1):
-                acc = acc + L[i][j] * z[..., j]
-            rows.append(acc)
-        return mu + torch.stack(rows, dim=-1)
+        return self._from_standard(z, mu, cov)
 
 
 def _dim(mu, cov):

@@ -52,7 +52,11 @@ from modppl_tpu_torch.core.keys import (
     uniform_lanes,
 )
 from modppl_tpu_torch.core.trie import Trie
-from modppl_tpu_torch.inference.mcmc import accept_uniform, tree_select
+from modppl_tpu_torch.inference.mcmc import (
+    _split,
+    accept_uniform,
+    tree_select,
+)
 from modppl_tpu_torch.modeling.autobatch import _per_particle
 from modppl_tpu_torch.modeling.handlers import (
     entry_device,
@@ -161,7 +165,9 @@ def extend(kernel, key, t, state, constraints_t, num_particles,
            proposal_pool=None):
     """ONE generate that extends every particle: bootstrap, or guided by a
     batched ``proposal`` (``propose(key, (t, state, constraints_t[,
-    params]), n) -> (choices, logjp)``). The observations are broadcast to
+    params]), n) -> (choices, logjp)``); ``key`` is a host key, or a (C,)
+    tensor of chain keys whose site draws cover blocks of particles
+    (inference/blocked_smc.py). The observations are broadcast to
     the particle axis as views, merged with the proposed choices and
     constrain a per-particle generate; the weight is ``model weight -
     proposal logjp``. Returns (trace, weight, proposed choices or None)."""
@@ -170,7 +176,7 @@ def extend(kernel, key, t, state, constraints_t, num_particles,
                                         pool=pool)
         return trace, w, None
     n = num_particles
-    k_prop, k_mod = split(key)
+    k_prop, k_mod = _split(key, 2)
     pargs = ((t, state, constraints_t) if proposal_params is None
              else (t, state, constraints_t, proposal_params))
     pchoices, plogjp = proposal.propose(k_prop, pargs, n, pool=proposal_pool)
@@ -179,6 +185,27 @@ def extend(kernel, key, t, state, constraints_t, num_particles,
     trace, mw = kernel.step.generate_constrained_batched(
         k_mod, (t, state), cons, pool=pool)
     return trace, mw - plogjp, pchoices
+
+
+def extend_lanes(kernel, keys, t, state, constraints_t, proposal=None,
+                 proposal_params=None, pool=None, proposal_pool=None):
+    """The vmapped tier's extend: ONE generate of ``kernel.step`` over the
+    per-particle lane keys ``keys``, bootstrap or guided by ``proposal``
+    (particle i's lane split into the proposal's key and the model's).
+    Returns (trace, weight, the proposed choices by address or None)."""
+    if proposal is None:
+        trace, w = kernel.step.generate(keys, (t, state), constraints_t,
+                                        pool=pool)
+        return trace, w, None
+    k_p, k_m = split_lanes(keys, 2).unbind(-1)
+    pargs = ((t, state, constraints_t) if proposal_params is None
+             else (t, state, constraints_t, proposal_params))
+    ptrace = proposal.simulate(k_p, pargs, pool=proposal_pool)
+    cons = constraints_t.copy()
+    cons.merge(ptrace.data)
+    trace, w = kernel.step.generate(k_m, (t, state), cons, pool=pool)
+    return (trace, w - ptrace.logjp,
+            {a: ptrace.data[a] for a in ptrace.data.addresses()})
 
 
 def _rejuvenate(key, trace, kernel, selection, num_moves, moves=None,
@@ -434,21 +461,9 @@ def smc_step(s, kernel, constraints_t, num_particles, resampler,
     s, parents, ess, resampled, u = _resample(
         k_res, s, resampler, ess_threshold, n, u=u)
     keys = split_keys(k_gen, n, s.log_weights.device)
-    proposed = None
-    if proposal is None:
-        trace, w = kernel.step.generate(keys, (s.t, s.state), constraints_t,
-                                        pool=pool)
-    else:
-        k_p, k_m = split_lanes(keys, 2).unbind(-1)
-        pargs = ((s.t, s.state, constraints_t) if proposal_params is None
-                 else (s.t, s.state, constraints_t, proposal_params))
-        ptrace = proposal.simulate(k_p, pargs, pool=proposal_pool)
-        cons = constraints_t.copy()
-        cons.merge(ptrace.data)
-        trace, w = kernel.step.generate(k_m, (s.t, s.state), cons,
-                                        pool=pool)
-        w = w - ptrace.logjp
-        proposed = {a: ptrace.data[a] for a in ptrace.data.addresses()}
+    trace, w, proposed = extend_lanes(
+        kernel, keys, s.t, s.state, constraints_t, proposal, proposal_params,
+        pool=pool, proposal_pool=proposal_pool)
     w = _per_particle(w, n, s.log_weights.dtype, s.log_weights.device)
     moved = [] if record is not None else None
     if record is not None:

@@ -46,10 +46,16 @@ from modppl_tpu_torch.modeling.handlers import (
 def _batch_draw(handler, dist, params, addr):
     """The draw at ``addr`` over ``handler.n`` particles: the pool's, else
     elementwise from the address's stream (per-particle params) or one
-    ``(n,)`` plate from it (shared params)."""
+    ``(n,)`` plate from it (shared params). A (C,) tensor of chain keys
+    gives each chain's block of n / C particles the address's stream of
+    its own chain (``Distribution.sample_lanes`` with ``block``)."""
     x = pooled(handler.pool, dist, params, addr)
     if x is not None:
         return x
+    if torch.is_tensor(handler.key):
+        keys = handler._subkey(addr)
+        return dist.sample_lanes(keys, params, dtype=handler.dtype,
+                                 block=handler.n // keys.shape[0])
     g = generator(handler._subkey(addr), handler.device)
     if dist.batched(params):
         return dist.sample(g, params, dtype=handler.dtype)

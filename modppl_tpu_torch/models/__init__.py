@@ -17,9 +17,16 @@ from modppl_tpu_torch.models.simple import (
     uniform_2d,
 )
 from modppl_tpu_torch.models.spiral import spiral_kernel, spiral_model
+from modppl_tpu_torch.models.stochvol import (
+    SVParams,
+    simulate_sv,
+    sv_scan_kernel,
+)
 
 __all__ = ["Bounds", "DriftProposal", "HMM", "HMMParams", "PointedModel",
-           "add_or_remove_param_proposal", "hierarchical_drift_proposal",
-           "hierarchical_model", "hmm_forward_alg", "line_model",
-           "obs_model", "pointed_2d_drift_proposal", "pointed_2d_model",
-           "read_coeffs", "spiral_kernel", "spiral_model", "uniform_2d"]
+           "SVParams", "add_or_remove_param_proposal",
+           "hierarchical_drift_proposal", "hierarchical_model",
+           "hmm_forward_alg", "line_model", "obs_model",
+           "pointed_2d_drift_proposal", "pointed_2d_model", "read_coeffs",
+           "simulate_sv", "spiral_kernel", "spiral_model", "sv_scan_kernel",
+           "uniform_2d"]

@@ -18,6 +18,7 @@ import torch
 from modppl_tpu_torch.core.keys import fold_in, generator, split
 from modppl_tpu_torch.dists import mvnormal
 from modppl_tpu_torch.modeling import gen
+from modppl_tpu_torch.modeling.handlers import entry_device
 
 
 @dataclass(frozen=True)
@@ -43,10 +44,14 @@ class LGSSMParams:
 
 def make_lgssm(A, Q, H, R, mu0, P0, device=None):
     """LGSSMParams from arrays or nested lists, in torch's default float
-    dtype on ``device``."""
+    dtype on ``device``: without one, the first tensor argument's device,
+    else the card (raising without one; pass ``device="cpu"``)."""
+    args = (A, Q, H, R, mu0, P0)
+    if device is None:
+        device = next((x.device for x in args if torch.is_tensor(x)), None)
+    device = entry_device(device, "make_lgssm")
     return LGSSMParams(*(torch.as_tensor(x, dtype=torch.get_default_dtype(),
-                                         device=device)
-                         for x in (A, Q, H, R, mu0, P0)))
+                                         device=device) for x in args))
 
 
 def lgssm_scan_kernel(params):

@@ -16,6 +16,15 @@ signature) or (N, C) (``"nc"``, how the filter keeps it). It returns
 [0, N-1] and new_state a bitwise copy of each ancestor's columns. On a CUDA
 tensor it launches the kernel or raises; on a CPU tensor it runs the plain
 version. ``resample_fused_from_s.launches`` counts kernel launches.
+
+The kernel arm is an ``autograd.Function`` (``_FusedGather``): its forward
+is the kernel, its backward the adjoint of the gather, a scatter-add of the
+output's gradient into each ancestor's row (``index_add``), which is what
+XLA differentiates the reference's ``take`` into. S and the parents are
+integers and take no gradient. The backward is plain PyTorch, as the
+reference has no backward kernel. It supports one backward pass: a second
+derivative or a forward-mode derivative raises, so the kernel arm never
+returns a state that has silently lost its gradient.
 ``systematic_resample_fused(key, lw, state_t)`` is the reference's
 key-taking entry: it computes S from the weights, then calls the kernel.
 """
@@ -66,6 +75,39 @@ def resample_fused_plain(s, state, layout="cn"):
 def resample_fused_from_s(s, state, layout="cn"):
     if s.device.type == "cpu":
         return resample_fused_plain(s, state, layout)
+    _dims(s, state, layout)
+    return _FusedGather.apply(s, state, layout)
+
+
+class _FusedGather(torch.autograd.Function):
+    """Kernel 3 with the gather's adjoint as its backward."""
+
+    @staticmethod
+    def forward(s, state, layout):
+        return _launch(s, state, layout)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        s, state, layout = inputs
+        ctx.layout = layout
+        ctx.shape = state.shape
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(output[1])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_state, _grad_parents):
+        (parents,) = ctx.saved_tensors
+        if grad_state is None:
+            return None, None, None
+        axis = 1 if ctx.layout == "cn" else 0
+        grad = grad_state.new_zeros(ctx.shape).index_add_(
+            axis, parents.long(), grad_state)
+        return None, grad, None
+
+
+def _launch(s, state, layout):
+    """One launch of kernel 3 into fresh outputs."""
     name = "resample_fused_from_s"
     n, c = _dims(s, state, layout)
 

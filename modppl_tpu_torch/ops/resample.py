@@ -69,27 +69,31 @@ _INT32_MIN = -(2 ** 31)
 
 
 def int_cummax(s):
-    """Running maximum of the 1-D int32 ``s``: within rows of 1024, then
-    each row raised to the maximum of the rows before it (the same integers
-    as one cummax). A 1-D ``torch.cummax`` on the card scans the whole
-    vector in a single block (PERF.md has both times)."""
-    n = s.shape[0]
+    """Running maximum of the int32 ``s`` along its last axis: within rows
+    of 1024, then each row raised to the maximum of the rows before it (the
+    same integers as one cummax). A 1-D ``torch.cummax`` on the card scans
+    the whole vector in a single block (PERF.md has both times)."""
+    n = s.shape[-1]
+    lead = tuple(s.shape[:-1])
     if n <= _ROW:
-        return torch.cummax(s, 0).values
+        return torch.cummax(s, -1).values
     rows = -(-n // _ROW)
     if rows * _ROW != n:
-        s = torch.cat([s, s.new_full((rows * _ROW - n,), _INT32_MIN)])
-    inner = torch.cummax(s.reshape(rows, _ROW), 1).values
-    prev = int_cummax(inner[:, -1].contiguous())
-    prev = torch.cat([prev.new_full((1,), _INT32_MIN), prev[:-1]])
-    return torch.maximum(inner, prev[:, None]).reshape(-1)[:n]
+        s = torch.cat([s, s.new_full(lead + (rows * _ROW - n,), _INT32_MIN)],
+                      dim=-1)
+    inner = torch.cummax(s.reshape(lead + (rows, _ROW)), -1).values
+    prev = int_cummax(inner[..., -1].contiguous())
+    prev = torch.cat([prev.new_full(lead + (1,), _INT32_MIN),
+                      prev[..., :-1]], dim=-1)
+    return torch.maximum(inner, prev[..., None]).reshape(lead + (-1,))[..., :n]
 
 
 def slot_positions(cdf, u, num):
     """Sorted slot positions S (int32, in [0, num]) of the systematic grid
-    (u + arange(num)) / num against ``cdf``. The integer cummax repairs a
-    CDF that a parallel prefix sum left locally non-monotone, as the
-    reference does in every systematic formulation."""
+    (u + arange(num)) / num against ``cdf`` (along its last axis; ``u``
+    one uniform a row). The integer cummax repairs a CDF that a parallel
+    prefix sum left locally non-monotone, as the reference does in every
+    systematic formulation."""
     s = torch.clamp(torch.ceil(cdf * num - u), 0, num).to(torch.int32)
     return int_cummax(s)
 

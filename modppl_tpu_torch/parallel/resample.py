@@ -20,6 +20,12 @@ tensor":
 The other three schemes are plain torch, as the reference computes them in
 XLA outside any kernel: their integer stage is the reference's scatter-add +
 cumsum, ``grid_rank_plain``, which takes an S that need not be sorted.
+
+``blocked_resample`` resamples C independent chains of N particles each,
+laid out as C consecutive blocks of one (C N,) particle axis, in one pass:
+each chain's S from its own row of weights, offset by c N and flattened, so
+that one launch of kernel 3 (or kernel 4) ranks every chain at once and
+each slot's ancestor falls in its own block (``blocked_positions``).
 """
 
 import torch
@@ -30,7 +36,10 @@ from modppl_tpu_torch.ops.fused_resample import (
     systematic_resample_fused,
 )
 from modppl_tpu_torch.ops.resample import (
+    grid_rank,
     grid_rank_plain,
+    int_cummax,
+    slot_positions,
     systematic_parents,
     uniform,
 )
@@ -181,3 +190,57 @@ def fused_systematic_resample_or_none(key, log_normalized_weights, tree,
     new_block, parents = systematic_resample_fused(
         key, log_normalized_weights, _as_block(leaves, n), layout="nc", u=u)
     return _from_block(new_block, leaves, spec), parents
+
+
+# --------------------------------------------------------------------------
+# Chain-blocked resampling: C chains of N particles on one particle axis
+# --------------------------------------------------------------------------
+
+BLOCKED_SCHEMES = ("systematic", "multinomial", "stratified")
+
+
+def blocked_positions(s_rows):
+    """Each chain's slot positions (C, N), made safe and offset onto the
+    shared axis: clamped to [0, N], an integer cummax, the last set to N
+    (a chain with finite weights has it already, as its CDF ends at 1),
+    then + c N, flattened to (C N,) int32. The offsets are sorted whatever
+    one chain's weights hold (a NaN row gives garbage S_c, which stays in
+    [c N, (c + 1) N]), so the rank of every slot of chain c counts all of
+    the chains before it and none after it: its ancestor lies in its own
+    block, and no chain's S moves another's ancestors."""
+    c, n = s_rows.shape
+    s = int_cummax(torch.clamp(s_rows, 0, n))
+    s = torch.cat([s[:, :-1], s.new_full((c, 1), n)], dim=1)
+    offsets = torch.arange(c, dtype=torch.int32, device=s.device) * n
+    return (s + offsets[:, None]).reshape(-1)
+
+
+def blocked_resample(scheme, log_norm, tree, u):
+    """Resample C chains at once: ``log_norm`` (C, N) each chain's
+    normalized log-weights, ``tree`` the particle state (leading axis
+    C N), ``u`` the uniforms ((C,) for systematic, (C, N) for multinomial
+    and stratified). Systematic S goes to kernel 3 with the state when it
+    is fusable (one launch for every chain), else to kernel 4; the other
+    schemes rank by ``grid_rank_plain``, as their one-chain forms do.
+    Returns (new tree, parents (C N,) int32 on the shared axis)."""
+    c, n = log_norm.shape
+    cdf = normalized_cdf(log_norm)
+    if scheme == "systematic":
+        s = blocked_positions(slot_positions(cdf, u[:, None], n))
+        fused = fused_gather_from_s_or_none(s, tree)
+        if fused is not None:
+            return fused
+        parents = grid_rank(s, c * n)
+    elif scheme in ("multinomial", "stratified"):
+        if scheme == "multinomial":
+            positions = torch.sort(u, dim=1).values
+        else:
+            positions = (torch.arange(n, dtype=cdf.dtype, device=cdf.device)
+                         + u) / n
+        s = torch.searchsorted(positions.contiguous(), cdf.contiguous(),
+                               right=False).to(torch.int32)
+        parents = grid_rank_plain(blocked_positions(s), c * n)
+    else:
+        raise ValueError(f"chain-blocked resampling: expected one of "
+                         f"{BLOCKED_SCHEMES}, got {scheme!r}")
+    return gather_particles(tree, parents), parents

@@ -49,31 +49,38 @@ def _row_scan(a):
 
 
 def _cuda_rows(a):
-    """Per-row scans of the (R, W) ``a`` on the card; a single row gets a
-    zero row beside it so that PyTorch takes its per-row kernel."""
-    if a.shape[0] > 1:
-        return torch.cumsum(a, 1)
-    return torch.cumsum(torch.cat([a, torch.zeros_like(a)]), 1)[:1]
+    """Per-row scans along the last axis of ``a`` on the card, as rows of
+    one (R, W) tensor; a single row gets a zero row beside it so that
+    PyTorch takes its per-row kernel."""
+    rows = a.reshape(-1, a.shape[-1])
+    if rows.shape[0] > 1:
+        return torch.cumsum(rows, 1).reshape(a.shape)
+    return torch.cumsum(torch.cat([rows, torch.zeros_like(rows)]),
+                        1)[:1].reshape(a.shape)
 
 
 def ordered_cumsum(x):
-    """Inclusive prefix sum of the 1-D ``x`` (see the module docstring)."""
-    n = x.shape[0]
+    """Inclusive prefix sum along the last axis of ``x`` (see the module
+    docstring); each row of a batch is summed as the 1-D ``x`` would be."""
+    n = x.shape[-1]
+    lead = tuple(x.shape[:-1])
     cpu = x.device.type == "cpu"
     base = _SCAN_BASE if cpu else _CUDA_ROW
     if n <= base:
-        return _row_scan(x) if cpu else _cuda_rows(x[None, :])[0]
+        return _row_scan(x) if cpu else _cuda_rows(x)
     rows = -(-n // base)
     if rows * base != n:
-        x = torch.cat([x, x.new_zeros(rows * base - n)])
-    x = x.reshape(rows, base)
+        x = torch.cat([x, x.new_zeros(lead + (rows * base - n,))], dim=-1)
+    x = x.reshape(lead + (rows, base))
     inner = _row_scan(x) if cpu else _cuda_rows(x)
-    tails = ordered_cumsum(inner[:, -1])
-    offsets = torch.cat([tails.new_zeros(1), tails[:-1]])
-    return (inner + offsets[:, None]).reshape(-1)[:n]
+    tails = ordered_cumsum(inner[..., -1])
+    offsets = torch.cat([tails.new_zeros(lead + (1,)), tails[..., :-1]],
+                        dim=-1)
+    return (inner + offsets[..., None]).reshape(lead + (-1,))[..., :n]
 
 
 def normalized_cdf(log_normalized_weights):
-    """cumsum(exp(lw)) / its last entry (parallel/resample.py:29-31)."""
+    """cumsum(exp(lw)) / its last entry (parallel/resample.py:29-31), along
+    the last axis."""
     cdf = ordered_cumsum(torch.exp(log_normalized_weights))
-    return cdf / cdf[-1]
+    return cdf / cdf[..., -1:]

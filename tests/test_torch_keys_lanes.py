@@ -158,9 +158,9 @@ def test_large_k_categorical_lanes_follow_the_cdf():
 
 
 @pytest.mark.parametrize("dist,params", [
-    (gamma, (2.0, 1.0)), (iid(normal, 3), (0.0, 1.0)),
-    (mvnormal, (torch.zeros(2), ((1.0, 0.0), (0.0, 1.0))))],
-    ids=["gamma", "iid", "mvnormal"])
+    (gamma, (2.0, 1.0)), (iid(gamma, 3), (2.0, 1.0)),
+    (iid(mvnormal, 3), (torch.zeros(2), ((1.0, 0.0), (0.0, 1.0))))],
+    ids=["gamma", "iid", "iid_mvnormal"])
 def test_distributions_without_a_lane_form_raise(dist, params):
     with pytest.raises(NotImplementedError, match="no lane form"):
         dist.sample_lanes(lanes(1, 4, "cpu"), params)

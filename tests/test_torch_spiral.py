@@ -163,7 +163,9 @@ def test_port_imports_no_jax():
             "extra.py", "simple.py", "pointed.py",
             "hierarchical.py", "smalllinalg.py", "kalman.py", "enumerate.py",
             "_adam.py", "map_laplace.py", "vi.py", "gp.py", "mala.py",
-            "chees.py"} <= {p.name for p in files}
+            "chees.py", "stochvol.py", "blocked_smc.py", "pmcmc.py",
+            "pgibbs.py", "fivo.py", "smc_sampler.py",
+            "tempering.py"} <= {p.name for p in files}
     files.append(repo / "chip_smoke.py")
     bad = []
     for path in files:
