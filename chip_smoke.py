@@ -75,8 +75,9 @@ just after:
 - particle Gibbs with ancestor sampling (``inference/pgibbs``) on the
   reference test's LGSSM, and one conditional sweep at 2^16 x 100;
 - FIVO (``inference/fivo.fit_proposal``) at the reference test's
-  configuration, and the gradient of ``fivo_objective`` through a
-  systematically resampled filter at 2^20, through kernel 3's backward;
+  configuration, and the gradient of ``fivo_objective`` (the one-chain
+  case of the chain-blocked filter that ``fit_proposal`` trains through)
+  systematically resampled at 2^20, through kernel 3's backward;
 - the tempered SMC samplers (``inference/smc_sampler``, HMC, MALA and the
   adaptive ladder) on the reference test's conjugate model at 2^20
   particles, ``grid_rank`` once a rung; parallel tempering
@@ -260,7 +261,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     within 0.15 and std within 0.1 of the optimal proposal's, the bound's
     sd over 32 runs under half the initial proposal's, its mean within 0.1
     of the Kalman log-ML; then the value and gradient of ``fivo_objective``
-    (auto-batched, systematic, ``ess_threshold=1.0``) at N = 2^20: 7
+    (auto-batched, systematic, ``ess_threshold=1.0``; one chain of the
+    blocked filter ``fit_proposal`` runs) at N = 2^20: 7
     launches of kernel 3 and none other, the value bitwise equal to the
     same call through the plain versions, the gradient finite, nonzero and
     within 1e-5 relative of theirs; each timed;
@@ -3534,7 +3536,8 @@ def check_fivo_leg(device="cuda"):
     """Phase 30: fit_proposal at the reference's configuration (FIVO,
     ess_threshold 0: no resampling, no launch) and its gates
     (tests/test_batched_filter.py:151-187); then the gradient of
-    fivo_objective(auto_batch=True, systematic, ess_threshold=1.0) at
+    fivo_objective(auto_batch=True, systematic, ess_threshold=1.0), the
+    chain-blocked filter fit_proposal trains through at one chain, at
     FIVO_GRAD_PARTICLES with respect to the params: kernel 3 launches in
     it (one a step), the value bitwise equal to the same call through the
     plain versions, the gradient finite, nonzero and within FIVO_GRAD_RTOL

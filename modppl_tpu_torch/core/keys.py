@@ -98,6 +98,12 @@ def fold_in_lanes(key_or_lanes, data):
     return _mix_lanes(keys ^ _mix_lanes(data))
 
 
+def key_lane(key, device):
+    """The host key ``key`` as one lane key, a (1,) int64 tensor: a run over
+    it draws what a run keyed by ``key`` on the host would split from it."""
+    return _as_lanes(key, device).reshape(1)
+
+
 def lanes(key, c, device):
     """(c,) lane keys, lane i ``fold_in(key, i)``: a chain's key keyed by
     its index, as the reference's ``fold_in(k, i)``."""

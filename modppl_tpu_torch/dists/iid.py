@@ -10,10 +10,15 @@ is summed and a leading lane axis survives. Under the batched tier
 (modeling/autobatch.py) ``x`` is (lanes, n, ...) and the log-density
 (lanes,); per lane under ``vmap`` it is a scalar.
 
-Over a scalar base, a parameter whose last axis is not the plate's (a
-per-lane parameter, (lanes,)) takes a plate axis at the end, so that lane
-i's parameter meets lane i's n draws; and the lane form (``sample_lanes``)
-draws each lane's n standard variates from its own stream.
+Over a scalar base, a per-lane parameter takes a plate axis at its end,
+so that lane i's parameter meets lane i's n draws. A parameter is per lane
+if its shape is the lane shape, where that is known: the axes of ``x``
+before the plate's in ``logpdf`` (a 1-D ``x`` has none), ``(lanes,)`` in
+``sample_lanes``. So when the lane count equals n, a 1-D parameter of
+length n is per lane beside lanes and per element beside one trace's
+``x``. A parameter whose last axis is neither n nor 1 is per lane in any
+case. The lane form (``sample_lanes``) draws each lane's n standard
+variates from its own stream.
 """
 
 import torch
@@ -45,26 +50,33 @@ class IID(Distribution):
         self.support = base.support
         self.standard = base.standard if base.event_rank == 0 else None
 
-    def _plated(self, params):
-        """Over a scalar base: each per-lane parameter (a tensor whose last
-        axis is neither the plate's nor 1) with a plate axis at its end."""
+    def _plated(self, params, lanes=None):
+        """Over a scalar base: each per-lane parameter (of the lane shape
+        ``lanes``, or whose last axis is neither the plate's nor 1) with a
+        plate axis at its end."""
         params = as_param_tuple(params)
         if self.base.event_rank:
             return params
-        return tuple(p[..., None] if torch.is_tensor(p) and p.ndim >= 1
-                     and p.shape[-1] not in (self.n, 1) else p
-                     for p in params)
+
+        def per_lane(p):
+            return torch.is_tensor(p) and p.ndim >= 1 and (
+                tuple(p.shape) == lanes or p.shape[-1] not in (self.n, 1))
+
+        return tuple(p[..., None] if per_lane(p) else p for p in params)
 
     def logpdf(self, x, params):
-        return torch.sum(self.base.logpdf(x, self._plated(params)), dim=-1)
+        lanes = (tuple(x.shape[:-1]) if not self.base.event_rank
+                 and torch.is_tensor(x) and x.ndim >= 2 else None)
+        return torch.sum(self.base.logpdf(x, self._plated(params, lanes)),
+                         dim=-1)
 
     def sample_lanes(self, key_lanes, params, dtype=None, block=1):
         """Each lane's n draws from its lane's stream, (C,) + (n,)."""
         if self.standard is None:
             raise NotImplementedError(f"{self!r}: {LANE_TODO}")
-        params = self._plated(params)
-        dtype = _sample_dtype(params, dtype)
         c = key_lanes.shape[0] * block
+        params = self._plated(params, (c,))
+        dtype = _sample_dtype(params, dtype)
         shape = torch.broadcast_shapes((c, self.n),
                                        *(shape_of(p) for p in params))
         if shape[0] != c:

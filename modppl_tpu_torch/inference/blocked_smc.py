@@ -22,6 +22,12 @@ once over all C N lanes:
   every chain (the state permitting), both arms every step with a select
   on the device, as ``vsmc._resample`` does.
 
+``replay`` carries a run's draws as the vmapped filter's does
+(inference/vsmc.py): ``(None, pool)`` for the init, then ``(u, pool)`` or
+``(u, pool, proposal_pool, None)`` a step (there are no moves), ``u`` the
+chains' resample uniforms ((C,) systematic, else (C, N)) and each pool's
+values over all C N lanes.
+
 Nothing is read back to the host, and nothing on the path detaches: with
 parameters that require grad, the log-MLs carry their gradients through
 the reparameterized draws and kernel 3's backward.
@@ -41,6 +47,7 @@ from modppl_tpu_torch.inference.vsmc import (
     extend,
     extend_lanes,
     num_steps,
+    replay_entry,
     wrap_kernel,
 )
 from modppl_tpu_torch.modeling.autobatch import _per_particle
@@ -72,9 +79,10 @@ def _blocked_weights(log_weights, c):
 
 
 def _resample_blocks(k_res, scheme, state, log_weights, log_ml,
-                     ess_threshold, n):
-    """Both arms and a select, each chain on its own flag. Returns
-    (state, log_weights, log_ml, parents, ess, resampled)."""
+                     ess_threshold, n, u=None):
+    """Both arms and a select, each chain on its own flag; ``u`` replaces
+    the uniforms drawn from ``k_res``. Returns (state, log_weights, log_ml,
+    parents, ess, resampled)."""
     c = log_ml.shape[0]
     log_norm, log_total, ess = _blocked_weights(log_weights, c)
     do = ess < ess_threshold * n
@@ -83,8 +91,9 @@ def _resample_blocks(k_res, scheme, state, log_weights, log_ml,
         # chain's state, so the arm is not run
         slots = torch.arange(c * n, dtype=torch.int32, device=ess.device)
         return state, log_weights, log_ml, slots, ess, do
-    u = uniform_lanes(k_res, () if scheme == "systematic" else (n,),
-                      log_norm.dtype)
+    shape = () if scheme == "systematic" else (n,)
+    u = (uniform_lanes(k_res, shape, log_norm.dtype) if u is None
+         else u.reshape((c,) + shape))
     new, parents = blocked_resample(scheme, log_norm, state, u)
     lanes = do.repeat_interleave(n)
 
@@ -104,7 +113,7 @@ def blocked_particle_filter(chain_keys, kernel, state0, init_constraints,
                             step_constraints, num_particles,
                             resampling="systematic", ess_threshold=1.0,
                             auto_batch=False, proposal=None,
-                            proposal_params=None, device=None):
+                            proposal_params=None, replay=None, device=None):
     """C = ``len(chain_keys)`` independent filters of ``num_particles``
     each, in one filter over C N lanes (see the module docstring), on the
     card unless ``device`` names another.
@@ -114,7 +123,8 @@ def blocked_particle_filter(chain_keys, kernel, state0, init_constraints,
     may close over per-lane parameters (leading axis C N, chain c's in its
     block). ``state0`` and the constraints are shared by every chain.
     ``resampling`` is one of ``parallel/resample.BLOCKED_SCHEMES``;
-    ``proposal`` / ``proposal_params`` as in ``vsmc.particle_filter``.
+    ``proposal`` / ``proposal_params`` as in ``vsmc.particle_filter``;
+    ``replay`` as in the module docstring.
 
     Returns a dict: ``state`` (leading axis C N), ``log_weights`` (C, N),
     ``log_ml`` (C,), ``ancestors`` ((T-1, C N) int32 on the shared axis),
@@ -132,14 +142,15 @@ def blocked_particle_filter(chain_keys, kernel, state0, init_constraints,
                    proposal_params), device, trie_tensors=True)
     c, n = chain_keys.shape[0], num_particles
     n_lanes = c * n
-    steps = num_steps(step_constraints)
+    steps = num_steps(step_constraints, replay)
     k_sim, key = split_lanes(chain_keys, 2).unbind(-1)
+    pool = replay[0][1] if replay else None
     if auto_batch:
         trace, log_weights = kernel.init.generate(
-            k_sim, (state0, n_lanes), init_constraints)
+            k_sim, (state0, n_lanes), init_constraints, pool=pool)
     else:
         trace, log_weights = kernel.init.generate(
-            particle_keys(k_sim, n), (state0,), init_constraints)
+            particle_keys(k_sim, n), (state0,), init_constraints, pool=pool)
     dtype, _ = infer_dtype_device((state0,), device)
     log_weights = _per_particle(log_weights, n_lanes, dtype, device)
     state = trace.retv
@@ -150,16 +161,21 @@ def blocked_particle_filter(chain_keys, kernel, state0, init_constraints,
             key, k_res, k_gen = split_lanes(key, 3).unbind(-1)
         else:
             key, k_res, k_gen, _ = split_lanes(key, 4).unbind(-1)
+        u, pool, proposal_pool, _ = replay_entry(
+            replay[i + 1] if replay else None)
         state, log_weights, log_ml, p, e, r = _resample_blocks(
-            k_res, resampling, state, log_weights, log_ml, ess_threshold, n)
+            k_res, resampling, state, log_weights, log_ml, ess_threshold, n,
+            u=u)
         cons_t = step_constraints.map(lambda v: v[i])
         if auto_batch:
             trace, w, _ = extend(kernel, k_gen, i + 1, state, cons_t,
-                                 n_lanes, proposal, proposal_params)
+                                 n_lanes, proposal, proposal_params,
+                                 pool=pool, proposal_pool=proposal_pool)
         else:
             trace, w, _ = extend_lanes(kernel, particle_keys(k_gen, n),
                                        i + 1, state, cons_t, proposal,
-                                       proposal_params)
+                                       proposal_params, pool=pool,
+                                       proposal_pool=proposal_pool)
         state = trace.retv
         log_weights = log_weights + _per_particle(
             w, n_lanes, log_weights.dtype, device)

@@ -25,6 +25,7 @@ from modppl_tpu.inference.chees import chees_runner
 from modppl_tpu.inference.vi import advi
 from modppl_tpu.models import logreg as jlr
 from modppl_tpu.models.hierarchical_static import make_hierarchical_static
+from _torch_threads import one_thread  # noqa: F401
 
 
 def test_vi_leg_bound():

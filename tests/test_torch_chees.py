@@ -38,6 +38,7 @@ from modppl_tpu_torch.inference.adaptation import warmup_phases
 from modppl_tpu_torch.interop import chees_phase_draws, tensor
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.models import hierarchical_static as ths
+from _torch_threads import one_thread  # noqa: F401
 
 jchees = importlib.import_module("modppl_tpu.inference.chees")
 # the module (the package exports a function of the same name)

@@ -31,6 +31,7 @@ from modppl_tpu_torch.interop import (
     trie_to_numpy,
 )
 from modppl_tpu_torch.models import spiral
+from _torch_threads import one_thread  # noqa: F401
 
 ADDRESSES = ["r", "theta", "dr", "dtheta", "obs", "a / b", "a/b", " x /y/ z ",
              "steps / 3 / obs", "outer/inner /leaf"]

@@ -42,6 +42,7 @@ from modppl_tpu_torch.inference.hmc import latent_bijectors
 from modppl_tpu_torch.inference.transforms import EXP
 from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.modeling import gen
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=0.0, atol=1e-12)
 N = 50_000

@@ -24,6 +24,7 @@ from modppl_tpu_torch.dists import bernoulli, categorical, normal
 from modppl_tpu_torch.inference import enumerate as tenum
 from modppl_tpu_torch.inference.importance import importance_sampling
 from modppl_tpu_torch.modeling import gen
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 F64 = torch.float64

@@ -1,6 +1,15 @@
-"""FIVO (``inference/fivo.py``) on the CPU: the two FIVO tests of
+"""FIVO (``inference/fivo.py``) on the CPU: the value and gradient of
+``fivo_objective`` and three steps of ``fit_proposal`` against the
+reference's on its own draws, the two FIVO tests of
 ``tests/test_batched_filter.py`` at their bounds, and the gradient's path
 through resampling.
+
+Parity: the reference's draws are rebuilt from its key chain (the init's,
+each step's resample uniform, the proposal's per-particle standard
+normals) and replayed into the port, the proposal's as ``Standard`` draws
+so that x = mu + std z keeps its gradient; value, gradient and trained
+parameters must agree with ``jax.value_and_grad`` / the reference's
+``fit_proposal`` to 1e-10 in float64.
 
 The filter's gradient must survive resampling on either arm of kernel 3:
 with the fused arm forced on for CPU tensors (its launch swapped for the
@@ -10,22 +19,32 @@ through the plain gather to 1e-12. A batch of runs in one chain-blocked
 filter has the mean of the runs' gradients.
 """
 
+import importlib
 import math
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
-from modppl_tpu_torch.core.keys import split_keys
+from modppl_tpu import Trie as JTrie
+from modppl_tpu import gen as jgen
+from modppl_tpu.dists import normal as j_normal
+from modppl_tpu.inference.vsmc import ScanKernel as JScanKernel
+from modppl_tpu.modeling.handlers import addr_subkey
+from modppl_tpu_torch.core.keys import split, split_keys
 from modppl_tpu_torch.core.trie import Trie
-from modppl_tpu_torch.dists import normal
+from modppl_tpu_torch.dists import Standard, normal
 from modppl_tpu_torch.inference.blocked_smc import blocked_particle_filter
 from modppl_tpu_torch.inference.fivo import fit_proposal, fivo_objective
 from modppl_tpu_torch.inference.vsmc import ScanKernel
+from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.ops import fused_resample
 from modppl_tpu_torch.parallel import resample
+from _torch_threads import one_thread  # noqa: F401
 
 A, Q, R = 0.9, 0.5, 0.3
 YS = np.array([0.3, 0.5, 0.1, -0.2, 0.4, 0.9, 0.7, 0.2])
@@ -63,6 +82,34 @@ def lg_learnable_proposal(h, t, prev, cons, params):
 
 KERNEL = ScanKernel(lg_init, lg_step)
 
+# the packages export the function fivo_objective; the module by its path
+jfivo = importlib.import_module("modppl_tpu.inference.fivo")
+
+
+@jgen
+def j_lg_init(h, _s0):
+    x = h.sample(j_normal, (0.0, 1.0), "x")
+    h.sample(j_normal, (x, R), "y")
+    return x
+
+
+@jgen
+def j_lg_step(h, t, prev):
+    x = h.sample(j_normal, (A * prev, Q), "x")
+    h.sample(j_normal, (x, R), "y")
+    return x
+
+
+@jgen
+def j_lg_learnable_proposal(h, t, prev, cons, params):
+    y = cons.read("y")
+    m = params["w_prev"] * prev + params["w_obs"] * y + params["bias"]
+    h.sample(j_normal, (m, jax.nn.softplus(params["raw_std"])), "x")
+
+
+J_KERNEL = JScanKernel(j_lg_init, j_lg_step)
+PARITY = dict(rtol=1e-10, atol=1e-12)
+
 
 def kalman_log_ml(ys):
     mu, var, total = 0.0, 1.0, 0.0
@@ -90,6 +137,130 @@ def _params(w_prev, w_obs, bias, raw_std, grad=False):
 def _optimal(grad=False):
     return _params(A / Q ** 2 / PREC, 1.0 / R ** 2 / PREC, 0.0,
                    float(np.log(np.expm1(1.0 / np.sqrt(PREC)))), grad)
+
+
+# --- the reference's draws, rebuilt from its key chain ---------------------
+
+def _lane_normals(keys, addr):
+    """The per-particle standard normals of the vmapped tier (one key a
+    particle) at ``addr``."""
+    return np.asarray(jax.vmap(lambda k: jax.random.normal(
+        addr_subkey(k, addr), (), jnp.float64))(keys))
+
+
+def _plate_normals(key, addr, n):
+    """The batched tier's per-particle draws at ``addr``: one stream a
+    particle, ``fold_in(addr_subkey(key, addr), i)``."""
+    return np.asarray(jax.vmap(lambda i: jax.random.normal(
+        jax.random.fold_in(addr_subkey(key, addr), i), (), jnp.float64))(
+        jnp.arange(n)))
+
+
+def _run_draws(key, n, auto_batch):
+    """One reference run's randoms (systematic resampling, a proposal):
+    the init's standard normals, then each step's uniform and the
+    proposal's standard normals. The vmapped tier splits as vsmc.py:72-73
+    and :165-177, the batched tier as :208 and :239-250."""
+    if auto_batch:
+        k_gen, carry = jax.random.split(key)
+        init = np.asarray(jax.random.normal(addr_subkey(k_gen, "x"), (n,),
+                                            jnp.float64))
+    else:
+        k_sim, carry = jax.random.split(key)
+        init = _lane_normals(jax.random.split(k_sim, n), "x")
+    steps = []
+    for _ in range(len(YS) - 1):
+        if auto_batch:
+            carry, k_res, k_gen = jax.random.split(carry, 3)
+            z = _plate_normals(jax.random.split(k_gen)[0], "x", n)
+        else:
+            carry, k_res, k_gen, _ = jax.random.split(carry, 4)
+            k_prop = jax.vmap(lambda k: jax.random.split(k)[0])(
+                jax.random.split(k_gen, n))
+            z = _lane_normals(k_prop, "x")
+        steps.append((np.asarray(jax.random.uniform(k_res, (), jnp.float64)),
+                      z))
+    return init, steps
+
+
+def _replay(keys, n, auto_batch):
+    """The runs keyed ``keys`` as one chain-blocked filter's replay: chain
+    b's uniforms at b, its draws on its block of lanes."""
+    runs = [_run_draws(k, n, auto_batch) for k in keys]
+    out = [(None, {"x": Standard(tensor(np.concatenate(
+        [init for init, _ in runs])))})]
+    for i in range(len(YS) - 1):
+        u = tensor(np.stack([steps[i][0] for _, steps in runs]))
+        z = tensor(np.concatenate([steps[i][1] for _, steps in runs]))
+        out.append((u, {}, {"x": Standard(z)}, None))
+    return out
+
+
+def _j_params(vals):
+    return {k: jnp.asarray(v) for k, v in zip(
+        ("w_prev", "w_obs", "bias", "raw_std"), vals)}
+
+
+def _j_constraints():
+    init_c = JTrie.from_dict({"y": jnp.asarray(YS[0])})
+    step_c = jax.tree_util.tree_map(
+        lambda *xs: jnp.stack(xs),
+        *[JTrie.from_dict({"y": jnp.asarray(y)}) for y in YS[1:]])
+    return init_c, step_c
+
+
+@pytest.mark.parametrize("auto_batch", [False, True])
+def test_fivo_objective_value_and_gradient_match_reference(auto_batch):
+    """Systematic, every step resampling, on the reference's draws: the
+    bound and its gradient with respect to every parameter are
+    jax.value_and_grad's of the reference's fivo_objective."""
+    n, vals = 64, (0.3, 0.4, 0.1, 0.2)
+    key = jax.random.PRNGKey(11)
+    jic, jsc = _j_constraints()
+    want, jgrad = jax.value_and_grad(lambda p: jfivo.fivo_objective(
+        key, J_KERNEL, j_lg_learnable_proposal, p, jnp.zeros(()), jic, jsc,
+        n, resampling="systematic", ess_threshold=1.0,
+        auto_batch=auto_batch))(_j_params(vals))
+    init_c, step_c = _constraints()
+    params = _params(*vals, grad=True)
+    got = fivo_objective(0, KERNEL, lg_learnable_proposal, params,
+                         torch.zeros(()), init_c, step_c, n,
+                         resampling="systematic", ess_threshold=1.0,
+                         auto_batch=auto_batch,
+                         replay=_replay([key], n, auto_batch), device="cpu")
+    grad = torch.autograd.grad(got, tuple(params.values()))
+    np.testing.assert_allclose(float(got.detach()), float(want), **PARITY)
+    for g, name in zip(grad, params):
+        np.testing.assert_allclose(float(g), float(jgrad[name]), **PARITY,
+                                   err_msg=name)
+    assert all(float(g) != 0.0 for g in grad)
+
+
+def test_fit_proposal_matches_reference():
+    """Three steps of fit_proposal with a batch of 3 runs a step (one
+    chain-blocked filter, resampling every step) on the reference's
+    draws: the bounds and the trained parameters are the reference's.
+    Adam's later steps weigh each gradient by the earlier ones, so a wrong
+    gradient moves the parameters."""
+    n, num_steps, batch = 32, 3, 3
+    key = jax.random.PRNGKey(5)
+    jic, jsc = _j_constraints()
+    vals = (0.0, 0.0, 0.0, 0.5)
+    kw = dict(num_steps=num_steps, learning_rate=0.05, batch_size=batch,
+              resampling="systematic", ess_threshold=1.0)
+    jparams, jbounds = jfivo.fit_proposal(
+        key, J_KERNEL, j_lg_learnable_proposal, _j_params(vals),
+        jnp.zeros(()), jic, jsc, n, **kw)
+    replay = [_replay(jax.random.split(k, batch), n, False)
+              for k in jax.random.split(key, num_steps)]
+    init_c, step_c = _constraints()
+    params, bounds = fit_proposal(
+        0, KERNEL, lg_learnable_proposal, _params(*vals), torch.zeros(()),
+        init_c, step_c, n, replay=replay, device="cpu", **kw)
+    np.testing.assert_allclose(bounds.numpy(), np.asarray(jbounds), **PARITY)
+    for name, p in params.items():
+        np.testing.assert_allclose(float(p), float(jparams[name]), **PARITY,
+                                   err_msg=name)
 
 
 def test_fivo_auto_batch_objective_and_grads():
@@ -178,6 +349,23 @@ def test_blocked_batch_gradient_is_the_mean_of_the_runs():
     each = torch.stack([grad_of(keys[i:i + 1]) for i in range(3)]).mean(0)
     np.testing.assert_allclose(whole.numpy(), each.numpy(), rtol=1e-10,
                                atol=1e-12)
+
+
+@pytest.mark.parametrize("auto_batch", [False, True])
+def test_a_batch_run_is_the_objective_of_its_key(auto_batch):
+    """One code path: run b of fit_proposal's chain-blocked batch keyed k
+    is fivo_objective keyed split(k, B)[b], bitwise."""
+    init_c, step_c = _constraints()
+    params = _params(0.3, 0.4, 0.1, 0.2)
+    kw = dict(resampling="systematic", ess_threshold=1.0,
+              auto_batch=auto_batch, device="cpu")
+    out = blocked_particle_filter(
+        split_keys(4, 3, "cpu"), KERNEL, torch.zeros(()), init_c, step_c, 64,
+        proposal=lg_learnable_proposal, proposal_params=params, **kw)
+    each = torch.stack([fivo_objective(
+        k, KERNEL, lg_learnable_proposal, params, torch.zeros(()), init_c,
+        step_c, 64, **kw) for k in split(4, 3)])
+    assert torch.equal(out["log_ml"], each)
 
 
 def test_fivo_learns_optimal_proposal():

@@ -51,6 +51,7 @@ from modppl_tpu_torch.inference.mcmc import (
 from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.modeling.autobatch import AutoBatchedStep
+from _torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
 

@@ -23,6 +23,7 @@ from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.inference.hmc import hmc
 from modppl_tpu_torch.inference.map_laplace import map_optimize
 from modppl_tpu_torch.models import gp as tgp
+from _torch_threads import one_thread  # noqa: F401
 
 XS = np.linspace(-2.0, 2.0, 12)
 JITTER = 1e-6

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from modppl_tpu_torch.ops import grid_positions as gp
+from _torch_threads import one_thread  # noqa: F401
 
 CSRC = Path(gp.__file__).resolve().parents[1] / "csrc"
 WIDTHS = [1, 2, 8, 32, 64, 1024]

@@ -48,6 +48,7 @@ from modppl_tpu_torch.models.lgssm import (
 from modppl_tpu_torch.parallel.sharded_smc import (
     sharded_batched_particle_filter,
 )
+from _torch_threads import one_thread  # noqa: F401
 
 A, Q, R = 0.9, 0.5, 0.3   # tests/test_batched_filter.py:23
 YS = np.array([0.3, 0.5, 0.1, -0.2, 0.4, 0.9, 0.7, 0.2], dtype=np.float64)

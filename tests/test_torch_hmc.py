@@ -49,6 +49,7 @@ from modppl_tpu_torch.models.hierarchical_static import (
 from modppl_tpu_torch.models.illcond_gauss import illcond_cov, make_illcond_gauss
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.utils.diagnostics import ess_autocorr, split_rhat
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-9)
 

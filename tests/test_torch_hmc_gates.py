@@ -23,6 +23,7 @@ from modppl_tpu_torch.dists import bernoulli, gamma, iid, normal
 from modppl_tpu_torch.inference.adaptation import run_warmup_pooled
 from modppl_tpu_torch.inference.hmc import _pooled_chains, hmc, hmc_runner
 from modppl_tpu_torch.modeling import gen
+from _torch_threads import one_thread  # noqa: F401
 
 GENERIC = dict(use_fused_quadratic=False, device="cpu")
 

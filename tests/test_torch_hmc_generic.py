@@ -35,6 +35,7 @@ from modppl_tpu_torch.interop import (
 )
 from modppl_tpu_torch.models import hierarchical_static as ths
 from modppl_tpu_torch.models import logreg as tlr
+from _torch_threads import one_thread  # noqa: F401
 
 # the module: modppl_tpu.inference exports a function of the same name
 jhmc = importlib.import_module("modppl_tpu.inference.hmc")

@@ -18,6 +18,7 @@ from modppl_tpu.ops import leapfrog_pallas as jmxu
 from modppl_tpu.ops import leapfrog_vpu_pallas as jvpu
 from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.ops import leapfrog, leapfrog_small
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-9, atol=1e-9)
 

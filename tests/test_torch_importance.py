@@ -51,6 +51,7 @@ from modppl_tpu_torch.models.hierarchical_static import (
     exact_hierarchical_posterior,
     make_hierarchical_static,
 )
+from _torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
 LANES = 4096

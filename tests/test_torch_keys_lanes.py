@@ -40,6 +40,7 @@ from modppl_tpu_torch.dists import (
     uniform,
 )
 from modppl_tpu_torch.modeling import gen
+from _torch_threads import one_thread  # noqa: F401
 
 U64 = st.integers(min_value=0, max_value=(1 << 64) - 1)
 

@@ -29,6 +29,7 @@ from modppl_tpu_torch.models.logreg import (
     map_newton,
     simulate_logreg,
 )
+from _torch_threads import one_thread  # noqa: F401
 
 
 def test_logreg_is_not_quadratic():

@@ -29,6 +29,7 @@ from modppl_tpu_torch.inference import map_laplace as tml
 from modppl_tpu_torch.inference.hmc import flat_target
 from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.modeling import gen
+from _torch_threads import one_thread  # noqa: F401
 
 jml = importlib.import_module("modppl_tpu.inference.map_laplace")
 

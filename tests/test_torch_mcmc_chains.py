@@ -36,6 +36,7 @@ from modppl_tpu_torch.inference.mh import mh
 from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.models.hmm import HMM
+from _torch_threads import one_thread  # noqa: F401
 
 jmcmc = importlib.import_module("modppl_tpu.inference.mcmc")
 

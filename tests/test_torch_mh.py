@@ -44,6 +44,7 @@ from modppl_tpu_torch.models import (
     hierarchical_model,
     read_coeffs,
 )
+from _torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
 TOL = dict(rtol=0.0, atol=1e-10)

@@ -32,6 +32,7 @@ from modppl_tpu_torch.inference import nuts as tnuts
 from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.models import hierarchical_static as ths
+from _torch_threads import one_thread  # noqa: F401
 
 jnuts = importlib.import_module("modppl_tpu.inference.nuts")
 jhmc = importlib.import_module("modppl_tpu.inference.hmc")

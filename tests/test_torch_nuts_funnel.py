@@ -14,6 +14,7 @@ from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.inference.nuts import nuts
 
 from test_torch_nuts import funnel
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

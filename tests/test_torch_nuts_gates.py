@@ -22,6 +22,7 @@ from modppl_tpu_torch.inference.nuts import nuts, nuts_runner
 from modppl_tpu_torch.interop import tensor
 
 from test_torch_nuts import _linreg_data, conjugate, funnel, linreg
+from _torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

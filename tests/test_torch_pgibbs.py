@@ -30,6 +30,7 @@ from modppl_tpu_torch.inference import pgibbs
 from modppl_tpu_torch.inference.pgibbs import csmc_sweep, particle_gibbs
 from modppl_tpu_torch.interop import tensor, trace_from_reference
 from modppl_tpu_torch.models.lgssm import lgssm_scan_kernel, make_lgssm
+from _torch_threads import one_thread  # noqa: F401
 
 T = 6
 
@@ -144,16 +145,16 @@ def test_mvnormal_lane_form_is_from_standard():
 
 
 def test_particle_gibbs_matches_kalman_smoother():
-    """tests/test_pgibbs.py's gate and bounds; shortened for tier-1 to 750
-    sweeps with 150 burn-in (the reference: 1500 and 300; chip_smoke.py's
+    """tests/test_pgibbs.py's gate and bounds; shortened for tier-1 to 500
+    sweeps with 100 burn-in (the reference: 1500 and 300; chip_smoke.py's
     phase 29 runs that)."""
     jparams, ys, kernel, ic, sc = _setup()
     smth = j_kalman_smoother(jparams, jnp.asarray(ys))
     out = particle_gibbs(1, kernel, torch.zeros(1), ic, sc,
                          latent_init_addrs=("x",), latent_step_addrs=("x",),
-                         num_particles=32, num_sweeps=750, device="cpu")
-    xs0 = out["init"]["x"][150:, 0].numpy()
-    xs_rest = out["steps"]["x"][150:, :, 0].numpy()
+                         num_particles=32, num_sweeps=500, device="cpu")
+    xs0 = out["init"]["x"][100:, 0].numpy()
+    xs_rest = out["steps"]["x"][100:, :, 0].numpy()
     traj = np.concatenate([xs0[:, None], xs_rest], axis=1)
     exact_means = np.asarray(smth["means"])[:, 0]
     exact_sds = np.sqrt(np.asarray(smth["covs"])[:, 0, 0])
@@ -173,14 +174,14 @@ def test_csmc_sweep_log_ml_and_pinning():
 
 
 def test_particle_gibbs_without_ancestor_sampling():
-    """tests/test_pgibbs.py's gate and bound; shortened for tier-1 to 750
-    sweeps with 150 burn-in (the reference: 1500 and 300; phase 29 runs
+    """tests/test_pgibbs.py's gate and bound; shortened for tier-1 to 500
+    sweeps with 100 burn-in (the reference: 1500 and 300; phase 29 runs
     that)."""
     jparams, ys, kernel, ic, sc = _setup()
     smth = j_kalman_smoother(jparams, jnp.asarray(ys))
     out = particle_gibbs(3, kernel, torch.zeros(1), ic, sc,
                          latent_init_addrs=("x",), latent_step_addrs=("x",),
-                         num_particles=64, num_sweeps=750,
+                         num_particles=64, num_sweeps=500,
                          ancestor_sampling=False, device="cpu")
-    xT = out["steps"]["x"][150:, -1, 0].numpy()
+    xT = out["steps"]["x"][100:, -1, 0].numpy()
     assert abs(xT.mean() - float(smth["means"][-1, 0])) < 0.12

@@ -30,6 +30,7 @@ from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.ops import fused_resample, grid_positions, resample
 from modppl_tpu_torch.parallel import sharded_smc as tsmc
 from modppl_tpu_torch.parallel.resample import gather_from_s
+from _torch_threads import one_thread  # noqa: F401
 
 N_SCAN = 64 * 1024
 CSRC = Path(resample.__file__).resolve().parents[1] / "csrc"

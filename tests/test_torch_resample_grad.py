@@ -31,6 +31,7 @@ from modppl_tpu_torch.parallel.resample import (
     stratified_parents,
 )
 from modppl_tpu_torch.utils.numerics import normalized_cdf
+from _torch_threads import one_thread  # noqa: F401
 
 N = 96
 GRAD_TOL = dict(rtol=1e-12, atol=1e-12)

@@ -24,6 +24,7 @@ from modppl_tpu.ops import smalllinalg as jsl
 from modppl_tpu_torch.inference import kalman as tk
 from modppl_tpu_torch.interop import lgssm_params_from_numpy, tensor
 from modppl_tpu_torch.ops import smalllinalg as tsl
+from _torch_threads import one_thread  # noqa: F401
 
 LINALG_TOL = dict(rtol=1e-12, atol=1e-12)
 KALMAN_TOL = dict(rtol=1e-9, atol=1e-9)

@@ -42,6 +42,7 @@ from modppl_tpu_torch.models import HMM, HMMParams, hmm_forward_alg
 from modppl_tpu_torch.interop import trace_from_reference
 from modppl_tpu_torch.models import spiral_model
 from modppl_tpu_torch.models.spiral import polar_to_cartesian, spiral_kernel
+from _torch_threads import one_thread  # noqa: F401
 
 CPU = "cpu"
 PRIOR = [0.2, 0.3, 0.5]

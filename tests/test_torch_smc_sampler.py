@@ -42,6 +42,7 @@ from modppl_tpu_torch.inference.tempering import (
 )
 from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.modeling import gen
+from _torch_threads import one_thread  # noqa: F401
 
 # the packages export the function smc_sampler under the module's name
 jsmcs = importlib.import_module("modppl_tpu.inference.smc_sampler")
@@ -164,14 +165,15 @@ def test_tempered_moves_on_reference_draws(move, name):
     key = jax.random.PRNGKey(9)
     draws = _reference_draws(key, n, u0.shape[0], move)
     vag = _value_and_grad(smcs.tempered(joint_and_lik, beta))
+    # the reference's move compiled once (eager JAX compiles every op)
     if move == "hmc":
-        want, j_acc = jsmcs._tempered_hmc_move(
-            key, jnp.asarray(u), jlogdens, jax.grad(jlogdens), eps, 8)
+        want, j_acc = jax.jit(lambda k, x: jsmcs._tempered_hmc_move(
+            k, x, jlogdens, jax.grad(jlogdens), eps, 8))(key, jnp.asarray(u))
         got, acc = smcs._tempered_hmc_move(None, tensor(u), vag, eps, 8,
                                            draws=draws)
     else:
-        want, j_acc = jsmcs._tempered_mala_move(
-            key, jnp.asarray(u), jlogdens, jax.grad(jlogdens), eps)
+        want, j_acc = jax.jit(lambda k, x: jsmcs._tempered_mala_move(
+            k, x, jlogdens, jax.grad(jlogdens), eps))(key, jnp.asarray(u))
         got, acc = smcs._tempered_mala_move(None, tensor(u), vag, eps,
                                             draws=draws)
     np.testing.assert_array_equal(acc.numpy(), np.asarray(j_acc))
@@ -246,6 +248,38 @@ def test_iid_lane_form_is_from_standard():
     assert torch.equal(lp, want)
     assert torch.equal(ys3.sample_lanes(lanes(2, 10, "cpu"), (0.0, 1.0))[:5],
                        ys3.sample_lanes(ks, (0.0, 1.0)))
+
+
+@gen
+def spread_model(h):
+    m = h.sample(normal, (0.0, 1.0), "m")
+    h.sample(ys3, (100.0 * m, 0.01), "ys")
+    return m
+
+
+def test_iid_lane_form_when_the_lanes_equal_the_plate():
+    """Three lanes of iid(normal, 3), so a per-lane mean has the plate's
+    length: each lane draws around its own mean and is scored against it,
+    in sample_lanes, in logpdf and in a simulate under lane keys."""
+    ks = lanes(4, 3, "cpu")
+    mu = torch.tensor([0.0, 100.0, -100.0])
+    x = ys3.sample_lanes(ks, (mu, 0.5))
+    z = normal_lanes(ks, (3,), torch.float64)
+    assert torch.equal(x, z * 0.5 + mu[:, None])
+    want = torch.stack([normal.logpdf(x[i], (mu[i], 0.5)).sum()
+                        for i in range(3)])
+    assert torch.equal(ys3.logpdf(x, (mu, 0.5)), want)
+    # a trace's own x (no lane axis): the mean is per element
+    assert torch.equal(ys3.logpdf(x[0], (mu, 0.5)),
+                       normal.logpdf(x[0], (mu, 0.5)).sum())
+    tr = spread_model.simulate(ks, ())
+    m, ys = tr.data.read("m"), tr.data.read("ys")
+    assert ys.shape == (3, 3)
+    assert bool(((ys - 100.0 * m[:, None]).abs() < 0.1).all())
+    want = torch.stack([normal.logpdf(ys[i], (100.0 * m[i], 0.01)).sum()
+                        for i in range(3)])
+    np.testing.assert_allclose(tr.data.search("ys").weight().numpy(),
+                               want.numpy(), **TOL)
 
 
 def _weighted(out):

@@ -28,6 +28,7 @@ from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.interop import tensor, trie_from_numpy
 from modppl_tpu_torch.models.spiral import circle_observations, spiral_scan_kernel
 from modppl_tpu_torch.parallel.sharded_smc import sharded_batched_particle_filter
+from _torch_threads import one_thread  # noqa: F401
 
 T = 10
 OBS = np.asarray(circle_observations(T), np.float64)

@@ -32,6 +32,7 @@ from modppl_tpu_torch.models.stochvol import (
     sv_scan_kernel,
     volatility_path,
 )
+from _torch_threads import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-12, atol=1e-12)
 PARAMS = [SVParams(), SVParams(mu=-1.0, phi=0.9, sigma=0.8)]
@@ -172,7 +173,7 @@ def test_stochvol_joint_hmc_recovers_path():
     """tests/test_stochvol.py's whole-path HMC gate: detection refuses the
     non-quadratic target, the accept rate is healthy and the posterior path
     correlates with the simulated truth. Shortened for tier-1 (16 chains,
-    100 + 150 at L = 16, the last 100 kept; the reference runs 300 + 400
+    60 + 100 at L = 16, the last 50 kept; the reference runs 300 + 400
     and keeps the last 200: a value-and-grad call through the 32-step path
     costs ~7 ms here); bounds unchanged."""
     T = 32
@@ -183,8 +184,8 @@ def test_stochvol_joint_hmc_recovers_path():
     target = flat_target(model, (tensor(ys),), tr, Trie(), device="cpu")
     assert detect_quadratic_target(target.logprob, target.u0.shape[0],
                                    target.u0.dtype, device="cpu") is None
-    out = hmc(2, model, (tensor(ys),), Trie(), num_samples=150,
-              num_warmup=100, num_chains=16, num_leapfrog=16, device="cpu")
+    out = hmc(2, model, (tensor(ys),), Trie(), num_samples=100,
+              num_warmup=60, num_chains=16, num_leapfrog=16, device="cpu")
     assert not bool(out["fused_quadratic"])
     acc = float(torch.mean(torch.as_tensor(out["accept_prob"])))
     assert 0.5 < acc < 0.99, acc

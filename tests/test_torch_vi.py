@@ -37,6 +37,7 @@ from modppl_tpu_torch.inference import vi as tvi
 from modppl_tpu_torch.interop import logreg_data_from_numpy, tensor
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.models import logreg as tlr
+from _torch_threads import one_thread  # noqa: F401
 
 jvi = importlib.import_module("modppl_tpu.inference.vi")
 

@@ -35,6 +35,7 @@ from modppl_tpu_torch.models.spiral import (
 from modppl_tpu_torch.ops import fused_resample, resample
 from modppl_tpu_torch.parallel import resample as tres
 from modppl_tpu_torch.utils.numerics import ordered_cumsum
+from _torch_threads import one_thread  # noqa: F401
 
 N_RANK = 4096
 # tests/test_vsmc.py:29-40: the reference's quantitative SMC gate

@@ -43,6 +43,7 @@ from modppl_tpu_torch.models.spiral import (
     polar_to_cartesian,
     spiral_scan_kernel,
 )
+from _torch_threads import one_thread  # noqa: F401
 
 F64 = torch.float64
 TOL = dict(rtol=1e-9, atol=1e-12)
