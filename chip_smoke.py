@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile]
 
-Twenty-two paths, the small entries and the lane key streams, each
+Twenty-six paths, the small entries and the lane key streams, each
 driven with every kernel's launch counter set to 0 just before it and read
 just after:
 
@@ -81,10 +81,19 @@ just after:
 - the tempered SMC samplers (``inference/smc_sampler``, HMC, MALA and the
   adaptive ladder) on the reference test's conjugate model at 2^20
   particles, ``grid_rank`` once a rung; parallel tempering
-  (``inference/tempering``) at 6 replicas x 4 chains x 400 rounds.
+  (``inference/tempering``) at 6 replicas x 4 chains x 400 rounds;
+- resumable inference (``inference/checkpointed``): the main path's spiral
+  through ``checkpointed_sharded_particle_filter`` at 2^20 x 10 (kernels
+  1-3 once a step, a checkpoint every 3 steps), BASELINE configs[2]'s
+  spiral through ``checkpointed_particle_filter`` (kernel 3), and
+  ``checkpointed_hmc_runner`` on the conjugate model at 10^4 chains (the
+  generic path);
+- the ``Cond`` combinator under importance sampling at 2^20 lanes, a
+  ``Map`` plate of 2^20 elements and ``utils/profiling.capture_trace``.
 ChEES, ADVI, the small entries, NUTS, ``mcmc_chains``, particle Gibbs,
-``fit_proposal`` and parallel tempering reach no kernel of the port, and
-none may launch; nor do importance sampling, MH and the eager filters.
+``fit_proposal``, parallel tempering, the checkpointed HMC runner, ``Cond``
+and ``Map`` reach no kernel of the port, and none may launch; nor do
+importance sampling, MH and the eager filters.
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -274,14 +283,48 @@ Phases, in order; any failure raises and the script exits non-zero:
     above 0.4; 1 < rungs < 100, betas increasing to 1); then
     ``parallel_tempering`` (6 replicas x 4 chains x 400 rounds, no launch):
     the cold chain's mean and sd after 100 within 0.06, swap accept above
-    0.1; each timed.
+    0.1; each timed;
+32. runs the main path's spiral (2^20 x 10, ``auto_batch=True``,
+    ``ess_threshold=1.0``) through ``checkpointed_sharded_particle_filter``
+    with a checkpoint every 3 steps under a temporary directory, with the
+    counters at 0: uninterrupted, 9 launches each of kernels 1-3 and none
+    other, its state, log-weights and log-ML bitwise the one-shot filter's
+    at the same key; a head run of 3 steps, then a run resumed from its
+    checkpoint with the full constraints: 3 + 6 launches each, bitwise the
+    uninterrupted run, and bitwise its rerun through the plain versions
+    (in which no kernel launches); then the checkpoint's bytes, the median
+    ms of a save and a restore of the filter's carry, and the median wall
+    ms of the checkpointed filter beside the one-shot's (turns one-shot,
+    checkpointed, checkpointed, one-shot, 5 runs each);
+33. runs BASELINE configs[2]'s spiral (10^4 x 12, systematic) through
+    ``checkpointed_particle_filter``, a checkpoint every 4 steps: 11
+    launches of kernel 3 and none other, bitwise
+    ``particle_filter(store_traces=False)`` at the same key, and a run
+    resumed after 4 steps bitwise the uninterrupted one; then the LG model
+    at 4096 particles, a checkpoint every 2 steps: the log-ML within 0.08
+    of the Kalman value (``tests/test_checkpointed.py:65-75``);
+34. runs ``checkpointed_hmc_runner`` on the conjugate model (mu ~ N(0, 1),
+    x ~ N(mu, 1), x = 1) at 10^4 chains, 100 + 200, L = 8, a checkpoint
+    every 50 samples, with the counters at 0 (no launch): a head run of 50
+    samples and a resume to 200, concatenated, bitwise the uninterrupted
+    run (``unconstrained``, ``accept_prob``, ``step_size``);
+    ``summarize_mcmc`` of it: mean within 4 Monte Carlo standard errors of
+    0.5, sd within 0.03 of sqrt(0.5), R-hat within 0.05 of 1; timed;
+35. runs, with the counters at 0 (no launch), ``Cond`` under
+    ``importance_sampling`` at 2^20 lanes (p ~ bernoulli(0.5), v from
+    ``Cond(N(2, 0.1), N(-2, 0.1))``, y ~ N(v, 1) observed at 1.5): P(p |
+    y) within 4 Monte Carlo standard errors of its closed form; ``Map``'s
+    ``generate`` over 2^20 plate elements: its weight within 1e-5
+    relative of the float64 sum of the elements' log-densities; then
+    ``capture_trace`` around one run of phase 32's filter, whose written
+    trace must name kernels 1-3.
 
 Each group of phases prints its seconds as it ends (``# seconds:``).
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
-path (phases 20 and 21 included): device ops, device-to-host copies, busy
-ms and the idle share; a profile that lacks a kernel the launch counters
-saw says so and gives no idle share.
+path (phases 20, 21 and 32-35 included): device ops, device-to-host
+copies, busy ms and the idle share; a profile that lacks a kernel the
+launch counters saw says so and gives no idle share.
 
     python3 chip_smoke.py --turns OTHER_TREE [hmc] [resample]
 
@@ -3872,6 +3915,477 @@ def profile_slice9(device="cuda"):
         sys.stdout.flush()
 
 
+# --------------------------------------------------------------------------
+# slice 10: resumable inference (the checkpointed filters and HMC runner),
+# the combinators, profiling
+# --------------------------------------------------------------------------
+
+CKPT_EVERY = 3           # the sharded filter's chunk (phase 32)
+CKPT_HEAD = 3            # the steps of the interrupted head run
+CKPT_TIMED_RUNS = 5
+CKPT_IO_REPS = 5
+CKPT_VMAPPED_EVERY = 4   # phase 33, tests/test_checkpointed.py's schedule
+CKPT_LG_PARTICLES = 4096
+CKPT_LG_EVERY = 2
+CKPT_LG_GAP = 0.08       # tests/test_checkpointed.py:65-75
+CKPT_HMC = dict(num_chains=10_000, num_warmup=100, num_samples=200,
+                num_leapfrog=8, checkpoint_every=50)
+CKPT_HMC_PROFILED = dict(num_chains=10_000, num_warmup=10, num_samples=20,
+                         num_leapfrog=8, checkpoint_every=10)
+CKPT_HMC_HEAD = 50
+CKPT_HMC_SE = 4.0
+CKPT_HMC_SD_GAP = 0.03
+CKPT_HMC_RHAT_GAP = 0.05
+COND_LANES = 1 << 20
+COND_Y = 1.5
+COND_SE = 4.0
+MAP_ELEMENTS = 1 << 20
+MAP_RTOL = 1e-5
+SPIRAL_KERNELS = ("stats_cumsum", "positions_cummax", "resample_fused_from_s")
+
+
+def run_ckpt_sharded(device, path, num_steps=T, resume_from=None, seed=7):
+    """Phase 32's filter: the main path's spiral through
+    ``checkpointed_sharded_particle_filter``, its first ``num_steps`` - 1
+    steps, a checkpoint every CKPT_EVERY steps at ``path``."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.checkpointed import (
+        checkpointed_sharded_particle_filter,
+    )
+    from modppl_tpu_torch.models.spiral import (
+        circle_observations,
+        spiral_scan_kernel,
+    )
+
+    obs = torch.tensor(circle_observations(T), dtype=torch.float32,
+                       device=device)
+    return checkpointed_sharded_particle_filter(
+        None, seed, spiral_scan_kernel(),
+        torch.zeros(2, dtype=torch.float32, device=device),
+        Trie.from_dict({"obs": obs[0]}),
+        Trie.from_dict({"obs": obs[1:num_steps]}), N,
+        checkpoint_path=path, checkpoint_every=CKPT_EVERY,
+        resume_from=resume_from, ess_threshold=1.0, auto_batch=True,
+        device=device)
+
+
+CKPT_OUTPUTS = ("state", "log_weights", "log_ml")
+
+
+def require_same(what, got, want, keys=CKPT_OUTPUTS):
+    for k in keys:
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"{what}: {k} differs, bitwise")
+
+
+def time_ckpt_io(device, path):
+    """Bytes of the filter's checkpoint, and the median ms of a save and
+    of a restore of its carry (the card's state read back, written with
+    ``np.savez``; read, copied to the card), each closed by a sync."""
+    import os
+
+    from modppl_tpu_torch.inference.vsmc import SMCState
+    from modppl_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    g = torch.Generator(device=device)
+    g.manual_seed(3)
+    s = SMCState((1 << 64) - 5, torch.randn(N, 2, generator=g, device=device),
+                 torch.randn(N, generator=g, device=device),
+                 torch.zeros((), device=device), T)
+    saves, restores = [], []
+    for _ in range(CKPT_IO_REPS):
+        sync(device)
+        t0 = time.perf_counter()
+        save_checkpoint(path, s, step=T - 1)
+        saves.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got, _ = restore_checkpoint(path, s)
+        sync(device)
+        restores.append(time.perf_counter() - t0)
+        require_same("checkpoint round trip", vars(got), vars(s),
+                     ("state", "log_weights", "log_ml"))
+        if got.key != s.key or got.t != s.t:
+            raise AssertionError("checkpoint round trip: key or t differ")
+    return (os.path.getsize(path + ".npz"), statistics.median(saves) * 1e3,
+            statistics.median(restores) * 1e3)
+
+
+def check_ckpt_sharded(device="cuda"):
+    """Phase 32 (see the module docstring). Returns what was seen."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full, launches = counted(lambda: run_ckpt_sharded(device,
+                                                          f"{tmp}/full"))
+        want = {k: T - 1 for k in SPIRAL_KERNELS}
+        require_launches("checkpointed sharded filter", launches, want)
+        one_shot = run_filter(device, N, 7, store_ancestry=False)
+        require_same("checkpointed sharded filter vs the one-shot filter",
+                     full, one_shot)
+
+        def interrupted():
+            run_ckpt_sharded(device, f"{tmp}/head", num_steps=CKPT_HEAD + 1)
+            return run_ckpt_sharded(device, f"{tmp}/resumed",
+                                    resume_from=f"{tmp}/head")
+
+        resumed, launches = counted(interrupted)
+        require_launches("head and resumed runs", launches, want)
+        require_same("resumed run vs the uninterrupted one", resumed, full)
+        with plain_versions():
+            plain = run_ckpt_sharded(device, f"{tmp}/plain",
+                                     resume_from=f"{tmp}/head")
+        require_same("resumed run vs its plain rerun", plain, resumed)
+        nbytes, save_ms, restore_ms = time_ckpt_io(device, f"{tmp}/io")
+        # turns: one-shot, checkpointed, checkpointed, one-shot
+        walls = {"one_shot": [], "ckpt": []}
+        run_ckpt_sharded(device, f"{tmp}/warm", seed=100)
+        for name in ("one_shot", "ckpt", "ckpt", "one_shot"):
+            for i in range(CKPT_TIMED_RUNS):
+                sync(device)
+                t0 = time.perf_counter()
+                if name == "ckpt":
+                    run_ckpt_sharded(device, f"{tmp}/timed", seed=101 + i)
+                else:
+                    run_filter(device, N, 101 + i, store_ancestry=False)
+                sync(device)
+                walls[name].append(time.perf_counter() - t0)
+    return {"launches": launches, "log_ml": float(full["log_ml"]),
+            "bytes": nbytes, "save_ms": save_ms, "restore_ms": restore_ms,
+            "ckpt_ms": statistics.median(walls["ckpt"]) * 1e3,
+            "one_shot_ms": statistics.median(walls["one_shot"]) * 1e3,
+            "ckpt_all": walls["ckpt"], "one_shot_all": walls["one_shot"]}
+
+
+def run_ckpt_vmapped(device, path, num_steps=PF_STEPS, resume_from=None,
+                     seed=7):
+    """Phase 33's filter: BASELINE configs[2]'s spiral through
+    ``checkpointed_particle_filter``, systematic, a checkpoint every
+    CKPT_VMAPPED_EVERY steps."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.checkpointed import (
+        checkpointed_particle_filter,
+    )
+    from modppl_tpu_torch.models.spiral import spiral_scan_kernel
+
+    obs = torch.tensor(pf_observations(), dtype=torch.float32, device=device)
+    return checkpointed_particle_filter(
+        seed, spiral_scan_kernel(),
+        torch.zeros(2, dtype=torch.float32, device=device),
+        Trie.from_dict({"obs": obs[0]}),
+        Trie.from_dict({"obs": obs[1:num_steps]}), PF_PARTICLES,
+        checkpoint_path=path, checkpoint_every=CKPT_VMAPPED_EVERY,
+        resume_from=resume_from, resampling="systematic", device=device)
+
+
+def check_ckpt_vmapped(device="cuda"):
+    """Phase 33 (see the module docstring). Returns what was seen."""
+    import tempfile
+
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.checkpointed import (
+        checkpointed_particle_filter,
+    )
+    from modppl_tpu_torch.inference.vsmc import ScanKernel
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full, launches = counted(lambda: run_ckpt_vmapped(device,
+                                                          f"{tmp}/full"))
+        require_launches("checkpointed vmapped filter", launches,
+                         {"resample_fused_from_s": PF_STEPS - 1})
+        require_same("checkpointed vmapped filter vs particle_filter", full,
+                     run_pf_spiral(device, 7))
+        run_ckpt_vmapped(device, f"{tmp}/head",
+                         num_steps=CKPT_VMAPPED_EVERY + 1)
+        resumed = run_ckpt_vmapped(device, f"{tmp}/resumed",
+                                   resume_from=f"{tmp}/head")
+        require_same("resumed vmapped run vs the uninterrupted one",
+                     resumed, full)
+        init, step, _ = lg_models()
+        ys = torch.tensor(FIVO_YS, dtype=torch.float32, device=device)
+        lg, lg_launches = counted(lambda: checkpointed_particle_filter(
+            0, ScanKernel(init, step),
+            torch.zeros((), dtype=torch.float32, device=device),
+            Trie.from_dict({"y": ys[0]}), Trie.from_dict({"y": ys[1:]}),
+            CKPT_LG_PARTICLES, checkpoint_path=f"{tmp}/lg",
+            checkpoint_every=CKPT_LG_EVERY, device=device))
+        require_launches("checkpointed LG filter", lg_launches,
+                         {"resample_fused_from_s": len(FIVO_YS) - 1})
+        wall, walls = time_runs(lambda i: run_ckpt_vmapped(
+            device, f"{tmp}/timed", seed=101 + i), CKPT_TIMED_RUNS, device)
+    exact = lg_kalman_log_ml(FIVO_YS)
+    seen = {"launches": launches["resample_fused_from_s"], "wall_s": wall,
+            "walls": walls,
+            "lg_log_ml": float(lg["log_ml"]), "exact": exact,
+            "lg_launches": lg_launches["resample_fused_from_s"]}
+    if abs(seen["lg_log_ml"] - exact) > CKPT_LG_GAP:
+        raise AssertionError(f"checkpointed vmapped LG filter: {seen}")
+    return seen
+
+
+def make_ckpt_hmc(device, path, config=None, num_samples=None):
+    """Phase 34's runner: the conjugate model (mu ~ N(0, 1), x ~ N(mu, 1),
+    x = 1) through ``checkpointed_hmc_runner``, float32, at ``config``
+    (CKPT_HMC by default)."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.dists import normal
+    from modppl_tpu_torch.inference.checkpointed import (
+        checkpointed_hmc_runner,
+    )
+    from modppl_tpu_torch.modeling import gen
+
+    @gen
+    def conjugate(h):
+        mu = h.sample(normal, (0.0, 1.0), "mu")
+        h.sample(normal, (mu, 1.0), "x")
+
+    cfg = dict(CKPT_HMC if config is None else config)
+    if num_samples is not None:
+        cfg["num_samples"] = num_samples
+    return checkpointed_hmc_runner(
+        conjugate, (), Trie.from_dict({"x": torch.tensor(1.0,
+                                                         device=device)}),
+        checkpoint_path=path, setup_key=1, device=device, **cfg)
+
+
+def check_ckpt_hmc(device="cuda"):
+    """Phase 34 (see the module docstring). Returns what was seen."""
+    import tempfile
+
+    from modppl_tpu_torch.utils.diagnostics import summarize_mcmc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = make_ckpt_hmc(device, f"{tmp}/full")
+        sync(device)
+        t0 = time.perf_counter()
+        full, launches = counted(lambda: run(2))
+        wall = time.perf_counter() - t0
+        require_launches("checkpointed HMC runner", launches, {})
+
+        def interrupted():
+            head = make_ckpt_hmc(device, f"{tmp}/cut",
+                                 num_samples=CKPT_HMC_HEAD)(2)
+            tail = make_ckpt_hmc(device, f"{tmp}/cut")(
+                2, resume_from=f"{tmp}/cut")
+            return head, tail
+
+        (head, tail), launches = counted(interrupted)
+        require_launches("checkpointed HMC head and resume", launches, {})
+    for what in ("unconstrained", "accept_prob"):
+        if not torch.equal(torch.cat([head[what], tail[what]], 1),
+                           full[what]):
+            raise AssertionError(f"HMC resume: {what} differs from the "
+                                 f"uninterrupted run, bitwise")
+    if not torch.equal(tail["step_size"], full["step_size"]):
+        raise AssertionError("HMC resume: step_size differs, bitwise")
+    s = summarize_mcmc(full)["mu"]
+    # Geyer's estimate exceeds the draw count on these anticorrelated
+    # chains (eps near a half period); the se uses at most the draw count
+    se = s["std"] / math.sqrt(min(s["ess"], full["unconstrained"].shape[0]
+                                  * full["unconstrained"].shape[1]))
+    seen = {**s, "se": se, "wall_s": wall,
+            "accept": float(full["accept_prob"].double().mean()),
+            "eps": float(full["step_size"])}
+    if (abs(s["mean"] - 0.5) > CKPT_HMC_SE * se
+            or abs(s["std"] - math.sqrt(0.5)) > CKPT_HMC_SD_GAP
+            or abs(s["r_hat"] - 1.0) > CKPT_HMC_RHAT_GAP):
+        raise AssertionError(f"checkpointed HMC posterior: {seen}")
+    return seen
+
+
+_COND_MODEL = {}
+
+
+def cond_model():
+    """Phase 35's model: p ~ bernoulli(0.5), v from Cond(N(2, 0.1),
+    N(-2, 0.1)) on p, y ~ N(v, 1)."""
+    if not _COND_MODEL:
+        from modppl_tpu_torch.dists import bernoulli, normal
+        from modppl_tpu_torch.modeling import gen
+        from modppl_tpu_torch.modeling.combinators import Cond
+
+        @gen
+        def t_branch(h):
+            return h.sample(normal, (2.0, 0.1), "v")
+
+        @gen
+        def f_branch(h):
+            return h.sample(normal, (-2.0, 0.1), "v")
+
+        branch = Cond(t_branch, f_branch)
+
+        @gen
+        def model(h):
+            p = h.sample(bernoulli, 0.5, "p")
+            v = h.trace(branch, (p,), "br")
+            h.sample(normal, (v, 1.0), "y")
+            return v
+
+        _COND_MODEL["model"] = model
+    return _COND_MODEL["model"]
+
+
+def run_cond(device, key):
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.importance import importance_sampling
+
+    obs = Trie.from_dict({"y": torch.tensor(COND_Y, device=device)})
+    return importance_sampling(key, cond_model(), (), obs, COND_LANES,
+                               device=device)
+
+
+def map_inputs(device):
+    """Phase 35's plate: Map(point) over MAP_ELEMENTS elements, mu, x and y
+    from numpy's default_rng(35), float32."""
+    rng = np.random.default_rng(35)
+    mu, x = rng.standard_normal(MAP_ELEMENTS), rng.standard_normal(
+        MAP_ELEMENTS)
+    y = mu * x + 0.1 * rng.standard_normal(MAP_ELEMENTS)
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in (mu, x, y)]
+
+
+def check_combinators_profiling(device="cuda"):
+    """Phase 35 (see the module docstring). Returns what was seen."""
+    import tempfile
+
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.dists import normal
+    from modppl_tpu_torch.modeling import gen
+    from modppl_tpu_torch.modeling.map_combinator import Map
+    from modppl_tpu_torch.utils.profiling import capture_trace
+
+    (traces, lw, _), launches = counted(lambda: run_cond(device, 35))
+    require_launches("Cond under importance sampling", launches, {})
+    cond_s, _ = time_runs(lambda i: run_cond(device, 40 + i), 3, device)
+    w = torch.exp(lw.double())
+    est = float(torch.sum(w * traces.data.read("p").double()))
+    s = math.sqrt(1.01)
+    f = [math.exp(-0.5 * ((COND_Y - m) / s) ** 2) for m in (2.0, -2.0)]
+    exact = f[0] / (f[0] + f[1])
+    ess = 1.0 / float(torch.sum(w * w))
+    se = math.sqrt(exact * (1.0 - exact) / ess)
+    if abs(est - exact) > COND_SE * se:
+        raise AssertionError(f"Cond: P(p | y) {est} vs exact {exact} (se "
+                             f"{se})")
+
+    @gen
+    def point(h, mu, x):
+        return h.sample(normal, (mu * x, 0.1), "y")
+
+    mu, x, y = map_inputs(device)
+    sync(device)
+    t0 = time.perf_counter()
+    (tr, wt), launches = counted(lambda: Map(point).generate(
+        36, (mu, x), Trie.from_dict({"y": y})))
+    map_s = time.perf_counter() - t0
+    require_launches("Map generate", launches, {})
+    m64, x64, y64 = (a.double().cpu().numpy() for a in (mu, x, y))
+    want = float(np.sum(-0.5 * ((y64 - m64 * x64) / 0.1) ** 2
+                        - math.log(0.1) - 0.5 * math.log(2 * math.pi)))
+    rel = abs(float(wt) - want) / abs(want)
+    if rel > MAP_RTOL or tr.retv.shape != (MAP_ELEMENTS,):
+        raise AssertionError(f"Map generate: weight {float(wt)} vs {want} "
+                             f"(relative {rel})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with capture_trace(f"{tmp}/trace"):
+            run_ckpt_sharded(device, f"{tmp}/ckpt", seed=11)
+            sync(device)
+        with open(f"{tmp}/trace/trace.json") as fh:
+            text = fh.read()
+    missing = [name for name in SPIRAL_KERNELS
+               if KERNEL_SYMBOLS[name] not in text]
+    if missing:
+        raise AssertionError(f"capture_trace: the trace names no "
+                             f"{missing}")
+    return {"p": est, "exact": exact, "se": se, "ess": ess, "cond_s": cond_s,
+            "map_weight": float(wt), "map_exact": want, "map_rel": rel,
+            "map_s": map_s, "trace_bytes": len(text)}
+
+
+def slice10_phases(card, profile, device="cuda", clock=None):
+    """Phases 32-35 (slice 10), with their lines of output; ``profile``
+    adds each new configuration's profiler breakdown."""
+    import tempfile
+
+    ck = check_ckpt_sharded(device)
+    print(f"# main path: the spiral N={N} T={T} float32 through "
+          f"checkpointed_sharded_particle_filter, a checkpoint every "
+          f"{CKPT_EVERY} steps; launches {ck['launches']} across a head run "
+          f"of {CKPT_HEAD} steps and its resume, {T - 1} each "
+          f"uninterrupted, no other kernel; uninterrupted == the one-shot "
+          f"filter, resumed == uninterrupted, == its plain rerun (no kernel "
+          f"launched), bitwise; log_ml {ck['log_ml']!r}")
+    print(f"# checkpointed spiral filter: median {ck['ckpt_ms']:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in ck['ckpt_all']]} ms against the "
+          f"one-shot filter's {ck['one_shot_ms']:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in ck['one_shot_all']]} ms; a "
+          f"checkpoint {ck['bytes']} bytes, {ck['save_ms']:.3f} ms a save, "
+          f"{ck['restore_ms']:.3f} ms a restore (median of {CKPT_IO_REPS}) "
+          f"({card})")
+    if profile:
+        with tempfile.TemporaryDirectory() as tmp:
+            profile_run("checkpointed spiral filter", lambda: run_ckpt_sharded(
+                device, f"{tmp}/p", seed=201), ck["ckpt_ms"] / 1e3)
+    sys.stdout.flush()
+    if clock:
+        clock.mark("32 checkpointed sharded filter")
+    cv = check_ckpt_vmapped(device)
+    print(f"# main path: the spiral N={PF_PARTICLES} T={PF_STEPS} through "
+          f"checkpointed_particle_filter, a checkpoint every "
+          f"{CKPT_VMAPPED_EVERY} steps; launches resample_fused_from_s "
+          f"{cv['launches']}, no other kernel; == particle_filter("
+          f"store_traces=False), resumed == uninterrupted, bitwise; median "
+          f"{cv['wall_s'] * 1e3:.3f} ms of "
+          f"{[round(t * 1e3, 3) for t in cv['walls']]} ms; LG at "
+          f"N={CKPT_LG_PARTICLES}, every "
+          f"{CKPT_LG_EVERY}: log_ml {cv['lg_log_ml']!r} Kalman "
+          f"{cv['exact']!r} (kernel 3 {cv['lg_launches']} launches) ({card})")
+    if profile:
+        with tempfile.TemporaryDirectory() as tmp:
+            profile_run("checkpointed vmapped filter", lambda: (
+                run_ckpt_vmapped(device, f"{tmp}/p", seed=61)),
+                cv["wall_s"])
+    sys.stdout.flush()
+    if clock:
+        clock.mark("33 checkpointed vmapped filter")
+    ch = check_ckpt_hmc(device)
+    print(f"# main path: checkpointed_hmc_runner on the conjugate model "
+          f"{CKPT_HMC} float32, no kernel launched; head of {CKPT_HMC_HEAD} "
+          f"samples + resume == uninterrupted, bitwise (unconstrained, "
+          f"accept_prob, step_size); mu mean {ch['mean']!r} (0.5, se "
+          f"{ch['se']!r}), sd {ch['std']!r} ({math.sqrt(0.5):.5f}), r_hat "
+          f"{ch['r_hat']!r}, ESS {ch['ess']:.1f}; accept {ch['accept']!r}, "
+          f"eps {ch['eps']!r}; {ch['wall_s'] * 1e3:.1f} ms ({card})")
+    if profile:
+        with tempfile.TemporaryDirectory() as tmp:
+            run = make_ckpt_hmc(device, f"{tmp}/p", CKPT_HMC_PROFILED)
+            med, _ = time_runs(lambda i: run(20 + i), 3, device)
+            profile_run("checkpointed HMC runner (10 + 20)",
+                        lambda: run(99), med)
+    sys.stdout.flush()
+    if clock:
+        clock.mark("34 checkpointed HMC runner")
+    cm = check_combinators_profiling(device)
+    print(f"# main path: Cond under importance_sampling at N={COND_LANES} "
+          f"lanes, no kernel launched: P(p | y={COND_Y}) {cm['p']!r} exact "
+          f"{cm['exact']!r} (se {cm['se']!r}, ESS {cm['ess']:.1f}), "
+          f"median {cm['cond_s'] * 1e3:.3f} ms; Map generate over {MAP_ELEMENTS} "
+          f"elements, no kernel launched: weight {cm['map_weight']!r} vs "
+          f"{cm['map_exact']!r} (relative {cm['map_rel']!r}), "
+          f"{cm['map_s'] * 1e3:.1f} ms; capture_trace of phase 32's filter "
+          f"names kernels 1-3 ({cm['trace_bytes']} bytes) ({card})")
+    if profile:
+        profile_run("Cond importance (2^20)", lambda: run_cond(device, 99),
+                    cm["cond_s"])
+    sys.stdout.flush()
+    if clock:
+        clock.mark("35 combinators, profiling")
+
+
 SOURCES = {
     "stats_cumsum": ("modppl_tpu_torch/csrc/grid_positions.cu",
                      "modppl_tpu/ops/grid_positions_pallas.py:59"),
@@ -4400,6 +4914,7 @@ def main(argv):
     slice7_phases(card, "--profile" in argv, clock=clock)
     slice8_phases(card, "--profile" in argv, clock=clock)
     slice9_phases(card, "--profile" in argv, clock=clock)
+    slice10_phases(card, "--profile" in argv, clock=clock)
     launches.update(hmc_launches)
     launches.update(quad_launches)
     launches["grid_rank"] = rank_launches

@@ -6,9 +6,11 @@ from modppl_tpu_torch.core.address import (
     addr_hash,
     normalize_addr,
     select,
+    split_addr,
 )
 from modppl_tpu_torch.core.gfi import ArgDiff, GenFn, Trace
 from modppl_tpu_torch.core.trie import Trie
 
 __all__ = ["ArgDiff", "GenFn", "Selection", "Trace", "Trie",
-           "addr_components", "addr_hash", "normalize_addr", "select"]
+           "addr_components", "addr_hash", "normalize_addr", "select",
+           "split_addr"]

@@ -233,8 +233,9 @@ class Trie:
     # ---- conversion -------------------------------------------------------
 
     def copy(self):
-        """Structural copy; values are shared, not cloned."""
-        t = Trie()
+        """Structural copy of the same class (a Map's ``PlateTrie`` stays
+        one); values are shared, not cloned."""
+        t = type(self)()
         t.value = self.value
         t.logp = self.logp
         t.dist = self.dist

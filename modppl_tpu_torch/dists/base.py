@@ -19,11 +19,21 @@ the reference's draws passes them so.
 
 import torch
 
-from modppl_tpu_torch.core.keys import normal_lanes, uniform_lanes
+from modppl_tpu_torch.core.keys import generator, normal_lanes, uniform_lanes
 
 LANE_TODO = ("no lane form (sample_lanes): only normal, uniform, bernoulli, "
              "categorical, mvnormal and iid over a scalar one of these draw "
              "from per-lane key streams so far (ROADMAP Queue 1 item 13)")
+
+
+def u01(key, shape=(), device=None):
+    """Uniform [0, 1) draws of ``shape`` from the stream of the host key
+    ``key``, the primitive the samplers build on, on the card unless
+    ``device`` names another (``device="cpu"``)."""
+    from modppl_tpu_torch.modeling.handlers import entry_device
+
+    device = entry_device(device, "u01")
+    return torch.rand(shape, generator=generator(key, device), device=device)
 
 
 def as_param_tuple(params):

@@ -25,8 +25,8 @@ once over all C N lanes:
 ``replay`` carries a run's draws as the vmapped filter's does
 (inference/vsmc.py): ``(None, pool)`` for the init, then ``(u, pool)`` or
 ``(u, pool, proposal_pool, None)`` a step (there are no moves), ``u`` the
-chains' resample uniforms ((C,) systematic, else (C, N)) and each pool's
-values over all C N lanes.
+chains' resample uniforms ((C,) systematic and residual, else (C, N)) and
+each pool's values over all C N lanes.
 
 Nothing is read back to the host, and nothing on the path detaches: with
 parameters that require grad, the log-MLs carry their gradients through
@@ -91,7 +91,7 @@ def _resample_blocks(k_res, scheme, state, log_weights, log_ml,
         # chain's state, so the arm is not run
         slots = torch.arange(c * n, dtype=torch.int32, device=ess.device)
         return state, log_weights, log_ml, slots, ess, do
-    shape = () if scheme == "systematic" else (n,)
+    shape = () if scheme in ("systematic", "residual") else (n,)
     u = (uniform_lanes(k_res, shape, log_norm.dtype) if u is None
          else u.reshape((c,) + shape))
     new, parents = blocked_resample(scheme, log_norm, state, u)

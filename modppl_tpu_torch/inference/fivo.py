@@ -17,9 +17,10 @@ the chain-blocked filter (inference/blocked_smc.py), keyed by ``key`` as
 its one lane, and ``fit_proposal``'s ``batch_size`` runs a step are that
 filter over ``batch_size`` chains, run b keyed as ``fivo_objective`` is by
 ``split(k_s, batch_size)[b]``. So ``resampling`` is one of the blocked
-filter's schemes (``parallel/resample.BLOCKED_SCHEMES``): the reference's
-``"residual"`` is not ported here. The optimizer is the port's optax Adam
-(inference/_adam.py) on the negated gradients.
+filter's schemes (``parallel/resample.BLOCKED_SCHEMES``), the reference's
+four: ``"residual"`` runs each chain's deterministic copies and residual
+sweep inside the chain's own block of lanes. The optimizer is the port's
+optax Adam (inference/_adam.py) on the negated gradients.
 """
 
 import torch

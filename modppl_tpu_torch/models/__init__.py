@@ -6,7 +6,19 @@ from modppl_tpu_torch.models.hierarchical import (
     hierarchical_model,
     read_coeffs,
 )
-from modppl_tpu_torch.models.hmm import HMM, HMMParams, hmm_forward_alg
+from modppl_tpu_torch.models.hmm import (
+    HMM,
+    HMMParams,
+    hmm_forward_alg,
+    hmm_forward_log_ml,
+    hmm_forward_log_ml_parallel,
+)
+from modppl_tpu_torch.models.lgssm import (
+    LGSSMParams,
+    lgssm_scan_kernel,
+    lgssm_simulate,
+    make_lgssm,
+)
 from modppl_tpu_torch.models.pointed import DriftProposal, PointedModel
 from modppl_tpu_torch.models.simple import (
     Bounds,
@@ -23,10 +35,12 @@ from modppl_tpu_torch.models.stochvol import (
     sv_scan_kernel,
 )
 
-__all__ = ["Bounds", "DriftProposal", "HMM", "HMMParams", "PointedModel",
-           "SVParams", "add_or_remove_param_proposal",
+__all__ = ["Bounds", "DriftProposal", "HMM", "HMMParams", "LGSSMParams",
+           "PointedModel", "SVParams", "add_or_remove_param_proposal",
            "hierarchical_drift_proposal", "hierarchical_model",
-           "hmm_forward_alg", "line_model", "obs_model",
+           "hmm_forward_alg", "hmm_forward_log_ml",
+           "hmm_forward_log_ml_parallel", "lgssm_scan_kernel",
+           "lgssm_simulate", "line_model", "make_lgssm", "obs_model",
            "pointed_2d_drift_proposal", "pointed_2d_model", "read_coeffs",
            "simulate_sv", "spiral_kernel", "spiral_model", "sv_scan_kernel",
            "uniform_2d"]

@@ -1,6 +1,6 @@
 """Hidden Markov model for the batched filter, and the exact forward
-algorithm as its oracle (counterpart of modppl_tpu/models/hmm.py:18-60,
-108-114, 159-182).
+algorithm as its oracle, sequential and time-parallel (counterpart of
+modppl_tpu/models/hmm.py).
 
 Matrix conventions follow the reference: ``emission_matrix[obs, state]``,
 ``transition_matrix[new_state, prev_state]``. ``HMM`` is the hand-coded
@@ -21,6 +21,7 @@ from modppl_tpu_torch.core.gfi import ArgDiff, GenFn, Trace
 from modppl_tpu_torch.core.keys import generator
 from modppl_tpu_torch.dists import categorical
 from modppl_tpu_torch.modeling import gen
+from modppl_tpu_torch.modeling.handlers import entry_device
 
 
 class HMMParams:
@@ -110,6 +111,48 @@ def hmm_forward_log_ml(prior, emission_dists, transition_dists, observations):
         log_alpha = torch.logsumexp(log_t + (scored - evidence)[None, :], 1)
         total = total + evidence
     return total
+
+
+def hmm_forward_log_ml_parallel(prior, emission_dists, transition_dists,
+                                observations, device=None):
+    """Log marginal likelihood by the time-parallel forward algorithm, in
+    the inputs' dtype on the card unless ``device`` names another
+    (``device="cpu"``).
+
+    The recursion alpha_t = diag(e[obs_t]) T alpha_{t-1} is a chain of
+    (K, K) products, which compose associatively: their prefix products
+    run in O(log T) depth (``inference/kalman.associative_scan``, the
+    reference's odd-even scheme), each product max-normalized with its log
+    scale carried apart, so nothing underflows. The log-ML is the summed
+    scale plus the final reduction against alpha_0. Torch has no
+    ``associative_scan``; this is plain torch, as the reference's is XLA.
+    """
+    from modppl_tpu_torch.inference.kalman import associative_scan
+
+    device = entry_device(device, "hmm_forward_log_ml_parallel")
+    prior = torch.as_tensor(prior, device=device)
+    e = torch.as_tensor(emission_dists, device=device)
+    t_mat = torch.as_tensor(transition_dists, device=device)
+    obs = torch.as_tensor(observations, device=device).long()
+
+    alpha0 = e[obs[0], :] * prior
+    if obs.shape[0] == 1:
+        return torch.log(torch.sum(alpha0))
+    # M_t = diag(e[obs_t]) T for t = 1 .. T-1
+    ms = e[obs[1:]][:, :, None] * t_mat[None, :, :]
+    norms = torch.amax(ms, dim=(1, 2))
+
+    def assoc(earlier, later):
+        # the later range's product on the LEFT, normalized per element
+        se, me = earlier
+        sl, ml = later
+        m = ml @ me
+        norm = torch.amax(m, dim=(-2, -1), keepdim=True)
+        return se + sl + torch.log(norm[..., 0, 0]), m / norm
+
+    s_fin, m_fin = associative_scan(
+        assoc, (torch.log(norms), ms / norms[:, None, None]))
+    return s_fin[-1] + torch.log(torch.sum(m_fin[-1] @ alpha0))
 
 
 def hmm_scan_kernel(params):

@@ -79,32 +79,67 @@ def stratified_parents(key, log_normalized_weights, num=None, us=None):
     return grid_rank_plain(s, n_in, n)
 
 
+def _pairwise_sum(x):
+    """Sum along the last axis by adjacent pairs, zero-padded to a power
+    of two: a fixed order of elementwise adds, so a row sums to the same
+    bits alone or in a batch, on any device and thread count."""
+    n = x.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        x = torch.cat([x, x.new_zeros(tuple(x.shape[:-1]) + (p - n,))], -1)
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x
+
+
+def _rank_rows(s, n_in, num):
+    """``grid_rank_plain`` along the last axis of ``s`` (..., M), with S
+    clipped to [0, num] as the reference's scatter is: parents (..., num),
+    ``#{j : S_j <= i}`` clipped to [0, n_in - 1]."""
+    s = torch.clamp(s, 0, num).long()
+    z = torch.zeros(tuple(s.shape[:-1]) + (num + 1,), dtype=torch.int64,
+                    device=s.device).scatter_add_(-1, s, torch.ones_like(s))
+    return torch.clamp(torch.cumsum(z[..., :num], -1), 0,
+                       n_in - 1).to(torch.int32)
+
+
+def _residual_rows(lw, u, n):
+    """Residual-systematic parents of each row of ``lw`` (..., n_in) with
+    its uniform ``u`` (...,): every op is row-local and sums in a fixed
+    order, so a row's parents are the same alone or among others and a NaN
+    row moves no other."""
+    n_in = lw.shape[-1]
+    w = torch.exp(lw)
+    w = w / _pairwise_sum(w)
+    counts = torch.floor(n * w).to(torch.int32)
+    num_det = torch.sum(counts, -1, keepdim=True)
+    det_parents = _rank_rows(ordered_cumsum(counts), n_in, n)
+    resid = n * w - counts
+    r_total = n - num_det.to(w.dtype)
+    resid_cdf = ordered_cumsum(resid)
+    resid_cdf = resid_cdf / resid_cdf[..., -1:]
+    # no residual mass (N w all integers) makes resid_cdf 0/0: the int
+    # clamp sends its NaN to slot 0, as XLA's conversion does
+    s_res = torch.clamp(torch.clamp(torch.ceil(resid_cdf * r_total
+                                               - u[..., None]), 0, n)
+                        .to(torch.int32), 0, n)
+    res_rank = _rank_rows(s_res, n_in, n)
+    idx = torch.arange(n, dtype=torch.int64, device=lw.device)
+    shifted = torch.gather(res_rank, -1, torch.clamp(
+        idx - num_det, 0, n - 1).expand(res_rank.shape))
+    return torch.where(idx >= num_det, shifted, det_parents)
+
+
 def residual_parents(key, log_normalized_weights, num=None, u=None):
     """Residual-systematic resampling: floor(N w) deterministic copies, then
     a systematic sweep of the R = N - sum(floor) remaining slots over the
     residual weights, stitched with a shifted gather."""
     lw = log_normalized_weights
-    n_in = lw.shape[0]
-    n = n_in if num is None else num
-    w = torch.exp(lw)
-    w = w / torch.sum(w)
-    counts = torch.floor(n * w).to(torch.int32)
-    num_det = torch.sum(counts)
-    det_parents = grid_rank_plain(ordered_cumsum(counts), n_in, n)
-    resid = n * w - counts
-    r_total = n - num_det.to(w.dtype)
-    resid_cdf = ordered_cumsum(resid)
-    resid_cdf = resid_cdf / resid_cdf[-1]
+    n = lw.shape[0] if num is None else num
     if u is None:
         u = uniform(key, lw)
-    # no residual mass (N w all integers) makes resid_cdf 0/0: the int
-    # clamp sends its NaN to slot 0, as XLA's conversion does
-    s_res = torch.clamp(torch.clamp(torch.ceil(resid_cdf * r_total - u), 0, n)
-                        .to(torch.int32), 0, n)
-    res_rank = grid_rank_plain(s_res, n_in, n)
-    idx = torch.arange(n, dtype=torch.int32, device=lw.device)
-    shifted = res_rank[torch.clamp(idx - num_det, 0, n - 1).long()]
-    return torch.where(idx >= num_det, shifted, det_parents)
+    return _residual_rows(lw, torch.as_tensor(u, dtype=lw.dtype,
+                                              device=lw.device), n)
 
 
 RESAMPLERS = {
@@ -196,7 +231,7 @@ def fused_systematic_resample_or_none(key, log_normalized_weights, tree,
 # Chain-blocked resampling: C chains of N particles on one particle axis
 # --------------------------------------------------------------------------
 
-BLOCKED_SCHEMES = ("systematic", "multinomial", "stratified")
+BLOCKED_SCHEMES = ("systematic", "multinomial", "stratified", "residual")
 
 
 def blocked_positions(s_rows):
@@ -218,10 +253,13 @@ def blocked_positions(s_rows):
 def blocked_resample(scheme, log_norm, tree, u):
     """Resample C chains at once: ``log_norm`` (C, N) each chain's
     normalized log-weights, ``tree`` the particle state (leading axis
-    C N), ``u`` the uniforms ((C,) for systematic, (C, N) for multinomial
-    and stratified). Systematic S goes to kernel 3 with the state when it
-    is fusable (one launch for every chain), else to kernel 4; the other
-    schemes rank by ``grid_rank_plain``, as their one-chain forms do.
+    C N), ``u`` the uniforms ((C,) for systematic and residual, (C, N) for
+    multinomial and stratified). Systematic S goes to kernel 3 with the
+    state when it is fusable (one launch for every chain), else to kernel
+    4; multinomial and stratified rank by ``grid_rank_plain``, as their
+    one-chain forms do. Residual runs each chain's deterministic copies and
+    residual sweep inside its own row (``_residual_rows``: chain c's
+    parents are ``residual_parents`` of its weights and uniform, + c N).
     Returns (new tree, parents (C N,) int32 on the shared axis)."""
     c, n = log_norm.shape
     cdf = normalized_cdf(log_norm)
@@ -240,6 +278,10 @@ def blocked_resample(scheme, log_norm, tree, u):
         s = torch.searchsorted(positions.contiguous(), cdf.contiguous(),
                                right=False).to(torch.int32)
         parents = grid_rank_plain(blocked_positions(s), c * n)
+    elif scheme == "residual":
+        offsets = torch.arange(c, dtype=torch.int32, device=cdf.device) * n
+        parents = (_residual_rows(log_norm, u, n)
+                   + offsets[:, None]).reshape(-1)
     else:
         raise ValueError(f"chain-blocked resampling: expected one of "
                          f"{BLOCKED_SCHEMES}, got {scheme!r}")

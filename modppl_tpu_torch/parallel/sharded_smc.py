@@ -136,6 +136,49 @@ def make_resample_step(mesh, num_particles, ess_threshold):
     return step
 
 
+def _filter_parts(mesh, kernel, num_particles, ess_threshold, auto_batch,
+                  proposal=None, proposal_params=None, rejuvenation=None):
+    """The one-shot and checkpointed filters' shared construction: the
+    wrapped kernel, the resample step, the fixed-order logsumexp and the
+    per-step body. Returns ``(body, lse, wrapped_kernel)``;
+    ``body(s, constraints_t, replay=None, record=None) -> (s, (parents,
+    ess, resampled, acceptance))`` is one step: the key split four ways
+    (carry, resample, extend, rejuvenate), the resample, the extend and the
+    moves. Every key a step draws with comes from ``s.key``, so a run
+    chunked on the host over this body (inference/checkpointed.py) replays
+    the one-shot filter bit for bit. ``replay`` is one entry of the
+    filter's, ``record`` a list the step appends its entry to."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "modppl_tpu_torch: only mesh=None (one device) is ported")
+    kernel, proposal = wrap_kernel(kernel, proposal, rejuvenation,
+                                   auto_batch, "sharded filter")
+    n = num_particles
+    _cdf_block(n)
+    resample_step = make_resample_step(None, n, ess_threshold)
+
+    def lse(log_weights):
+        return det_logsumexp(log_weights, n)
+
+    def body(s, constraints_t, replay=None, record=None):
+        key, k_res, k_gen, k_rej = split(s.key, 4)
+        u, *entry = replay_entry(replay)
+        if u is None:
+            u = systematic_uniform(k_res, s.log_weights)
+        state, lw, d_log_ml, parents, ess, do = resample_step(
+            k_res, s.log_weights, s.state, u=u)
+        resampled = SMCState(key, state, lw, s.log_ml + d_log_ml, s.t)
+        trace, w, accepted, draws = guided_step(
+            resampled, kernel, k_gen, k_rej, constraints_t, n, proposal,
+            proposal_params, rejuvenation, entry, record=record is not None)
+        if record is not None:
+            record.append((u, *draws))
+        new = SMCState(key, trace.retv, lw + w, resampled.log_ml, s.t + 1)
+        return new, (parents, ess, do, accepted)
+
+    return body, lse, kernel
+
+
 def sharded_batched_particle_filter(mesh, key, kernel, state0,
                                     init_constraints, step_constraints,
                                     num_particles, ess_threshold=1.0,
@@ -167,15 +210,11 @@ def sharded_batched_particle_filter(mesh, key, kernel, state0,
     ``resampled`` ((T-1,) each) and ``acceptance`` ((T-1, num_moves), None
     without rejuvenation), all on the device.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "modppl_tpu_torch: only mesh=None (one device) is ported")
-    device = entry_device(device, "sharded_batched_particle_filter")
-    kernel, proposal = wrap_kernel(kernel, proposal, rejuvenation,
-                                   auto_batch, "sharded filter")
     n = num_particles
-    _cdf_block(n)
-    resample_step = make_resample_step(None, n, ess_threshold)
+    body, lse, kernel = _filter_parts(mesh, kernel, n, ess_threshold,
+                                      auto_batch, proposal, proposal_params,
+                                      rejuvenation)
+    device = entry_device(device, "sharded_batched_particle_filter")
     state0, init_constraints, step_constraints, proposal_params = to_device(
         (state0, init_constraints, step_constraints, proposal_params),
         device, trie_tensors=True)
@@ -187,27 +226,16 @@ def sharded_batched_particle_filter(mesh, key, kernel, state0,
         record.append((None, generated_draws(trace, init_constraints)))
     ancestors, ess_t, resampled_t, acceptance = [], [], [], []
     for i in range(steps):
-        cons_t = step_constraints.map(lambda v: v[i])
-        key, k_res, k_gen, k_rej = split(s.key, 4)
-        u, *entry = replay_entry(replay[i + 1] if replay else None)
-        if u is None:
-            u = systematic_uniform(k_res, s.log_weights)
-        state, lw, d_log_ml, parents, ess, do = resample_step(
-            k_res, s.log_weights, s.state, u=u)
-        resampled = SMCState(key, state, lw, s.log_ml + d_log_ml, s.t)
-        trace, w, accepted, draws = guided_step(
-            resampled, kernel, k_gen, k_rej, cons_t, n, proposal,
-            proposal_params, rejuvenation, entry, record=record is not None)
-        if record is not None:
-            record.append((u, *draws))
-        s = SMCState(key, trace.retv, lw + w, resampled.log_ml, s.t + 1)
+        s, (parents, ess, do, accepted) = body(
+            s, step_constraints.map(lambda v: v[i]),
+            replay[i + 1] if replay else None, record)
         if store_ancestry:
             ancestors.append(parents)
         ess_t.append(ess)
         resampled_t.append(do)
         acceptance.append(accepted)
 
-    log_ml = s.log_ml + det_logsumexp(s.log_weights, n) - math.log(float(n))
+    log_ml = s.log_ml + lse(s.log_weights) - math.log(float(n))
     return {"state": s.state, "log_weights": s.log_weights, "log_ml": log_ml,
             "ancestors": torch.stack(ancestors) if store_ancestry else None,
             "ess": torch.stack(ess_t), "resampled": torch.stack(resampled_t),

@@ -14,6 +14,7 @@ JSON object of them all.
 """
 
 import functools
+import importlib
 import json
 import sys
 from pathlib import Path
@@ -24,7 +25,8 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from modppl_tpu_torch.inference import nuts  # noqa: E402
+# the package exports the function nuts; the module by its path
+nuts = importlib.import_module("modppl_tpu_torch.inference.nuts")
 
 SHORT = dict(num_warmup=10, num_samples=10)
 ORDER = (True, False, False, True)

@@ -33,12 +33,14 @@ from modppl_tpu import Trie as JTrie
 from modppl_tpu.models import hierarchical_static as jhs
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.dists import iid, normal
-from modppl_tpu_torch.inference import hmc as thmc
 from modppl_tpu_torch.inference.adaptation import warmup_phases
 from modppl_tpu_torch.interop import chees_phase_draws, tensor
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.models import hierarchical_static as ths
 from _torch_threads import one_thread  # noqa: F401
+
+# the package exports the functions hmc and nuts; the modules by path
+thmc = importlib.import_module("modppl_tpu_torch.inference.hmc")
 
 jchees = importlib.import_module("modppl_tpu.inference.chees")
 # the module (the package exports a function of the same name)

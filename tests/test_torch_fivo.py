@@ -394,3 +394,104 @@ def test_fivo_learns_optimal_proposal():
     _, std_init = bound_stats(params0)
     assert std_tr < 0.5 * std_init
     assert mean_tr == pytest.approx(want, abs=0.1)
+
+
+# --- chain-blocked residual resampling -------------------------------------
+
+@pytest.mark.parametrize("c", [1, 3, 8])
+def test_blocked_residual_is_residual_parents_per_chain(c):
+    """Chain b's parents are residual_parents of its own weights and
+    uniform, + b N, bitwise; a NaN chain keeps its parents in its block
+    and moves no other chain."""
+    n = 96
+    rng = np.random.default_rng(c)
+    lw = torch.from_numpy(rng.standard_normal((c, n)) * 2.0)
+    lw = lw - torch.logsumexp(lw, 1, keepdim=True)
+    u = torch.from_numpy(rng.random(c))
+    state = torch.arange(c * n, dtype=torch.float64)[:, None]
+    for bad in ([], [c // 2]):
+        lw_b = lw.clone()
+        lw_b[bad] = float("nan")
+        new, parents = resample.blocked_resample("residual", lw_b, state, u)
+        for b in range(c):
+            block = parents[b * n:(b + 1) * n]
+            assert int(block.min()) >= b * n and int(block.max()) < (b + 1) * n
+            want = resample.residual_parents(None, lw_b[b], u=u[b]) + b * n
+            assert torch.equal(block, want), b
+        assert torch.equal(new[:, 0], parents.to(torch.float64))
+
+
+@pytest.mark.parametrize("auto_batch", [False, True])
+def test_fivo_objective_residual_matches_reference(auto_batch):
+    """``resampling="residual"``, every step resampling, on the reference's
+    draws (residual takes the systematic step's one uniform): the bound
+    and its gradient are jax.value_and_grad's of the reference's."""
+    n, vals = 64, (0.3, 0.4, 0.1, 0.2)
+    key = jax.random.PRNGKey(13)
+    jic, jsc = _j_constraints()
+    want, jgrad = jax.value_and_grad(lambda p: jfivo.fivo_objective(
+        key, J_KERNEL, j_lg_learnable_proposal, p, jnp.zeros(()), jic, jsc,
+        n, resampling="residual", ess_threshold=1.0,
+        auto_batch=auto_batch))(_j_params(vals))
+    init_c, step_c = _constraints()
+    params = _params(*vals, grad=True)
+    got = fivo_objective(0, KERNEL, lg_learnable_proposal, params,
+                         torch.zeros(()), init_c, step_c, n,
+                         resampling="residual", ess_threshold=1.0,
+                         auto_batch=auto_batch,
+                         replay=_replay([key], n, auto_batch), device="cpu")
+    grad = torch.autograd.grad(got, tuple(params.values()))
+    np.testing.assert_allclose(float(got.detach()), float(want), **PARITY)
+    for g, name in zip(grad, params):
+        np.testing.assert_allclose(float(g), float(jgrad[name]), **PARITY,
+                                   err_msg=name)
+
+
+def test_fit_proposal_residual_matches_reference():
+    """Two steps of a batch of 3 runs, residual: one chain-blocked filter
+    whose every chain resamples in its own block, on the reference's
+    draws."""
+    n, num_steps, batch = 32, 2, 3
+    key = jax.random.PRNGKey(8)
+    jic, jsc = _j_constraints()
+    vals = (0.0, 0.0, 0.0, 0.5)
+    kw = dict(num_steps=num_steps, learning_rate=0.05, batch_size=batch,
+              resampling="residual", ess_threshold=1.0)
+    jparams, jbounds = jfivo.fit_proposal(
+        key, J_KERNEL, j_lg_learnable_proposal, _j_params(vals),
+        jnp.zeros(()), jic, jsc, n, **kw)
+    replay = [_replay(jax.random.split(k, batch), n, False)
+              for k in jax.random.split(key, num_steps)]
+    init_c, step_c = _constraints()
+    params, bounds = fit_proposal(
+        0, KERNEL, lg_learnable_proposal, _params(*vals), torch.zeros(()),
+        init_c, step_c, n, replay=replay, device="cpu", **kw)
+    np.testing.assert_allclose(bounds.numpy(), np.asarray(jbounds), **PARITY)
+    for name, p in params.items():
+        np.testing.assert_allclose(float(p), float(jparams[name]), **PARITY,
+                                   err_msg=name)
+
+
+def test_fivo_residual_bound_on_its_own_streams():
+    """The residual bound's mean over keys on the port's own streams within
+    the Monte Carlo bound of tests/test_batched_filter.py:252-282 (0.1) of
+    the reference's on its own, and its gradient finite."""
+    init_c, step_c = _constraints()
+    jic, jsc = _j_constraints()
+    params = _optimal(grad=True)
+    jparams = _j_params([float(v.detach()) for v in params.values()])
+    kw = dict(resampling="residual", ess_threshold=1.0, auto_batch=True)
+    ref = np.mean([float(jfivo.fivo_objective(
+        jax.random.PRNGKey(i), J_KERNEL, j_lg_learnable_proposal, jparams,
+        jnp.zeros(()), jic, jsc, 1024, **kw)) for i in range(3)])
+
+    def obj(k):
+        return fivo_objective(k, KERNEL, lg_learnable_proposal, params,
+                              torch.zeros(()), init_c, step_c, 1024,
+                              device="cpu", **kw)
+
+    vals = [float(obj(i).detach()) for i in range(3)]
+    assert np.mean(vals) == pytest.approx(ref, abs=0.1)
+    assert np.mean(vals) == pytest.approx(kalman_log_ml(YS), abs=0.1)
+    g = torch.autograd.grad(obj(7), tuple(params.values()))
+    assert all(bool(torch.isfinite(x)) for x in g)

@@ -8,6 +8,8 @@ exact posteriors, as the reference's own tests hold it
 seed; float64 unless the reference's model fixes float32.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +39,6 @@ from modppl_tpu.utils.diagnostics import ess_autocorr as j_ess
 from modppl_tpu.utils.diagnostics import split_rhat as j_rhat
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.dists import bernoulli, iid, mvnormal, normal
-from modppl_tpu_torch.inference import hmc as thmc
 from modppl_tpu_torch.inference import transforms as ttr
 from modppl_tpu_torch.inference.adaptation import warmup_schedule
 from modppl_tpu_torch.interop import tensor
@@ -50,6 +51,9 @@ from modppl_tpu_torch.models.illcond_gauss import illcond_cov, make_illcond_gaus
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.utils.diagnostics import ess_autocorr, split_rhat
 from _torch_threads import one_thread  # noqa: F401
+
+# the package exports the functions hmc and nuts; the modules by path
+thmc = importlib.import_module("modppl_tpu_torch.inference.hmc")
 
 TOL = dict(rtol=1e-9, atol=1e-9)
 

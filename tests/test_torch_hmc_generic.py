@@ -26,7 +26,6 @@ from modppl_tpu.models import hierarchical_static as jhs
 from modppl_tpu.models import logreg as jlr
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.inference import adaptation as tad
-from modppl_tpu_torch.inference import hmc as thmc
 from modppl_tpu_torch.interop import (
     chain_phase_draws,
     logreg_data_from_numpy,
@@ -36,6 +35,9 @@ from modppl_tpu_torch.interop import (
 from modppl_tpu_torch.models import hierarchical_static as ths
 from modppl_tpu_torch.models import logreg as tlr
 from _torch_threads import one_thread  # noqa: F401
+
+# the package exports the functions hmc and nuts; the modules by path
+thmc = importlib.import_module("modppl_tpu_torch.inference.hmc")
 
 # the module: modppl_tpu.inference exports a function of the same name
 jhmc = importlib.import_module("modppl_tpu.inference.hmc")

@@ -18,10 +18,12 @@ import torch
 
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.dists import gamma, iid, normal
-from modppl_tpu_torch.inference import hmc as thmc
 from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.modeling import gen
 from _torch_threads import one_thread  # noqa: F401
+
+# the package exports the functions hmc and nuts; the modules by path
+thmc = importlib.import_module("modppl_tpu_torch.inference.hmc")
 
 jmala = importlib.import_module("modppl_tpu.inference.mala")
 # the module (the package exports a function of the same name)

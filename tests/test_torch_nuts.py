@@ -27,12 +27,14 @@ from modppl_tpu.models import hierarchical_static as jhs
 from modppl_tpu_torch.core.keys import fold_in, lanes, split, split_keys
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.dists import iid, normal
-from modppl_tpu_torch.inference import hmc as thmc
-from modppl_tpu_torch.inference import nuts as tnuts
 from modppl_tpu_torch.interop import tensor
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.models import hierarchical_static as ths
 from _torch_threads import one_thread  # noqa: F401
+
+# the package exports the functions hmc and nuts; the modules by path
+thmc = importlib.import_module("modppl_tpu_torch.inference.hmc")
+tnuts = importlib.import_module("modppl_tpu_torch.inference.nuts")
 
 jnuts = importlib.import_module("modppl_tpu.inference.nuts")
 jhmc = importlib.import_module("modppl_tpu.inference.hmc")

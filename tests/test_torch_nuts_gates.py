@@ -8,6 +8,7 @@ the reference's configurations); the bounds are the reference's.
 """
 
 import functools
+import importlib
 import math
 
 import numpy as np
@@ -16,13 +17,15 @@ import torch
 from scipy.stats import norm as sps_norm
 
 from modppl_tpu_torch.core.trie import Trie
-from modppl_tpu_torch.inference import nuts as nuts_mod
 from modppl_tpu_torch.inference.hmc import hmc
 from modppl_tpu_torch.inference.nuts import nuts, nuts_runner
 from modppl_tpu_torch.interop import tensor
 
 from test_torch_nuts import _linreg_data, conjugate, funnel, linreg
 from _torch_threads import one_thread  # noqa: F401
+
+# the package exports the functions hmc and nuts; the modules by path
+nuts_mod = importlib.import_module("modppl_tpu_torch.inference.nuts")
 
 
 @pytest.fixture(autouse=True)

@@ -32,12 +32,14 @@ from modppl_tpu.models import logreg as jlr
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.dists import iid, normal
 from modppl_tpu_torch.inference import _adam
-from modppl_tpu_torch.inference import hmc as thmc
 from modppl_tpu_torch.inference import vi as tvi
 from modppl_tpu_torch.interop import logreg_data_from_numpy, tensor
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.models import logreg as tlr
 from _torch_threads import one_thread  # noqa: F401
+
+# the package exports the functions hmc and nuts; the modules by path
+thmc = importlib.import_module("modppl_tpu_torch.inference.hmc")
 
 jvi = importlib.import_module("modppl_tpu.inference.vi")
 
