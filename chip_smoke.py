@@ -4181,10 +4181,7 @@ def check_ckpt_hmc(device="cuda"):
     if not torch.equal(tail["step_size"], full["step_size"]):
         raise AssertionError("HMC resume: step_size differs, bitwise")
     s = summarize_mcmc(full)["mu"]
-    # Geyer's estimate exceeds the draw count on these anticorrelated
-    # chains (eps near a half period); the se uses at most the draw count
-    se = s["std"] / math.sqrt(min(s["ess"], full["unconstrained"].shape[0]
-                                  * full["unconstrained"].shape[1]))
+    se = s["std"] / math.sqrt(s["ess"])
     seen = {**s, "se": se, "wall_s": wall,
             "accept": float(full["accept_prob"].double().mean()),
             "eps": float(full["step_size"])}

@@ -166,7 +166,8 @@ def _pooled_sum(x, axis_name=None):
 
 def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
                       target_accept=0.8, axis_name=None,
-                      batched_transition=False):
+                      batched_transition=False, phase_inputs=_phase_keys,
+                      carry=None):
     """Adapt ONE shared (step size, diagonal inverse mass) from all chains.
 
     ``u0s`` (C, d). With ``batched_transition=True``, ``transition(key, us,
@@ -179,9 +180,21 @@ def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
     accept mean and the batch's (Chan) Welford update use the fixed-order
     sums of :func:`_pooled_sum`. Returns (us (C, d), eps (), inv_mass
     (d,)).
+
+    ``phase_inputs(phase, phase_key, length)`` gives a phase's iteration
+    inputs, passed to the transition where the key would be: by default
+    its keys ``split(phase_key, length)``, as the reference splits them
+    (a per-chain transition needs keys). ``carry`` (a batched transition
+    only) is a tuple whose first entry is ``u0s``, such as (us, logp,
+    grad): the transition then takes and returns the whole tuple in place
+    of ``us``, the window statistics read its first entry, and the final
+    tuple is returned in place of ``us``.
     """
     if axis_name is not None:
         raise NotImplementedError(MULTI_SHARD_TODO)
+    if carry is not None and not batched_transition:
+        raise ValueError("run_warmup_pooled: a carry needs "
+                         "batched_transition=True")
     c = u0s.shape[0]
     zeros = u0s.new_zeros(u0s.shape[1:])
     inv_mass = torch.ones_like(zeros)
@@ -197,11 +210,12 @@ def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
                                              device=us.device)
                              for _, a in outs]))
 
-    def run_phase(phase_key, us, da, inv_mass, length, adapt_mass):
+    def run_phase(phase, state, da, inv_mass, length, adapt_mass):
         mean, m2, n = zeros, zeros, u0s.new_zeros(())
-        for k in split(phase_key, length):
+        for x in phase_inputs(phase, fold_in(key, phase), length):
             eps = torch.exp(da["log_eps"])
-            us, aprobs = move(k, us, eps, inv_mass)
+            state, aprobs = move(x, state, eps, inv_mass)
+            us = state if carry is None else state[0]
             a_mean = _pooled_sum(aprobs) / c_total
             da = da_update(da, a_mean, target=target_accept)
             if adapt_mass:
@@ -214,13 +228,14 @@ def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
                 mean = mean + delta * c_total / n_new
                 m2 = m2 + b_m2 + delta * delta * n * c_total / n_new
                 n = n_new
-        return us, da, m2, n
+        return state, da, m2, n
 
-    us, da = u0s, da_init(u0s.new_tensor(float(eps0)))
+    state = u0s if carry is None else carry
+    da = da_init(u0s.new_tensor(float(eps0)))
     for phase, (length, slow) in enumerate(warmup_phases(num_warmup)):
-        us, da, m2, n = run_phase(fold_in(key, phase), us, da, inv_mass,
-                                  length, slow)
+        state, da, m2, n = run_phase(phase, state, da, inv_mass, length,
+                                     slow)
         if slow:
             inv_mass = _window_metric(m2, n)
             da = da_init(torch.exp(da["log_eps_bar"]))
-    return us, torch.exp(da["log_eps_bar"]), inv_mass
+    return state, torch.exp(da["log_eps_bar"]), inv_mass

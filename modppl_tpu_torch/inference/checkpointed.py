@@ -19,6 +19,7 @@ from modppl_tpu_torch.core.keys import (
     fold_in,
     lanes,
     normal_lanes,
+    split,
     split_keys,
     split_lanes,
     uniform_lanes,
@@ -176,13 +177,18 @@ def checkpointed_hmc_runner(model, args, observed, *, checkpoint_path,
     quadratic fast path, so no kernel), on the card unless ``device`` names
     another.
 
-    Returns ``run(key, resume_from=None) -> dict`` (``hmc_runner``'s
-    output less its fused-path fields): the warmup runs whole
-    (``adaptation.run_warmup_pooled`` with a batched transition), then
-    sampling runs in chunks of ``checkpoint_every`` samples, saving the
-    positions, the step size, the inverse mass and the sample count after
-    each. ``resume_from`` restores such a checkpoint and runs only the
-    remaining samples.
+    Returns ``run(key, resume_from=None, draws=None, u0s=None) -> dict``
+    (``hmc_runner``'s output less its fused-path fields): the warmup runs
+    whole (``adaptation.run_warmup_pooled`` with a batched transition),
+    then sampling runs in chunks of ``checkpoint_every`` samples, saving
+    the positions, the step size, the inverse mass and the sample count
+    after each. ``resume_from`` restores such a checkpoint and runs only
+    the remaining samples.
+
+    The transition is ``hmc._transition_batch``: (positions, logp, grad)
+    are carried, one value-and-grad call a leapfrog step. Each chunk starts
+    from the value and gradient at its restored or carried positions, so a
+    resumed chunk starts as the uninterrupted run's does.
 
     Keys: with ``key = fold_in(k_run, 0)``, warmup iteration j of phase p
     takes ``split(fold_in(fold_in(key, 0), p), length)[j]`` and sample i
@@ -190,10 +196,19 @@ def checkpointed_hmc_runner(model, args, observed, *, checkpoint_path,
     an iteration keyed k draws from the lane key ``fold_in(k, c)``
     (core/keys.py), so every chunk schedule and chain count replays the
     same chains. Start points: ``u0 + 0.5 z``, chain c's z from
-    ``split(k_run, C)[c]``.
+    ``split(k_run, C)[c]``. ``draws`` (one (z (T, C, d), jit (T, C), u01
+    (T, C)) per phase, the warmup's then sampling's, whose row i is sample
+    i) and ``u0s`` (C, d) replace these draws and start points, as
+    ``interop.pooled_phase_draws`` carries the reference's.
     """
     from modppl_tpu_torch.inference.adaptation import run_warmup_pooled
-    from modppl_tpu_torch.inference.hmc import flat_target, hmc_transition
+    from modppl_tpu_torch.inference.hmc import (
+        _phase_draws,
+        _phase_steps,
+        _transition_batch,
+        _value_and_grad,
+        flat_target,
+    )
 
     if num_chains < 2:
         raise ValueError("checkpointed_hmc_runner: pooled adaptation needs "
@@ -211,50 +226,75 @@ def checkpointed_hmc_runner(model, args, observed, *, checkpoint_path,
                                     target.u0)).dtype)
     u0 = target.u0.to(dtype)
     dim = u0.shape[0]
-    logp = torch.func.vmap(target.logprob)
-    grad = torch.func.vmap(torch.func.grad(target.logprob))
+    vag = _value_and_grad(target.logprob)
 
-    def transition(k, us, eps, inv_mass):
-        return hmc_transition(None, us, logp, grad, eps, num_leapfrog,
-                              inv_mass, draws=_lane_draws(
-                                  k, num_chains, dim, dtype, device))
+    def lane_draws(k):
+        return _lane_draws(k, num_chains, dim, dtype, device)
 
-    def warm(k_run):
-        u0s = u0[None, :] + 0.5 * normal_lanes(
-            split_keys(k_run, num_chains, device), (dim,), dtype)
+    def transition(x, carry, eps, inv_mass):
+        U, LP, G, aprob, div = _transition_batch(vag, *carry, eps, inv_mass,
+                                                 *x, num_leapfrog)
+        return (U, LP, G), aprob, div
 
-        def warm_transition(k, us, eps, inv_mass):
-            us, _, aprob, _ = transition(k, us, eps, inv_mass)
-            return us, aprob
+    def warm(k_run, phases, u0s):
+        if u0s is None:
+            u0s = u0[None, :] + 0.5 * normal_lanes(
+                split_keys(k_run, num_chains, device), (dim,), dtype)
 
-        return run_warmup_pooled(
+        def inputs(phase, phase_key, length):
+            if phases[phase] is None:
+                return map(lane_draws, split(phase_key, length))
+            return _phase_steps(phase_key, length, u0s, phases[phase])
+
+        def warm_transition(x, carry, eps, inv_mass):
+            carry, aprob, _ = transition(x, carry, eps, inv_mass)
+            return carry, aprob
+
+        carry, eps, inv_mass = run_warmup_pooled(
             fold_in(fold_in(k_run, 0), 0), u0s, warm_transition, num_warmup,
-            step_size, target_accept, batched_transition=True)
+            step_size, target_accept, batched_transition=True,
+            phase_inputs=inputs, carry=(u0s, *vag(u0s)))
+        return carry[0], eps, inv_mass
 
-    def run(k_run, resume_from=None):
+    def run(k_run, resume_from=None, draws=None, u0s=None):
+        phases = list(_phase_draws(draws, num_warmup))
+        samp = phases[-1]
+        if samp is not None:
+            # checked whole: its rows are sample indices
+            _phase_steps(None, num_samples, u0.new_zeros((num_chains, dim)),
+                         samp)
         if resume_from is None:
-            us, eps, inv_mass = warm(k_run)
+            us, eps, inv_mass = warm(k_run, phases, u0s)
             done = 0
         else:
             example = {"us": torch.zeros((num_chains, dim), dtype=dtype,
                                          device=device),
                        "eps": torch.zeros((), dtype=dtype, device=device),
                        "inv_mass": torch.zeros(dim, dtype=dtype,
-                                               device=device)}
+                                               device=device),
+                       "done": torch.zeros((), dtype=torch.int64)}
             state, meta = restore_checkpoint(resume_from, example)
             us, eps, inv_mass = state["us"], state["eps"], state["inv_mass"]
-            done = int(meta["step"])
+            done = int(state["done"])
+            if int(meta["step"]) != done:
+                raise ValueError(f"checkpoint at {resume_from}: step "
+                                 f"{meta['step']} but its carry has {done} "
+                                 f"samples")
         base = fold_in(fold_in(k_run, 0), 2)
         ys = []
         while done < num_samples:
             k = min(checkpoint_every, num_samples - done)
+            carry = (us, *vag(us))
             for i in range(done, done + k):
-                us, lp, aprob, div = transition(fold_in(base, i), us, eps,
-                                                inv_mass)
-                ys.append((us, lp, aprob, div))
+                x = (lane_draws(fold_in(base, i)) if samp is None
+                     else tuple(a[i] for a in samp))
+                carry, aprob, div = transition(x, carry, eps, inv_mass)
+                ys.append((carry[0], carry[1], aprob, div))
+            us = carry[0]
             done += k
             save_checkpoint(checkpoint_path,
-                            {"us": us, "eps": eps, "inv_mass": inv_mass},
+                            {"us": us, "eps": eps, "inv_mass": inv_mass,
+                             "done": torch.tensor(done)},
                             step=done)
         if ys:
             uss, logps, aprobs, divs = (torch.stack(x, 1) for x in zip(*ys))

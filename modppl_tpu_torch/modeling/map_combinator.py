@@ -15,11 +15,15 @@ the four GFI operations are summed over it, as the reference's are.
 
 Nested in a lane-batched model (a tensor of C lane keys, the reference's
 ``vmap`` of runs), the plate runs as C n lanes, lane c's element j keyed
-``split(keys[c], n)[j]``: an argument, constraint or pool leaf of shape
-(C, n, ...) belongs to lane c, one of shape (n, ...) is shared by the
-lanes, and the trace's leaves come back (C, n, ...). A shared leaf whose
-plate size equals C and that has a second axis reads as per lane: pass it
-broadcast to (C, n, ...) to be explicit.
+``split(keys[c], n)[j]``, and the trace's leaves come back (C, n, ...).
+Which arguments the lanes share is stated, not read from shapes:
+``Map(kernel, shared=(i, ...))`` names the positional arguments whose
+leaves are (n, ...) for every lane (the reference's ``vmap`` leaves them
+unmapped); every other argument's leaves are per lane, (C, n, ...), and
+a leaf of another shape raises. A constraint or pool leaf of shape
+(C, n, ...) is per lane, which always states it; one of any other shape
+(n, ...) is shared. So when C == n, a shared leaf with a second axis of n
+must be passed broadcast to (C, n, ...).
 """
 
 import torch
@@ -61,21 +65,25 @@ class _Plate:
     host key), the ``m`` lane keys the kernel runs over and the maps
     between the caller's leaves and the kernel's (m, ...) lanes."""
 
-    def __init__(self, key, args, device):
-        leaves = [x for x in pytree.tree_leaves(args) if torch.is_tensor(x)]
-        if not leaves or leaves[0].ndim == 0:
+    def __init__(self, key, args, device, shared):
+        lane = torch.is_tensor(key)
+        self.c = key.shape[0] if lane else None
+        # (leaf, shared by the lanes) for every tensor leaf of the args
+        tagged = [(x, not lane or i in shared)
+                  for i, a in enumerate(args)
+                  for x in pytree.tree_leaves(a) if torch.is_tensor(x)]
+        if not tagged:
             raise ValueError("Map: args must contain a tensor leaf with the "
                              "plate axis")
-        lane = torch.is_tensor(key)
+        first, first_shared = tagged[0]
+        axis = 0 if first_shared else 1
+        if first.ndim <= axis:
+            raise ValueError(f"Map: a leaf of shape {tuple(first.shape)} has "
+                             f"no plate axis")
+        self.n = first.shape[axis]
         if device is None and lane:
             device = key.device
         self.dtype, self.device = infer_dtype_device(args, device)
-        first = leaves[0]
-        self.c = key.shape[0] if lane else None
-        if lane and first.ndim >= 2 and first.shape[0] == self.c:
-            self.n = first.shape[1]
-        else:
-            self.n = first.shape[0]
         if lane:
             j = torch.arange(self.n, dtype=torch.int64,
                              device=key.device) + (1 << 32)
@@ -83,11 +91,15 @@ class _Plate:
         else:
             self.keys = split_keys(key, self.n, self.device)
         self.m = self.keys.shape[0]
-        self.args = pytree.tree_map(self.lanes, args)
+        self.args = tuple(
+            pytree.tree_map(lambda x, s=(i in shared): self.lanes(x, s), a)
+            for i, a in enumerate(args))
 
-    def lanes(self, x):
+    def lanes(self, x, shared=None):
         """A caller's leaf as the kernel's: (C, n, ...) or a shared
-        (n, ...) as (C n, ...); non-tensors as they are."""
+        (n, ...) as (C n, ...); non-tensors as they are. ``shared`` says
+        which the leaf is; None (a trie's leaf) takes (C, n, ...) as per
+        lane and any other (n, ...) as shared."""
         if not torch.is_tensor(x):
             return x
         c, n = self.c, self.n
@@ -96,13 +108,18 @@ class _Plate:
                 raise ValueError(f"Map: a leaf of shape {tuple(x.shape)} has "
                                  f"no plate axis of size {n}")
             return x
-        if x.ndim >= 2 and tuple(x.shape[:2]) == (c, n):
+        per_lane = x.ndim >= 2 and tuple(x.shape[:2]) == (c, n)
+        is_shared = x.ndim >= 1 and x.shape[0] == n
+        if per_lane and not shared:
             return x.reshape((c * n,) + tuple(x.shape[2:]))
-        if x.ndim >= 1 and x.shape[0] == n:
+        if is_shared and shared is not False:
             return x.expand((c,) + tuple(x.shape)).reshape(
                 (c * n,) + tuple(x.shape[1:]))
-        raise ValueError(f"Map: a leaf of shape {tuple(x.shape)} is neither "
-                         f"per lane ({c}, {n}, ...) nor shared ({n}, ...)")
+        want = {None: f"neither per lane ({c}, {n}, ...) nor shared "
+                      f"({n}, ...)",
+                True: f"not shared ({n}, ...)",
+                False: f"not per lane ({c}, {n}, ...)"}[shared]
+        raise ValueError(f"Map: a leaf of shape {tuple(x.shape)} is {want}")
 
     def unlanes(self, x):
         """A kernel's (C n, ...) leaf as the caller's (C, n, ...)."""
@@ -117,10 +134,13 @@ class _Plate:
             return w
         return torch.zeros(self.m, dtype=self.dtype, device=self.device) + w
 
-    def kernel_trie(self, trie):
-        """A caller's trie (constraints or a previous Map sub-trie) as the
-        kernel's plain Trie over the lanes, its root value dropped."""
-        t = _convert(trie, self.lanes, self.lanes, Trie)
+    def kernel_trie(self, trie, shared=None):
+        """A caller's trie (constraints, or with ``shared=False`` a previous
+        Map sub-trie, per lane) as the kernel's plain Trie over the lanes,
+        its root value dropped."""
+        def lanes(x):
+            return self.lanes(x, shared)
+        t = _convert(trie, lanes, lanes, Trie)
         t.take_inner()
         return t
 
@@ -150,22 +170,24 @@ class _Plate:
 
 class Map(GenFn):
     """Apply ``kernel`` independently across the plate axis of its args
-    (see the module docstring)."""
+    (see the module docstring); under lane keys the positional args
+    numbered in ``shared`` are the lanes' common (n, ...) data."""
 
-    def __init__(self, kernel):
+    def __init__(self, kernel, shared=()):
         self.kernel = kernel
+        self.shared = frozenset(shared)
 
     def __repr__(self):
         return f"Map({self.kernel!r})"
 
     def simulate(self, key, args, device=None, pool=None):
-        p = _Plate(key, args, device)
+        p = _Plate(key, args, device, self.shared)
         tr = self.kernel.simulate(p.keys, p.args, device=p.device,
                                   pool=p.pool(pool))
         return p.trace(args, tr)
 
     def generate(self, key, args, constraints, device=None, pool=None):
-        p = _Plate(key, args, device)
+        p = _Plate(key, args, device, self.shared)
         tr, w = self.kernel.generate(p.keys, p.args,
                                      p.kernel_trie(constraints),
                                      device=p.device, pool=p.pool(pool))
@@ -173,8 +195,9 @@ class Map(GenFn):
 
     def update(self, key, trace, args, argdiff, constraints, device=None,
                pool=None):
-        p = _Plate(key, args, device)
-        prev = Trace(p.args, p.kernel_trie(trace.data), None, 0.0)
+        p = _Plate(key, args, device, self.shared)
+        prev = Trace(p.args, p.kernel_trie(trace.data, False), None,
+                     0.0)
         tr, discard, w = self.kernel.update(
             p.keys, prev, p.args, argdiff, p.kernel_trie(constraints),
             device=p.device, pool=p.pool(pool))
@@ -182,8 +205,9 @@ class Map(GenFn):
 
     def regenerate(self, key, trace, args, argdiff, selection, device=None,
                    pool=None):
-        p = _Plate(key, args, device)
-        prev = Trace(p.args, p.kernel_trie(trace.data), None, 0.0)
+        p = _Plate(key, args, device, self.shared)
+        prev = Trace(p.args, p.kernel_trie(trace.data, False), None,
+                     0.0)
         tr, w = self.kernel.regenerate(p.keys, prev, p.args, argdiff,
                                        selection, device=p.device,
                                        pool=p.pool(pool))

@@ -99,10 +99,15 @@ def slot_positions(cdf, u, num):
 
 
 def grid_rank_plain(s, n_in, num=None):
-    """Plain version: scatter-add of S into num + 1 bins, then a cumsum."""
-    num = s.shape[0] if num is None else num
-    z = torch.bincount(s.long(), minlength=num + 1)
-    return torch.clamp(torch.cumsum(z[:num], 0), 0, n_in - 1).to(torch.int32)
+    """Plain version: scatter-add of S, clipped to [0, num], into num + 1
+    bins along its last axis, then a cumsum: parents (..., num), ``#{j :
+    S_j <= i}`` clipped to [0, n_in - 1]. Each row of S ranks alone."""
+    num = s.shape[-1] if num is None else num
+    s = torch.clamp(s, 0, num).long()
+    z = torch.zeros(tuple(s.shape[:-1]) + (num + 1,), dtype=torch.int64,
+                    device=s.device).scatter_add_(-1, s, torch.ones_like(s))
+    return torch.clamp(torch.cumsum(z[..., :num], -1), 0,
+                       n_in - 1).to(torch.int32)
 
 
 def rank_layout(num, m):

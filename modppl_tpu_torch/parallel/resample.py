@@ -92,17 +92,6 @@ def _pairwise_sum(x):
     return x
 
 
-def _rank_rows(s, n_in, num):
-    """``grid_rank_plain`` along the last axis of ``s`` (..., M), with S
-    clipped to [0, num] as the reference's scatter is: parents (..., num),
-    ``#{j : S_j <= i}`` clipped to [0, n_in - 1]."""
-    s = torch.clamp(s, 0, num).long()
-    z = torch.zeros(tuple(s.shape[:-1]) + (num + 1,), dtype=torch.int64,
-                    device=s.device).scatter_add_(-1, s, torch.ones_like(s))
-    return torch.clamp(torch.cumsum(z[..., :num], -1), 0,
-                       n_in - 1).to(torch.int32)
-
-
 def _residual_rows(lw, u, n):
     """Residual-systematic parents of each row of ``lw`` (..., n_in) with
     its uniform ``u`` (...,): every op is row-local and sums in a fixed
@@ -113,7 +102,7 @@ def _residual_rows(lw, u, n):
     w = w / _pairwise_sum(w)
     counts = torch.floor(n * w).to(torch.int32)
     num_det = torch.sum(counts, -1, keepdim=True)
-    det_parents = _rank_rows(ordered_cumsum(counts), n_in, n)
+    det_parents = grid_rank_plain(ordered_cumsum(counts), n_in, n)
     resid = n * w - counts
     r_total = n - num_det.to(w.dtype)
     resid_cdf = ordered_cumsum(resid)
@@ -123,7 +112,7 @@ def _residual_rows(lw, u, n):
     s_res = torch.clamp(torch.clamp(torch.ceil(resid_cdf * r_total
                                                - u[..., None]), 0, n)
                         .to(torch.int32), 0, n)
-    res_rank = _rank_rows(s_res, n_in, n)
+    res_rank = grid_rank_plain(s_res, n_in, n)
     idx = torch.arange(n, dtype=torch.int64, device=lw.device)
     shifted = torch.gather(res_rank, -1, torch.clamp(
         idx - num_det, 0, n - 1).expand(res_rank.shape))
@@ -262,14 +251,15 @@ def blocked_resample(scheme, log_norm, tree, u):
     parents are ``residual_parents`` of its weights and uniform, + c N).
     Returns (new tree, parents (C N,) int32 on the shared axis)."""
     c, n = log_norm.shape
-    cdf = normalized_cdf(log_norm)
     if scheme == "systematic":
+        cdf = normalized_cdf(log_norm)
         s = blocked_positions(slot_positions(cdf, u[:, None], n))
         fused = fused_gather_from_s_or_none(s, tree)
         if fused is not None:
             return fused
         parents = grid_rank(s, c * n)
     elif scheme in ("multinomial", "stratified"):
+        cdf = normalized_cdf(log_norm)
         if scheme == "multinomial":
             positions = torch.sort(u, dim=1).values
         else:
@@ -279,7 +269,8 @@ def blocked_resample(scheme, log_norm, tree, u):
                                right=False).to(torch.int32)
         parents = grid_rank_plain(blocked_positions(s), c * n)
     elif scheme == "residual":
-        offsets = torch.arange(c, dtype=torch.int32, device=cdf.device) * n
+        offsets = torch.arange(c, dtype=torch.int32,
+                               device=log_norm.device) * n
         parents = (_residual_rows(log_norm, u, n)
                    + offsets[:, None]).reshape(-1)
     else:

@@ -95,21 +95,33 @@ def _to_numpy(leaf):
     return np.asarray(leaf)
 
 
+def _write_replace(target, write):
+    """``write(f)`` into a temporary file beside ``target``, then rename it
+    onto ``target``: a process killed mid-write leaves ``target`` whole."""
+    tmp = target + ".tmp"
+    with open(tmp, "wb") as f:
+        write(f)
+    os.replace(tmp, target)
+
+
 def save_checkpoint(path, state, step=None, key=None, metadata=None):
     """Save ``state`` to ``<path>.npz`` (+ ``<path>.json``: the metadata,
-    ``step`` and ``key``; a host key as its int)."""
+    ``step`` and ``key``; a host key as its int). Each file is written
+    aside and renamed into place, the npz first: a kill between the two
+    renames leaves a new npz beside the old step, which the drivers'
+    restores detect by the step their carry records."""
     leaves, _ = tree_flatten_with_path(state)
     arrays = {f"{i:05d}|{p}": _to_numpy(leaf)
               for i, (p, leaf) in enumerate(leaves)}
-    np.savez(path + ".npz", **arrays)
     meta = dict(metadata or {})
     if step is not None:
         meta["step"] = int(step)
     if key is not None:
         meta["prng_key"] = (int(key) if isinstance(key, int)
                             else _to_numpy(key).tolist())
-    with open(path + ".json", "w") as f:
-        json.dump(meta, f)
+    _write_replace(path + ".npz", lambda f: np.savez(f, **arrays))
+    _write_replace(path + ".json",
+                   lambda f: f.write(json.dumps(meta).encode()))
 
 
 def _restore_leaf(arr, example, where):

@@ -12,6 +12,7 @@ reference's Kalman gate. Checkpoints keep the reference's layout: a dict
 of arrays written by either package restores in the other.
 """
 
+import importlib
 import math
 
 import jax.numpy as jnp
@@ -28,6 +29,7 @@ from modppl_tpu_torch.inference.checkpointed import (
     checkpointed_particle_filter,
     checkpointed_sharded_particle_filter,
 )
+from modppl_tpu_torch.interop import pooled_phase_draws, tensor
 from modppl_tpu_torch.inference.vsmc import (
     ScanKernel,
     SMCState,
@@ -201,6 +203,27 @@ def test_restore_onto_the_example_leafs_device(tmp_path):
     assert torch.equal(got["y"], torch.ones(2))
 
 
+def test_a_save_killed_mid_write_leaves_the_last_checkpoint(tmp_path,
+                                                            monkeypatch):
+    """Each file is written aside and renamed into place: a save that dies
+    while writing the npz leaves the previous checkpoint whole."""
+    from modppl_tpu_torch.utils import checkpoint as ckpt
+
+    path = str(tmp_path / "w")
+    save_checkpoint(path, {"x": torch.arange(4.0)}, step=1)
+
+    def dies(f, **arrays):
+        f.write(b"partial")
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(ckpt.np, "savez", dies)
+    with pytest.raises(KeyboardInterrupt):
+        save_checkpoint(path, {"x": torch.zeros(4)}, step=2)
+    monkeypatch.undo()
+    got, meta = restore_checkpoint(path, {"x": torch.empty(4)})
+    assert meta["step"] == 1 and torch.equal(got["x"], torch.arange(4.0))
+
+
 # --------------------------------------------------------------------------
 # the checkpointed filters
 # --------------------------------------------------------------------------
@@ -297,6 +320,127 @@ def test_hmc_checkpoint_resume_bitwise(tmp_path):
     assert torch.equal(tail["inv_mass"], full["inv_mass"])
     assert full["unconstrained"].shape == (4, 10, 1)
     assert full["samples"]["mu"].shape == (4, 10)
+
+
+def _reference_hmc_draws(k_run, num_chains, dim, num_warmup, num_samples):
+    """The reference runner's per-iteration draws, one (z (T, C, d), jit
+    (T, C), u01 (T, C)) per phase: warmup phase p's iteration keys split
+    fold_in(fold_in(key, 0), p), sample i's key fold_in(fold_in(key, 2), i)
+    (key = fold_in(k_run, 0)), chain c's fold_in(of that, c), each drawn as
+    the reference's hmc_transition draws from split(key, 3)."""
+    import jax
+
+    from modppl_tpu.inference import adaptation as jad
+
+    def chain(k):
+        k_mom, k_acc, k_jit = jax.random.split(k, 3)
+        return (jax.random.normal(k_mom, (dim,), jnp.float64),
+                jax.random.uniform(k_jit, (), minval=0.5, maxval=1.5),
+                jax.random.uniform(k_acc, ()))
+
+    def iteration(k):
+        return jax.vmap(lambda c: chain(jax.random.fold_in(k, c)))(
+            jnp.arange(num_chains))
+
+    key = jax.random.fold_in(k_run, 0)
+    fast1, slow, fast2 = jad.warmup_schedule(num_warmup)
+    lengths = [n for n in (fast1, *slow, fast2) if n > 0]
+    k_warm = jax.random.fold_in(key, 0)
+    phases = [jax.vmap(iteration)(jax.random.split(
+        jax.random.fold_in(k_warm, p), length))
+        for p, length in enumerate(lengths)]
+    base = jax.random.fold_in(key, 2)
+    phases.append(jax.vmap(lambda i: iteration(jax.random.fold_in(base, i)))(
+        jnp.arange(num_samples)))
+    return [pooled_phase_draws([ph]) for ph in phases]
+
+
+def test_hmc_resume_refuses_a_step_that_is_not_its_carrys(tmp_path):
+    """A kill between the npz's rename and the json's leaves a new carry
+    beside the old step: the runner's restore reads its sample count from
+    the carry and refuses the mismatch, as the filters' restores do."""
+    cut = str(tmp_path / "cut")
+    _hmc_runner(cut, 4)(2)
+    with open(cut + ".json", "w") as f:
+        f.write('{"step": 0}')
+    with pytest.raises(ValueError, match="step 0 but its carry has 4"):
+        _hmc_runner(cut, 10)(2, resume_from=cut)
+
+
+def test_hmc_runner_matches_reference_on_its_draws(tmp_path):
+    """The runner at the reference test's configuration (4 chains, 25
+    warmup + 10 samples, L = 3, a checkpoint every 4), fed the reference's
+    start points and per-iteration draws, holds to
+    ``modppl_tpu.inference.checkpointed.checkpointed_hmc_runner`` at 1e-10
+    in float64: positions, logp, accept probabilities, divergences and the
+    adapted step size; the inverse mass against the reference's
+    ``run_warmup_pooled`` at the same start."""
+    import jax
+    from jax.flatten_util import ravel_pytree
+
+    from modppl_tpu import Trie as JTrie
+    from modppl_tpu import gen as jgen
+    from modppl_tpu import normal as j_normal
+    from modppl_tpu.inference import adaptation as jad
+    from modppl_tpu.inference.checkpointed import (
+        checkpointed_hmc_runner as j_runner,
+    )
+
+    jhmc = importlib.import_module("modppl_tpu.inference.hmc")
+
+    @jgen
+    def j_conjugate(h):
+        mu = h.sample(j_normal, (0.0, 1.0), "mu")
+        h.sample(j_normal, (mu, 1.0), "x")
+
+    c, num_warmup, num_samples, leapfrog = 4, 25, 10, 3
+    j_obs = JTrie.from_dict({"x": 1.0})
+    k_setup, k_run = jax.random.PRNGKey(1), jax.random.PRNGKey(2)
+    want = j_runner(j_conjugate, (), j_obs,
+                    checkpoint_path=str(tmp_path / "ref"),
+                    checkpoint_every=4, num_samples=num_samples,
+                    num_warmup=num_warmup, num_chains=c,
+                    num_leapfrog=leapfrog, setup_key=k_setup)(k_run)
+
+    # the reference's start points, and its warmup alone for inv_mass
+    tr, _ = j_conjugate.generate(k_setup, (), j_obs)
+    lp, u0, _, _ = jhmc.make_unconstrained_logprob(j_conjugate, (), tr,
+                                                   j_obs)
+    u0_flat, unravel = ravel_pytree(u0)
+    jitter = jax.vmap(lambda k: 0.5 * jax.random.normal(
+        k, u0_flat.shape, u0_flat.dtype))(jax.random.split(k_run, c))
+    u0s = u0_flat[None, :] + jitter
+
+    def lp_flat(u):
+        return lp(unravel(u))
+
+    def warm_transition(k, u, eps, inv_mass):
+        u, _, aprob, _ = jhmc.hmc_transition(k, u, lp_flat,
+                                             jax.grad(lp_flat), eps,
+                                             leapfrog, inv_mass)
+        return u, aprob
+
+    _, _, want_inv_mass = jad.run_warmup_pooled(
+        jax.random.fold_in(jax.random.fold_in(k_run, 0), 0), u0s,
+        warm_transition, num_warmup, 0.1, 0.8)
+
+    draws = _reference_hmc_draws(k_run, c, 1, num_warmup, num_samples)
+    run = _hmc_runner(str(tmp_path / "port"), num_samples)
+    got = run(2, draws=draws, u0s=tensor(u0s))
+    for what in ("unconstrained", "logp", "accept_prob", "step_size"):
+        np.testing.assert_allclose(got[what].numpy(), np.asarray(want[what]),
+                                   rtol=1e-10, atol=1e-10, err_msg=what)
+    np.testing.assert_array_equal(got["divergences"].numpy(),
+                                  np.asarray(want["divergences"]))
+    np.testing.assert_allclose(got["inv_mass"].numpy(),
+                               np.asarray(want_inv_mass), rtol=1e-10,
+                               atol=1e-10)
+    # a resumed run on the same draws replays the same tail
+    cut = str(tmp_path / "cut")
+    _hmc_runner(cut, 4)(2, draws=draws[:-1] + [
+        tuple(a[:4] for a in draws[-1])], u0s=tensor(u0s))
+    tail = _hmc_runner(cut, num_samples)(2, resume_from=cut, draws=draws)
+    assert torch.equal(tail["unconstrained"], got["unconstrained"][:, 4:])
 
 
 def test_hmc_chains_do_not_depend_on_the_chain_count(tmp_path):

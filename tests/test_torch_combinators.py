@@ -126,7 +126,8 @@ def point(h, mu, x):
     return h.sample(normal, (mu * x, 0.1), "y")
 
 
-PLATE = Map(point)
+# under lane keys, xs (argument 1) is the lanes' common data
+PLATE = Map(point, shared=(1,))
 
 
 @gen
@@ -338,3 +339,38 @@ def test_map_in_a_lane_batched_model():
     want = normal.logpdf(slope, (0.0, 1.0)) + torch.sum(normal.logpdf(
         out.retv, (slope[:, None] * xs, 0.1)), -1)
     torch.testing.assert_close(out.logjp, want, rtol=1e-12, atol=1e-12)
+
+
+@gen
+def dot_point(h, w, x):
+    return h.sample(normal, (torch.sum(w * x, -1), 0.1), "y")
+
+
+@gen
+def dot_point_xw(h, x, w):
+    return h.sample(normal, (torch.sum(w * x, -1), 0.1), "y")
+
+
+def test_map_shared_args_are_stated_not_read_from_shapes():
+    """Three lanes over a plate of three: a shared (n, 2) argument has the
+    shape of a per-lane one, so only ``shared=`` tells them apart. Lane c's
+    element j meets row j of the shared x, whichever argument comes first;
+    left undeclared, x is per lane and its (3, 2) shape raises."""
+    rng = np.random.default_rng(6)
+    w, x = t64(rng.standard_normal((3, 3, 2))), t64(rng.standard_normal(
+        (3, 2)))
+    keys = split_keys(8, 3, "cpu")
+    plate = Map(dot_point, shared=(1,))
+    tr = plate.simulate(keys, (w, x))
+    assert tr.retv.shape == (3, 3) and tr.logjp.shape == (3,)
+    for c in range(3):
+        one = plate.simulate(keys[c:c + 1], (w[c:c + 1], x))
+        assert torch.equal(one.retv[0], tr.retv[c])
+    want = torch.sum(normal.logpdf(tr.retv, (torch.sum(w * x, -1), 0.1)), -1)
+    torch.testing.assert_close(tr.logjp, want, rtol=1e-12, atol=1e-12)
+    flipped = Map(dot_point_xw, shared=(0,)).simulate(keys, (x, w))
+    assert torch.equal(flipped.retv, tr.retv)
+    with pytest.raises(ValueError, match=r"not per lane \(3, 3, \.\.\.\)"):
+        Map(dot_point).simulate(keys, (w, x))
+    with pytest.raises(ValueError, match=r"not shared \(3, \.\.\.\)"):
+        plate.simulate(keys, (w, x[:2]))
