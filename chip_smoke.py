@@ -318,11 +318,41 @@ Phases, in order; any failure raises and the script exits non-zero:
     relative of the float64 sum of the elements' log-densities; then
     ``capture_trace`` around one run of phase 32's filter, whose written
     trace must name kernels 1-3.
+36. requires the native layer (``native/addrops.c``, ``ctrie.c``, built
+    at first import) active, then draws 2^20 lanes float32 of each lane
+    form of slice 11 (``lane_draw_cases``: uniform_discrete, geometric,
+    poisson at rates 4 and 40, gamma at shapes 2 and 0.5, beta,
+    exponential, laplace, student_t, binomial at (10, 0.4) and (100,
+    0.7), dirichlet, negative_binomial, ``plate(gamma, 8)`` and
+    ``iid(mvnormal, 3)``) with the counters at 0 (no launch): the first C
+    lanes of a 2C draw and three lanes' 1-lane draws bitwise the C draw's;
+    the Kolmogorov-Smirnov distance to the closed-form CDF (float64,
+    scipy) below 1.95 / sqrt(N), or the chi-square over bins of expected
+    count >= 5 below its 0.001 quantile, dirichlet by its beta marginals;
+    prints each draw's rounds (most, mean), host reads and median ms;
+37. runs NUTS on tests/test_hmc_vi.py's gamma-prior scale model at 10^4
+    chains, 200 + 300, max_depth 6, the chains started from their lane
+    draws of the model (``start="prior"``), with the counters at 0 (no
+    launch), timed: every scale > 0, the mean within 0.08 and within 4
+    Monte Carlo standard errors of the quadrature oracle, divergences
+    below 1%; ESS/s, leaves a transition, value-and-grad calls;
+38. runs tests/test_spiral_lgssm_moments.py's gate through the vmapped
+    ``particle_filter(store_traces=True)``, systematic, at N = 32768 and
+    2^20, T = 12, with the counters at 0: 11 launches of kernel 3 and none
+    other, the log-ML, the filtered mean and covariance at T and the
+    smoothed means along the ancestry within the reference's bounds of
+    ``kalman_filter_parallel`` / ``kalman_smoother_parallel``, every
+    output bitwise its rerun through the plain versions on the recorded
+    draws, the peak device memory beside the stored states, timed; then MH
+    at phase 18's schedule in turns pure, native, native, pure (each turn
+    a process; ``MODPPL_TORCH_NATIVE=0`` for the pure path), ms a
+    transition; then ``enumerate_posterior`` over a hand-coded GenFn on
+    the card against its closed form (1e-12).
 
 Each group of phases prints its seconds as it ends (``# seconds:``).
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
-path (phases 20, 21 and 32-35 included): device ops, device-to-host
+path (phases 20, 21 and 32-38 included): device ops, device-to-host
 copies, busy ms and the idle share; a profile that lacks a kernel the
 launch counters saw says so and gives no idle share.
 
@@ -4383,6 +4413,557 @@ def slice10_phases(card, profile, device="cuda", clock=None):
         clock.mark("35 combinators, profiling")
 
 
+# --------------------------------------------------------------------------
+# slice 11: lane draws for every distribution, NUTS on a positive-support
+# model, the spiral-LGSSM moment gate through kernel 3, the native trie
+# --------------------------------------------------------------------------
+
+LANE_DRAWS = 1 << 20
+LANE_DRAW_REPS = 3
+LANE_ONE = (0, 12345, LANE_DRAWS - 1)
+KS_CRIT = 1.95           # sqrt(N) x the Kolmogorov-Smirnov 0.001 value
+CHI2_LEVEL = 0.999
+# tests/test_hmc_vi.py:28-32's normal_scale_model, observed at its data
+SCALE_YS = (0.5, -1.2, 0.8, 2.0, -0.3)
+NUTS_POS = dict(num_chains=10_000, num_warmup=200, num_samples=300,
+                max_depth=6)
+NUTS_POS_GAP = 0.08      # tests/test_hmc_vi.py:68-76's bound
+NUTS_POS_SE = 4.0
+# tests/test_spiral_lgssm_moments.py at the reference's N and at 2^20
+MOMENT_SIZES = (32768, 1 << 20)
+MOMENT_T = 12
+MOMENT_ML_GAP = 0.1
+MOMENT_MEAN_GAP = 0.02
+MOMENT_COV_GAP = 5e-4
+MOMENT_SMOOTH_GAP = 0.05
+MH_TURN_ROUNDS = 50
+MH_TURN_RUNS = 2
+
+
+def lane_draw_cases(device):
+    """(name, dist, params, law) of each distribution with a lane form
+    from this slice, ``plate`` over one and ``iid(mvnormal, 3)``: ``law``
+    is ("cdf", [(column, scipy law)]) for a continuous one, or ("pmf",
+    scipy law) for a discrete one."""
+    import scipy.stats as st
+
+    from modppl_tpu_torch.dists import (
+        beta,
+        binomial,
+        dirichlet,
+        exponential,
+        gamma,
+        geometric,
+        iid,
+        laplace,
+        mvnormal,
+        negative_binomial,
+        plate,
+        poisson,
+        student_t,
+        uniform_discrete,
+    )
+
+    f32 = dict(dtype=torch.float32, device=device)
+    alpha = (2.0, 3.0, 5.0)
+    cov = ((1.0, 0.5), (0.5, 2.0))
+    return [
+        ("uniform_discrete(-3, 7)", uniform_discrete, (-3, 7),
+         ("pmf", st.randint(-3, 8))),
+        ("geometric(0.25)", geometric, (0.25,),
+         ("pmf", st.geom(0.25, loc=-1))),
+        ("poisson(4)", poisson, (4.0,), ("pmf", st.poisson(4.0))),
+        ("poisson(40)", poisson, (40.0,), ("pmf", st.poisson(40.0))),
+        ("gamma(2, 1)", gamma, (2.0, 1.0),
+         ("cdf", [(None, st.gamma(2.0, scale=1.0))])),
+        ("gamma(0.5, 2)", gamma, (0.5, 2.0),
+         ("cdf", [(None, st.gamma(0.5, scale=2.0))])),
+        ("beta(2, 5)", beta, (2.0, 5.0), ("cdf", [(None, st.beta(2, 5))])),
+        ("exponential(2)", exponential, (2.0,),
+         ("cdf", [(None, st.expon(scale=0.5))])),
+        ("laplace(1, 2)", laplace, (1.0, 2.0),
+         ("cdf", [(None, st.laplace(1.0, 2.0))])),
+        ("student_t(7, 0.5, 1.5)", student_t, (7.0, 0.5, 1.5),
+         ("cdf", [(None, st.t(7.0, 0.5, 1.5))])),
+        ("binomial(10, 0.4)", binomial, (10, 0.4),
+         ("pmf", st.binom(10, 0.4))),
+        ("binomial(100, 0.7)", binomial, (100, 0.7),
+         ("pmf", st.binom(100, 0.7))),
+        ("dirichlet(2, 3, 5)", dirichlet, (torch.tensor(alpha, **f32),),
+         ("cdf", [(i, st.beta(a, sum(alpha) - a))
+                  for i, a in enumerate(alpha)])),
+        ("negative_binomial(3, 0.6)", negative_binomial, (3.0, 0.6),
+         ("pmf", st.nbinom(3, 0.6))),
+        ("plate(gamma, 8)", plate(gamma, 8), (2.0, 1.0),
+         ("cdf", [(None, st.gamma(2.0))])),
+        ("iid(mvnormal, 3)", iid(mvnormal, 3),
+         (torch.tensor((0.0, 1.0), **f32), cov),
+         ("cdf", [((slice(None), 0), st.norm(0.0, 1.0)),
+                  ((slice(None), 1), st.norm(1.0, math.sqrt(2.0)))])),
+    ]
+
+
+def law_gate(name, x, law):
+    """The draws' distance to their law (float64, on the host): the
+    Kolmogorov-Smirnov statistic of each column against KS_CRIT /
+    sqrt(n), or the chi-square over the bins of expected count >= 5 (the
+    rest pooled into the nearest such bin) against its CHI2_LEVEL
+    quantile. Returns what was seen; raises past the bound."""
+    import scipy.stats as st
+
+    kind, spec = law
+    x = x.double().cpu().numpy()
+    if kind == "cdf":
+        seen = []
+        for col, dist in spec:
+            v = (x if col is None else x[..., col] if isinstance(col, int)
+                 else x[(Ellipsis,) + col]).reshape(-1)
+            d = float(st.kstest(v, dist.cdf).statistic)
+            bound = KS_CRIT / math.sqrt(v.size)
+            seen.append((d, bound))
+            if not d < bound:
+                raise AssertionError(f"lane draws {name}: KS {d} over "
+                                     f"{bound}")
+        return {"ks": [s[0] for s in seen], "ks_bound": seen[0][1]}
+    k = x.reshape(-1).astype(np.int64)
+    n = k.size
+    lo, hi = int(spec.ppf(1e-12)), int(spec.ppf(1 - 1e-12)) + 1
+    support = np.arange(lo - 1, hi + 2)
+    expected = n * spec.pmf(support)
+    keep = expected >= 5.0
+    first, last = support[keep][0], support[keep][-1]
+    observed = np.bincount(np.clip(k, first, last) - first,
+                           minlength=last - first + 1).astype(np.float64)
+    exp_bins = n * spec.pmf(np.arange(first, last + 1))
+    exp_bins[0] += n * spec.cdf(first - 1)
+    exp_bins[-1] += n * spec.sf(last)
+    chi2 = float(np.sum((observed - exp_bins) ** 2 / exp_bins))
+    bound = float(st.chi2.ppf(CHI2_LEVEL, observed.size - 1))
+    if not chi2 < bound:
+        raise AssertionError(f"lane draws {name}: chi-square {chi2} over "
+                             f"{bound} ({observed.size} bins)")
+    return {"chi2": chi2, "chi2_bound": bound, "bins": int(observed.size)}
+
+
+def check_lane_draws(device="cuda"):
+    """Phase 36: each lane form of ``lane_draw_cases`` at LANE_DRAWS lanes
+    with the counters at 0 (no launch): the first C lanes of a 2C draw and
+    lane i's 1-lane draw (i in LANE_ONE) bitwise the C draw's; the law by
+    ``law_gate``; the rounds (most and mean an element) and host reads of
+    one draw, and the median ms of LANE_DRAW_REPS draws. Returns {case:
+    seen}."""
+    from modppl_tpu_torch.core.keys import record_rejection, split_keys
+
+    results = {}
+    for name, dist, params, law in lane_draw_cases(device):
+        keys = split_keys(36, LANE_DRAWS, device)
+
+        def draw(ks):
+            return dist.sample_lanes(ks, params)
+
+        with record_rejection() as rec:
+            x, launches = counted(lambda: draw(keys))
+        require_launches(f"lane draws {name}", launches, {})
+        wide = draw(split_keys(36, 2 * LANE_DRAWS, device))
+        if not torch.equal(wide[:LANE_DRAWS], x):
+            raise AssertionError(f"lane draws {name}: the first C lanes of "
+                                 "a 2C draw differ from the C draw")
+        for i in LANE_ONE:
+            if not torch.equal(draw(keys[i:i + 1])[0], x[i]):
+                raise AssertionError(f"lane draws {name}: lane {i} differs "
+                                     "from its 1-lane draw")
+        if not bool(torch.isfinite(x.double()).all()):
+            raise AssertionError(f"lane draws {name}: not finite")
+        seen = law_gate(name, x, law)
+        ms, times = time_runs(lambda i: draw(keys), LANE_DRAW_REPS, device)
+        seen.update(dtype=str(x.dtype).replace("torch.", ""),
+                    shape=list(x.shape), max_rounds=rec.max_rounds,
+                    mean_rounds=rec.mean_rounds, reads=rec.reads,
+                    ms=ms * 1e3, all_ms=[t * 1e3 for t in times])
+        results[name] = seen
+    return results
+
+
+def scale_posterior():
+    """E and sd of scale | SCALE_YS under normal_scale_model, by the
+    reference test's quadrature (tests/test_hmc_vi.py:68-76)."""
+    ys = np.asarray(SCALE_YS)
+    grid = np.linspace(1e-3, 10.0, 4000)
+    logp = (np.log(grid) - grid
+            + sum(-0.5 * (y / grid) ** 2 - np.log(grid) for y in ys))
+    w = np.exp(logp - logp.max())
+    w /= w.sum()
+    mean = float((grid * w).sum())
+    return mean, float(math.sqrt((w * (grid - mean) ** 2).sum()))
+
+
+def make_nuts_scale(device, **overrides):
+    """``nuts_runner`` on normal_scale_model, the chains started from
+    their lane draws of the prior (``start="prior"``: gamma's lane
+    form)."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.nuts import nuts_runner
+
+    model = small_models(device)["scale_model"]
+    obs = Trie.from_dict({"ys": torch.tensor(SCALE_YS, dtype=torch.float32,
+                                             device=device)})
+    return nuts_runner(model, (), obs, setup_key=99, start="prior",
+                       device=device, **{**NUTS_POS, **overrides})
+
+
+def check_nuts_scale(device="cuda"):
+    """Phase 37: NUTS on the gamma-prior scale model at NUTS_POS with the
+    counters at 0 (no launch), timed: every scale > 0; the pooled mean
+    within NUTS_POS_GAP and within NUTS_POS_SE posterior sd / sqrt(ESS)
+    of the quadrature oracle; divergences below NUTS_MAX_DIVERGENCE.
+    Returns what was seen."""
+    import importlib
+
+    nuts_mod = importlib.import_module("modppl_tpu_torch.inference.nuts")
+    with counting_vag(nuts_mod) as calls, full_fp32():
+        run = make_nuts_scale(device)
+        sync(device)
+        t0 = time.perf_counter()
+        out, launches = counted(lambda: run(0))
+        wall = time.perf_counter() - t0
+    require_launches("nuts scale leg", launches, {})
+    scales = out["samples"]["scale"].double().cpu().numpy()
+    _, ess = logreg_summary(out)
+    exact, sd = scale_posterior()
+    mean = float(scales.mean())
+    transitions = NUTS_POS["num_warmup"] + NUTS_POS["num_samples"]
+    seen = {"mean": mean, "exact": exact, "se_bound":
+            NUTS_POS_SE * sd / math.sqrt(ess.min()), "ess": float(ess.min()),
+            "min_scale": float(scales.min()),
+            "divergence_rate": float(out["divergences"].double().mean()),
+            "accept": float(out["accept_prob"].double().mean()),
+            "eps": float(out["step_size"]), "vag_calls": calls[0],
+            "leaves_a_transition": run.chains.leaves / transitions,
+            "wall_s": wall}
+    gap = abs(mean - exact)
+    if scales.shape != (NUTS_POS["num_chains"], NUTS_POS["num_samples"]) \
+            or not seen["min_scale"] > 0 or not gap <= NUTS_POS_GAP \
+            or not gap <= seen["se_bound"] \
+            or not seen["divergence_rate"] < NUTS_MAX_DIVERGENCE:
+        raise AssertionError(f"nuts scale leg: {seen}")
+    return seen
+
+
+def spiral_lgssm(device, dtype=torch.float32):
+    """tests/test_spiral_lgssm_moments.py's augmented-state spiral LGSSM
+    (state r, theta, 1; the drift enters theta through the constant), in
+    ``dtype`` on ``device``."""
+    from modppl_tpu_torch.models.lgssm import LGSSMParams
+
+    eps = 1e-10
+    arrays = ([[1.0, 0.0, 0.0], [0.0, 1.0, 0.4], [0.0, 0.0, 1.0]],
+              np.diag([0.1 ** 2, 0.2 ** 2, eps]),
+              [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], 0.15 ** 2 * np.eye(2),
+              [0.5, 0.0, 1.0], np.diag([0.05, 0.3, eps]))
+    return LGSSMParams(*(torch.as_tensor(np.asarray(a, np.float64),
+                                         dtype=dtype, device=device)
+                         for a in arrays))
+
+
+def moment_data(device):
+    """T = MOMENT_T observations simulated from the float64 spiral LGSSM
+    (key 0) and its exact filter and smoother, on the host."""
+    from modppl_tpu_torch.inference.kalman import (
+        kalman_filter_parallel,
+        kalman_smoother_parallel,
+    )
+    from modppl_tpu_torch.models.lgssm import lgssm_simulate
+
+    params64 = spiral_lgssm("cpu", torch.float64)
+    _, ys = lgssm_simulate(0, params64, MOMENT_T)
+    return (ys, kalman_filter_parallel(params64, ys, device="cpu"),
+            kalman_smoother_parallel(params64, ys, device="cpu"))
+
+
+def run_moments(device, n, seed, ys, **kwargs):
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.vsmc import particle_filter
+    from modppl_tpu_torch.models.lgssm import lgssm_scan_kernel
+
+    params = spiral_lgssm(device)
+    obs = ys.to(torch.float32).to(device)
+    return particle_filter(
+        seed, lgssm_scan_kernel(params),
+        torch.zeros(3, dtype=torch.float32, device=device),
+        Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}),
+        n, resampling="systematic", ess_threshold=1.0, store_traces=True,
+        device=device, **kwargs)
+
+
+def moment_gates(out, exact_f, exact_s):
+    """The reference test's gates on one filter's output (float64 on the
+    host): log-ML, filtered mean and covariance at T, smoothed means along
+    the ancestry. Returns the gaps; raises past a bound."""
+    lw = out["log_weights"].double().cpu()
+    w = torch.softmax(lw, 0)
+    xT = out["state"].double().cpu()
+    mean_T = w @ xT
+    cov_T = (w[:, None] * (xT - mean_T)).T @ (xT - mean_T)
+    states = torch.cat([out["init_traces"].retv[None],
+                        out["step_traces"].retv]).double().cpu()
+    ancestors = out["ancestors"].long().cpu()
+    idx = torch.arange(states.shape[1])
+    traj = torch.empty_like(states)
+    for t in range(states.shape[0] - 1, -1, -1):
+        traj[t] = states[t][idx]
+        if t > 0:
+            idx = ancestors[t - 1][idx]
+    smoothed = torch.einsum("n,tnd->td", w, traj)
+    gaps = {"log_ml": abs(float(out["log_ml"]) - float(exact_f["log_ml"])),
+            "mean_T": float((mean_T[:2] - exact_f["means"][-1, :2]).abs()
+                            .max()),
+            "cov_T": float((cov_T[:2, :2] - exact_f["covs"][-1, :2, :2])
+                           .abs().max()),
+            "smoothed": float((smoothed[:, :2] - exact_s["means"][:, :2])
+                              .abs().max())}
+    bounds = {"log_ml": MOMENT_ML_GAP, "mean_T": MOMENT_MEAN_GAP,
+              "cov_T": MOMENT_COV_GAP, "smoothed": MOMENT_SMOOTH_GAP}
+    for k, b in bounds.items():
+        if not gaps[k] <= b:
+            raise AssertionError(f"spiral LGSSM moments: {k} gap "
+                                 f"{gaps[k]} over {b} ({gaps})")
+    return gaps
+
+
+def check_moments(device="cuda"):
+    """Phase 38a: the spiral-LGSSM moment gate through the vmapped filter
+    (store_traces, systematic) at each N of MOMENT_SIZES with the counters
+    at 0: MOMENT_T - 1 launches of kernel 3 and none other, the reference
+    test's gates, and every output bitwise equal to its rerun through the
+    plain versions on the recorded draws; the peak device memory of the
+    run (the stored traces at 2^20 x 12 x 3 float32 are 151 MB); timed.
+    Returns {N: seen}."""
+    ys, exact_f, exact_s = moment_data(device)
+    seen = {}
+    for n in MOMENT_SIZES:
+        record = []
+        torch.cuda.reset_peak_memory_stats() if device == "cuda" else None
+        out, launches = counted(lambda: run_moments(device, n, 1, ys,
+                                                    record=record))
+        peak = (torch.cuda.max_memory_allocated() if device == "cuda"
+                else 0)
+        require_launches(f"spiral LGSSM moments N={n}", launches,
+                         {"resample_fused_from_s": MOMENT_T - 1})
+        gaps = moment_gates(out, exact_f, exact_s)
+        with plain_versions():
+            plain = run_moments(device, n, 2, ys, replay=record)
+        for what in ("state", "log_weights", "log_ml", "ancestors", "ess",
+                     "resampled"):
+            if not torch.equal(out[what], plain[what]):
+                raise AssertionError(f"spiral LGSSM moments N={n}: {what} "
+                                     "differs from its rerun through the "
+                                     "plain versions")
+        for part in ("init_traces", "step_traces"):
+            if not torch.equal(out[part].retv, plain[part].retv):
+                raise AssertionError(f"spiral LGSSM moments N={n}: {part} "
+                                     "differ from the plain rerun's")
+        ms, times = time_runs(lambda i: run_moments(device, n, 40 + i, ys),
+                              3, device)
+        traces_mb = (n * MOMENT_T * 3 * 4) / 1e6
+        seen[n] = {"gaps": gaps, "launches": launches[
+            "resample_fused_from_s"], "log_ml": float(out["log_ml"]),
+            "exact_log_ml": float(exact_f["log_ml"]), "peak_mb": peak / 1e6,
+            "traces_mb": traces_mb, "ms": ms * 1e3,
+            "all_ms": [t * 1e3 for t in times]}
+    return seen
+
+
+MH_TURN_CODE = r"""
+import json, statistics, time, torch
+import chip_smoke as cs
+from modppl_tpu_torch import native
+from modppl_tpu_torch.core import trie
+cs.run_mh_chain({device!r}, 5, 1)
+times = []
+for i in range({runs}):
+    cs.sync({device!r})
+    t0 = time.perf_counter()
+    cs.run_mh_chain({device!r}, {rounds}, 30 + i)
+    cs.sync({device!r})
+    times.append(time.perf_counter() - t0)
+print(json.dumps({{"native_trie": native.HAVE_NATIVE_TRIE,
+                  "native_addr": native.HAVE_NATIVE,
+                  "base": trie.Trie.__mro__[2].__name__,
+                  "error": native.BUILD_ERROR, "times": times}}))
+"""
+
+
+def mh_turns(device="cuda"):
+    """Phase 38b: MH at BASELINE configs[1]'s schedule on the native trie
+    and on the pure-Python one (``MODPPL_TORCH_NATIVE=0``), each turn a
+    process of its own, in turns pure, native, native, pure: MH_TURN_RUNS
+    timed chains of MH_TURN_ROUNDS rounds each. The native turns must
+    report the C trie and address layer active, the pure ones neither.
+    Returns {path: [ms a transition, a turn's median]}."""
+    import os
+
+    code = MH_TURN_CODE.format(runs=MH_TURN_RUNS, rounds=MH_TURN_ROUNDS,
+                               device=device)
+    per = MH_TURN_ROUNDS * (MH_DRIFTS + 2)
+    out = {"pure": [], "native": [], "turn_s": []}
+    for path in ("pure", "native", "native", "pure"):
+        t0 = time.perf_counter()
+        env = dict(os.environ)
+        env["MODPPL_TORCH_NATIVE"] = "0" if path == "pure" else "1"
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0:
+            raise AssertionError(f"MH turn ({path}) failed:\n{proc.stderr}")
+        seen = json.loads(proc.stdout.strip().splitlines()[-1])
+        want = path == "native"
+        if seen["native_trie"] != want or seen["native_addr"] != want:
+            raise AssertionError(f"MH turn ({path}): native trie "
+                                 f"{seen['native_trie']}, address layer "
+                                 f"{seen['native_addr']} ({seen['error']})")
+        out[path].append(statistics.median(seen["times"]) / per * 1e3)
+        out["turn_s"].append(time.perf_counter() - t0)
+    return out
+
+
+def hand_mixture():
+    """A hand-coded GenFn (no @gen body): z ~ bernoulli(0.3), x ~ N(2 if z
+    else -1, 1), scored from its constraints, its data the trie."""
+    from modppl_tpu_torch.core.gfi import GenFn, Trace
+    from modppl_tpu_torch.dists import bernoulli, normal
+
+    class HandMixture(GenFn):
+        def generate(self, key, args, constraints, device=None):
+            z, x = constraints.read("z"), constraints.read("x")
+            p = torch.full((), 0.3, dtype=torch.float64, device=x.device)
+            mu = torch.where(z, torch.full_like(p, 2.0),
+                             torch.full_like(p, -1.0))
+            w = bernoulli.logpdf(z, (p,)) + normal.logpdf(x, (mu, 1.0))
+            return Trace(args, constraints, None, w), w
+
+    return HandMixture()
+
+
+def check_enumerate_hand(device="cuda"):
+    """Phase 38c: ``enumerate_posterior`` over ``hand_mixture`` on the card
+    with the counters at 0 (no launch): the log evidence and P(z | x = 1)
+    within 1e-12 of their closed forms (float64)."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.enumerate import enumerate_posterior
+
+    obs = Trie.from_dict({"x": torch.tensor(1.0, dtype=torch.float64,
+                                            device=device)})
+    res, launches = counted(lambda: enumerate_posterior(
+        hand_mixture(), (), obs, {"z": torch.tensor([False, True],
+                                                   device=device)},
+        device=device))
+    require_launches("enumerate over a hand-coded GenFn", launches, {})
+    like = [math.exp(-0.5 * (1.0 - m) ** 2) / math.sqrt(2 * math.pi)
+            for m in (-1.0, 2.0)]
+    joint = [0.7 * like[0], 0.3 * like[1]]
+    log_ml = math.log(sum(joint))
+    p1 = joint[1] / sum(joint)
+    seen = {"log_ml": float(res["log_ml"]), "exact": log_ml,
+            "p_z": float(res["marginals"]["z"][1]), "exact_p_z": p1}
+    if not (abs(seen["log_ml"] - log_ml) < 1e-12
+            and abs(seen["p_z"] - p1) < 1e-12):
+        raise AssertionError(f"enumerate over a hand-coded GenFn: {seen}")
+    return seen
+
+
+def require_native():
+    """The native trie and address layer must be active on this machine."""
+    from modppl_tpu_torch import native
+    from modppl_tpu_torch.core import trie
+
+    if not (native.HAVE_NATIVE and native.HAVE_NATIVE_TRIE
+            and trie.HAVE_NATIVE_TRIE):
+        raise AssertionError(f"native layer not active: {native.BUILD_ERROR}")
+    return trie.Trie.__mro__[2].__name__
+
+
+def slice11_phases(card, profile, device="cuda", clock=None):
+    """Phases 36-38 (slice 11), with their lines of output; ``profile``
+    adds each new configuration's profiler breakdown."""
+    base = require_native()
+    print(f"# native layer: addrops and ctrie built from "
+          f"modppl_tpu_torch/native/ (Trie's node core {base})")
+    draws = check_lane_draws(device)
+    for name, s in draws.items():
+        law = (f"KS {[round(d, 6) for d in s['ks']]} < {s['ks_bound']:.6f}"
+               if "ks" in s else f"chi-square {s['chi2']:.2f} < "
+               f"{s['chi2_bound']:.2f} over {s['bins']} bins")
+        print(f"# lane draws {name} at C={LANE_DRAWS} {s['dtype']} "
+              f"{s['shape']}, no kernel launched: == the first C of 2C and "
+              f"the 1-lane draws, bitwise; {law}; rounds max "
+              f"{s['max_rounds']} mean {s['mean_rounds']:.4f}, host reads "
+              f"{s['reads']}; median {s['ms']:.3f} ms of "
+              f"{[round(t, 3) for t in s['all_ms']]} ({card})")
+    if profile:
+        from modppl_tpu_torch.core.keys import split_keys
+        from modppl_tpu_torch.dists import gamma
+
+        keys = split_keys(36, LANE_DRAWS, device)
+        profile_run("gamma lane draw (2^20)", lambda: gamma.sample_lanes(
+            keys, (2.0, 1.0)), draws["gamma(2, 1)"]["ms"] / 1e3)
+    sys.stdout.flush()
+    if clock:
+        clock.mark("36 lane draws")
+    nu = check_nuts_scale(device)
+    print(f"# main path: NUTS on the gamma-prior scale model {NUTS_POS} "
+          f"float32 through nuts_runner(start='prior'), no kernel launched; "
+          f"mean scale {nu['mean']!r} quadrature {nu['exact']!r} (bounds "
+          f"{NUTS_POS_GAP}, {nu['se_bound']!r}); min scale "
+          f"{nu['min_scale']!r}; divergences {nu['divergence_rate']!r}; "
+          f"accept {nu['accept']!r}; eps {nu['eps']!r}")
+    print(f"# nuts scale leg: {nu['wall_s'] * 1e3:.3f} ms (one timed run); "
+          f"ESS {nu['ess']:.1f} -> {nu['ess'] / nu['wall_s']:.1f} ESS/s; "
+          f"{nu['leaves_a_transition']:.3f} leaves a transition, "
+          f"{nu['vag_calls']} value-and-grad calls "
+          f"({nu['wall_s'] * 1e3 / nu['vag_calls']:.4f} ms a call) ({card})")
+    if profile:
+        run = make_nuts_scale(device, num_warmup=3, num_samples=3)
+        with full_fp32():
+            med, _ = time_runs(lambda i: run(20 + i), 2, device)
+            profile_run("nuts scale leg (3 + 3)", lambda: run(7), med)
+    sys.stdout.flush()
+    if clock:
+        clock.mark("37 NUTS scale leg")
+    mo = check_moments(device)
+    for n, s in mo.items():
+        print(f"# main path: spiral LGSSM moments N={n} T={MOMENT_T} "
+              f"float32 through particle_filter(store_traces=True), "
+              f"systematic; launches resample_fused_from_s {s['launches']}, "
+              f"no other kernel; gaps {s['gaps']} (bounds {MOMENT_ML_GAP}, "
+              f"{MOMENT_MEAN_GAP}, {MOMENT_COV_GAP}, {MOMENT_SMOOTH_GAP}); "
+              f"log_ml {s['log_ml']!r} Kalman {s['exact_log_ml']!r}; == its "
+              f"rerun through the plain versions on the recorded draws, "
+              f"bitwise; peak device memory {s['peak_mb']:.1f} MB "
+              f"(stored states {s['traces_mb']:.1f} MB); median "
+              f"{s['ms']:.3f} ms of {[round(t, 3) for t in s['all_ms']]} "
+              f"({card})")
+    if profile:
+        ys, _, _ = moment_data(device)
+        for n in MOMENT_SIZES:
+            profile_run(f"spiral LGSSM moments N={n}", lambda: run_moments(
+                device, n, 61, ys), mo[n]["ms"] / 1e3)
+    if clock:
+        clock.mark("38a spiral LGSSM moments")
+    mh = mh_turns(device)
+    print(f"# MH at BASELINE configs[1]'s schedule ({MH_TURN_ROUNDS} rounds "
+          f"x {MH_TURN_RUNS} a turn), turns pure, native, native, pure: ms "
+          f"a transition native {[round(t, 4) for t in mh['native']]}, pure "
+          f"{[round(t, 4) for t in mh['pure']]}; each turn's process "
+          f"{[round(t, 1) for t in mh['turn_s']]} s ({card})")
+    en = check_enumerate_hand(device)
+    print(f"# enumerate_posterior over a hand-coded GenFn on the card, no "
+          f"kernel launched: log_ml {en['log_ml']!r} exact {en['exact']!r}; "
+          f"P(z | x) {en['p_z']!r} exact {en['exact_p_z']!r}")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("38b MH turns, enumerate")
+
+
 SOURCES = {
     "stats_cumsum": ("modppl_tpu_torch/csrc/grid_positions.cu",
                      "modppl_tpu/ops/grid_positions_pallas.py:59"),
@@ -4912,6 +5493,7 @@ def main(argv):
     slice8_phases(card, "--profile" in argv, clock=clock)
     slice9_phases(card, "--profile" in argv, clock=clock)
     slice10_phases(card, "--profile" in argv, clock=clock)
+    slice11_phases(card, "--profile" in argv, clock=clock)
     launches.update(hmc_launches)
     launches.update(quad_launches)
     launches["grid_rank"] = rank_launches

@@ -10,7 +10,8 @@ Lane keys (``fold_in_lanes``, ``lanes``, ``split_keys``, ``split_lanes``)
 are the same derivations run on the device for a (C,) tensor of keys, one
 per chain or particle, and ``uniform_lanes`` / ``normal_lanes`` draw from
 each lane's own counter stream, so a lane's draws do not depend on how
-many lanes there are.
+many lanes there are. ``rejection_lanes`` runs a rejection sampler over
+lanes under the same rule.
 """
 
 import math
@@ -156,3 +157,132 @@ def normal_lanes(key_lanes, shape=(), dtype=torch.float32):
     key and ``shape``). The uniforms are bitwise equal on every device; the
     normals differ by the devices' ``ndtri`` rounding."""
     return torch.special.ndtri(uniform_lanes(key_lanes, shape, dtype))
+
+
+# --------------------------------------------------------------------------
+# Rejection over lanes
+# --------------------------------------------------------------------------
+#
+# A rejection sampler's lane draw keeps the lane streams' rule: it depends
+# only on the lane's key and its shape, never on the number of lanes, nor on
+# how many rounds other lanes needed. Round r of element j (of the m a lane
+# draws) reads the words at offsets (r m + j) w ... (r m + j) w + w - 1 of
+# its lane's counter stream, the words ``lane_bits`` would give there, and
+# a lane's element keeps the candidate of the first round that accepts it.
+
+#: rounds every element runs before the first host read
+UNROLLED_ROUNDS = 3
+#: a draw with an element not accepted after this many rounds raises
+#: (at an acceptance of 0.5 a round, the least of the samplers here, that
+#: is a chance of 2^-64 an element)
+MAX_ROUNDS = 64
+
+_RECORDS = []
+
+
+class RejectionRecord:
+    """What the rejection draws and searches made inside ``record_rejection``
+    cost: their elements, the most and the sum of the rounds an element
+    took, and the host reads."""
+
+    __slots__ = ("draws", "elements", "max_rounds", "total_rounds", "reads")
+
+    def __init__(self):
+        self.draws = self.elements = self.max_rounds = 0
+        self.total_rounds = self.reads = 0
+
+    def add(self, rounds, reads):
+        self.draws += 1
+        self.elements += rounds.numel()
+        if rounds.numel():
+            self.max_rounds = max(self.max_rounds, int(rounds.max()))
+            self.total_rounds += int(rounds.sum())
+        self.reads += reads
+
+    @property
+    def mean_rounds(self):
+        return self.total_rounds / max(self.elements, 1)
+
+
+class record_rejection:
+    """``with record_rejection() as rec:`` counts the rounds and host reads
+    of every rejection draw in the block (each count is itself a host
+    read, so only a measurement records)."""
+
+    def __enter__(self):
+        self.record = RejectionRecord()
+        _RECORDS.append(self.record)
+        return self.record
+
+    def __exit__(self, *exc):
+        _RECORDS.remove(self.record)
+
+
+def note_rounds(rounds, reads):
+    """Add a draw's per-element rounds (a tensor, or a function giving it)
+    and its host ``reads`` to every open ``record_rejection``."""
+    if _RECORDS and callable(rounds):
+        rounds = rounds()
+    for rec in _RECORDS:
+        rec.add(rounds, reads)
+
+
+def words_at(key_lanes, offsets):
+    """The words at ``offsets`` of the lanes' counter streams (broadcast):
+    word j of a lane keyed ``key`` is ``lane_bits``' word j."""
+    return _mix_lanes(fold_in_lanes(key_lanes, offsets))
+
+
+def rejection_lanes(key_lanes, m, words, propose, params=(),
+                    unrolled=UNROLLED_ROUNDS, max_rounds=MAX_ROUNDS):
+    """(C, m) draws by rejection, m a lane of the (C,) ``key_lanes``.
+
+    ``propose(bits, *params)`` maps (..., ``words``) int64 words and the
+    parameters (each a tensor of the words' leading shape, or a number) to
+    (candidate, accepted), elementwise; ``params`` are (C, m) tensors or
+    numbers. The first ``unrolled`` rounds run on every element with no
+    host read; after them each round reads once which elements are still
+    open and runs on those alone. Past ``max_rounds`` rounds an open
+    element raises ``RuntimeError``."""
+    c = key_lanes.shape[0]
+    dev = key_lanes.device
+    t = torch.arange(words, dtype=torch.int64, device=dev)
+    j = torch.arange(m, dtype=torch.int64, device=dev)
+    unrolled = max(1, min(unrolled, max_rounds))
+    for r in range(unrolled):
+        cand, acc = propose(words_at(key_lanes[:, None, None],
+                                     (r * m + j)[:, None] * words + t),
+                            *params)
+        if r == 0:
+            out, done, rounds = cand, acc, acc.to(torch.int32)
+        else:
+            take = acc & ~done
+            out = torch.where(take, cand, out)
+            rounds = torch.where(take, r + 1, rounds)
+            done = done | acc
+    out, rounds, done = (x.reshape(-1).clone()
+                         for x in (out, rounds, done))
+    flat = [p.reshape(-1) if torch.is_tensor(p) else p for p in params]
+    reads = 0
+    r = unrolled
+    while True:
+        open_ = torch.nonzero(~done).reshape(-1)  # the round's host read
+        reads += 1
+        if open_.numel() == 0:
+            break
+        if r >= max_rounds:
+            raise RuntimeError(
+                f"rejection draw: {open_.numel()} of {c * m} elements not "
+                f"accepted in {max_rounds} rounds")
+        el = open_ % m
+        cand, acc = propose(
+            words_at(key_lanes[open_ // m][:, None],
+                     (r * m + el)[:, None] * words + t),
+            *(p[open_] if torch.is_tensor(p) else p for p in flat))
+        hit = open_[acc]
+        out[hit] = cand[acc]
+        rounds[hit] = r + 1
+        done[hit] = True
+        r += 1
+    note_rounds(rounds, reads)
+    return out.reshape(c, m)

@@ -14,13 +14,29 @@ One difference follows from the port's batched tier, where a model body runs
 once on tensors whose leading axis is the particle axis: ``weight`` adds the
 leaf log-probabilities elementwise and keeps that axis, so a batched trace
 has one log-joint per particle.
+
+**Node core.** The node and its hot walk and mutate methods (search, read,
+w_observe, insert, remove, weight and the inner-value ops) are the C type
+``native/ctrie.c`` that ``Trie`` subclasses when it is built
+(``HAVE_NATIVE_TRIE``), else ``_PyTrieBase`` below; the rest of the API is
+Python either way. ``PureTrie`` always has the pure-Python core: the parity
+oracle (tests/test_torch_native_trie.py). New nodes are of the class's
+``_node_cls`` (``Trie`` for a ``Trie`` or a subclass such as a Map's
+``PlateTrie``, ``PureTrie`` for a ``PureTrie``).
 """
 
 import torch
 
 from modppl_tpu_torch.core.address import Selection, addr_components
+from modppl_tpu_torch.native import ctrie as _native_trie
 
 _EMPTY = object()  # sentinel: "no inner value" (distinct from a stored None)
+
+
+def _leaf_logp(logp):
+    """The port's leaf reduction for ``weight``: none (a leaf's
+    log-probability keeps its particle axis)."""
+    return logp
 
 
 def _values_equal(a, b):
@@ -30,8 +46,9 @@ def _values_equal(a, b):
     return a == b
 
 
-class Trie:
-    """Hierarchical choice map: children dict + optional inner value + leaf logp."""
+class _PyTrieBase:
+    """The pure-Python node core: the hot methods, as ``native/ctrie.c``'s
+    ``CTrieBase`` implements them (same errors, same pruning)."""
 
     __slots__ = ("children", "value", "logp", "dist")
 
@@ -40,15 +57,6 @@ class Trie:
         self.value = _EMPTY
         self.logp = 0.0
         self.dist = None  # Distribution that drew this leaf, if any
-
-    @classmethod
-    def leaf(cls, value, logp=0.0, dist=None):
-        """A leaf node holding ``value`` with weight ``logp``."""
-        t = cls()
-        t.value = value
-        t.logp = logp
-        t.dist = dist
-        return t
 
     # ---- structure --------------------------------------------------------
 
@@ -111,16 +119,6 @@ class Trie:
             raise KeyError(f'read: failed when searching empty address "{addr}"')
         return node.expect_inner(f'read: no value found at address "{addr}"')
 
-    def __contains__(self, addr):
-        return self.search(addr) is not None
-
-    def __getitem__(self, addr):
-        return self.read(addr)
-
-    def __iter__(self):
-        """(component, sub-trie) over the direct descendants."""
-        return iter(self.children.items())
-
     def __len__(self):
         return len(self.children)
 
@@ -130,7 +128,7 @@ class Trie:
         comps = addr_components(addr)
         node = self
         for c in comps[:-1]:
-            node = node.children.setdefault(c, Trie())
+            node = node.children.setdefault(c, self._node_cls())
         return node, comps[-1]
 
     def w_observe(self, addr, value, logp, dist=None):
@@ -140,18 +138,11 @@ class Trie:
         if last in node.children:
             raise KeyError(
                 f'w_observe: attempted to put into occupied address "{last}"')
-        leaf = Trie()
+        leaf = self._node_cls()
         leaf.value = value
         leaf.logp = logp
         leaf.dist = dist
         node.children[last] = leaf
-
-    def observe(self, addr, value):
-        """Store an unweighted ``value`` leaf at ``addr``; raises if occupied."""
-        self.w_observe(addr, value, 0.0)
-
-    def __setitem__(self, addr, value):
-        self.observe(addr, value)
 
     def insert(self, addr, sub):
         """Insert sub-trie at ``addr``; raises if occupied."""
@@ -178,6 +169,38 @@ class Trie:
                 break
             del path[i - 1].children[comps[i - 1]]
         return node
+
+class _TrieCommon:
+    """The trie API above the node core, shared by the native and the
+    pure-Python cores."""
+
+    __slots__ = ()
+
+    @classmethod
+    def leaf(cls, value, logp=0.0, dist=None):
+        """A leaf node holding ``value`` with weight ``logp``."""
+        t = cls()
+        t.value = value
+        t.logp = logp
+        t.dist = dist
+        return t
+
+    def observe(self, addr, value):
+        """Store an unweighted ``value`` leaf at ``addr``; raises if occupied."""
+        self.w_observe(addr, value, 0.0)
+
+    def __setitem__(self, addr, value):
+        self.observe(addr, value)
+
+    def __contains__(self, addr):
+        return self.search(addr) is not None
+
+    def __getitem__(self, addr):
+        return self.read(addr)
+
+    def __iter__(self):
+        """(component, sub-trie) over the direct descendants."""
+        return iter(self.children.items())
 
     def merge(self, other):
         """Merge ``other`` into self; on a leaf present in both, other's
@@ -211,9 +234,9 @@ class Trie:
         collected weight), ``collected`` holding the values under ``mask``
         and ``kept`` the rest. Consumes self: both results may share its
         nodes."""
-        collected = Trie()
+        collected = self._node_cls()
         if self.schema() == mask:
-            return Trie(), self, self.weight()
+            return self._node_cls(), self, self.weight()
         if not mask.is_leaf():
             for addr, submask in mask:
                 sub = self.remove(addr)
@@ -294,7 +317,7 @@ class Trie:
         return out
 
     def __eq__(self, other):
-        if not isinstance(other, Trie):
+        if not isinstance(other, _TrieCommon):
             return NotImplemented
         if set(self.children) != set(other.children):
             return False
@@ -314,3 +337,28 @@ class Trie:
         if self.is_leaf():
             return f"Trie.leaf({self.value!r}, logp={self.logp!r})"
         return f"Trie({self.as_dict()!r})"
+
+
+_TrieBase = _native_trie.CTrieBase if _native_trie is not None \
+    else _PyTrieBase
+HAVE_NATIVE_TRIE = _native_trie is not None
+
+
+class Trie(_TrieCommon, _TrieBase):
+    """Hierarchical choice map: children dict + optional inner value + leaf
+    logp."""
+
+    __slots__ = ()
+
+
+class PureTrie(_TrieCommon, _PyTrieBase):
+    """A ``Trie`` on the pure-Python node core whatever is built: the
+    parity oracle of the native one."""
+
+    __slots__ = ()
+
+
+Trie._node_cls = Trie
+PureTrie._node_cls = PureTrie
+if _native_trie is not None:
+    _native_trie.configure(_EMPTY, addr_components, _leaf_logp, Trie)

@@ -15,15 +15,33 @@ variates before its parameters shape them) into a draw site:
 ``from_standard(z, params)`` finishes the draw with the sampler's own
 arithmetic. A test that feeds a site whose parameters differ per particle
 the reference's draws passes them so.
+
+Every distribution draws over lane keys (``sample_lanes``): one whose
+``standard`` is "normal" or "uniform" finishes the lane's standard variates;
+the others (``gamma``, ``beta``, ``poisson``, ``uniform_discrete`` and the
+rejection samplers of dists/extra.py) draw by rejection over lanes
+(``rejection_draw``, core/keys.rejection_lanes) or by a search of the CDF
+(``cdf_search``), each from its lane's own words.
 """
+
+import math
 
 import torch
 
-from modppl_tpu_torch.core.keys import generator, normal_lanes, uniform_lanes
+from modppl_tpu_torch.core.keys import (
+    generator,
+    normal_lanes,
+    note_rounds,
+    rejection_lanes,
+    uniform_lanes,
+    UNROLLED_ROUNDS,
+)
 
-LANE_TODO = ("no lane form (sample_lanes): only normal, uniform, bernoulli, "
-             "categorical, mvnormal and iid over a scalar one of these draw "
-             "from per-lane key streams so far (ROADMAP Queue 1 item 13)")
+#: steps of ``cdf_search`` between its host reads
+SEARCH_STEPS = 8
+#: a search still open after this many steps raises (every search here
+#: stops within ~50: its pmf falls below an ulp of its CDF)
+MAX_SEARCH_STEPS = 1024
 
 
 def u01(key, shape=(), device=None):
@@ -68,6 +86,53 @@ def standard_lanes(kind, key_lanes, shape, dtype, block=1):
     return z.reshape((key_lanes.shape[0] * block,) + tuple(shape))
 
 
+def rejection_draw(key_lanes, shape, block, words, propose, *params,
+                   unrolled=UNROLLED_ROUNDS):
+    """``shape`` = (C * block,) + one lane's draw shape, drawn by
+    rejection (core/keys.rejection_lanes): key i's stream gives lanes
+    [i * block, (i + 1) * block) as one plate, as ``standard_lanes`` does.
+    Tensor ``params`` broadcast to ``shape``."""
+    c = key_lanes.shape[0]
+    m = math.prod(shape) // max(c, 1)
+    flat = tuple(torch.broadcast_to(p, shape).reshape(c, m)
+                 if torch.is_tensor(p) else p for p in params)
+    return rejection_lanes(key_lanes, m, words, propose, flat,
+                           unrolled=unrolled).reshape(shape)
+
+
+def cdf_search(u, p0, ratio, limit=None):
+    """The least k >= 0 whose CDF reaches ``u``, elementwise: pmf(0) = p0,
+    pmf(k) = pmf(k - 1) ratio(k), summed in order (a discrete inversion;
+    float64 inputs). The search also stops where the pmf no longer moves
+    the CDF and, with ``limit``, at k = limit. Every element steps at
+    once, with a host read every SEARCH_STEPS steps; past MAX_SEARCH_STEPS
+    it raises ``RuntimeError``."""
+    k = torch.zeros_like(u)
+    pk, s = p0, p0
+    done = u <= s
+    steps = 0
+    while True:
+        for _ in range(SEARCH_STEPS):
+            k1 = k + 1.0
+            pk1 = pk * ratio(k1)
+            s1 = s + pk1
+            stop = (u <= s1) | (s1 == s)
+            if limit is not None:
+                stop = stop | (k1 >= limit)
+            go = ~done
+            k = torch.where(go, k1, k)
+            pk = torch.where(go, pk1, pk)
+            s = torch.where(go, s1, s)
+            done = done | stop
+        steps += SEARCH_STEPS
+        if bool(done.all()):  # the host read
+            break
+        if steps >= MAX_SEARCH_STEPS:
+            raise RuntimeError(f"cdf_search: open after {steps} steps")
+    note_rounds(lambda: k + 1, steps // SEARCH_STEPS)
+    return k
+
+
 class Standard:
     """A sampler's standard draws, pre-drawn (see ``from_standard``)."""
 
@@ -96,7 +161,7 @@ class Distribution:
     support = "real"
 
     #: the standard variates ``_from_standard`` finishes, "normal" or
-    #: "uniform"; None: no lane form (``sample_lanes`` raises)
+    #: "uniform"; None: the lane form is the subclass's ``_draw_lanes``
     standard = None
 
     def logpdf(self, x, params):
@@ -129,8 +194,6 @@ class Distribution:
         lanes (C * block in all), drawn from the key's stream as one
         ``(block,) + shape`` plate: the batched tier's one stream a site,
         once a chain (inference/blocked_smc.py)."""
-        if self.standard is None:
-            raise NotImplementedError(f"{self!r}: {LANE_TODO}")
         params = as_param_tuple(params)
         dtype = _sample_dtype(params, dtype)
         shape = self._lane_shape(params)
@@ -140,6 +203,11 @@ class Distribution:
         elif shape[:1] != (c,):
             raise ValueError(f"{self!r}: parameters of shape {shape} have "
                              f"no leading axis of the {c} lanes")
+        return self._draw_lanes(key_lanes, shape, dtype, block, *params)
+
+    def _draw_lanes(self, key_lanes, shape, dtype, block, *params):
+        """The lane draws of ``shape`` = (C * block,) + one lane's shape:
+        the lanes' standard variates, finished by ``_from_standard``."""
         return self._from_standard(
             standard_lanes(self.standard, key_lanes, shape[1:], dtype, block),
             *params)

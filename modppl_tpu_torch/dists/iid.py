@@ -17,19 +17,22 @@ before the plate's in ``logpdf`` (a 1-D ``x`` has none), ``(lanes,)`` in
 ``sample_lanes``. So when the lane count equals n, a 1-D parameter of
 length n is per lane beside lanes and per element beside one trace's
 ``x``. A parameter whose last axis is neither n nor 1 is per lane in any
-case. The lane form (``sample_lanes``) draws each lane's n standard
-variates from its own stream.
+case. The lane form (``sample_lanes``) draws each lane's n draws from its
+own stream, as the base's lane form draws an (n,) plate.
+
+Over a vector base (``mvnormal``) the parameters' batch axes (those
+before the base's event) are () (shared), (n,) (per element; so also
+when the lane count equals n) or (lanes, n); each lane draws its (n, k)
+standard normals from its own stream.
 """
 
 import torch
 
 from modppl_tpu_torch.dists.base import (
-    LANE_TODO,
     Distribution,
     _sample_dtype,
     as_param_tuple,
     shape_of,
-    standard_lanes,
 )
 
 
@@ -48,7 +51,6 @@ class IID(Distribution):
         self.n = n
         self.is_discrete = base.is_discrete
         self.support = base.support
-        self.standard = base.standard if base.event_rank == 0 else None
 
     def _plated(self, params, lanes=None):
         """Over a scalar base: each per-lane parameter (of the lane shape
@@ -71,19 +73,28 @@ class IID(Distribution):
                          dim=-1)
 
     def sample_lanes(self, key_lanes, params, dtype=None, block=1):
-        """Each lane's n draws from its lane's stream, (C,) + (n,)."""
-        if self.standard is None:
-            raise NotImplementedError(f"{self!r}: {LANE_TODO}")
+        """Each lane's n draws from its lane's stream, (C,) + (n,) + the
+        base's event shape."""
         c = key_lanes.shape[0] * block
         params = self._plated(params, (c,))
         dtype = _sample_dtype(params, dtype)
-        shape = torch.broadcast_shapes((c, self.n),
-                                       *(shape_of(p) for p in params))
-        if shape[0] != c:
-            raise ValueError(f"{self!r}: parameters broadcast to {shape}, "
-                             f"not to the {c} lanes")
-        z = standard_lanes(self.standard, key_lanes, shape[1:], dtype, block)
-        return self.base._from_standard(z, *params)
+        if self.base.event_rank:
+            full = self.base._lane_shape(params)
+            cut = len(full) - self.base.event_rank
+            batch, event = tuple(full[:cut]), tuple(full[cut:])
+            if batch not in ((), (self.n,), (c, self.n)):
+                raise ValueError(
+                    f"{self!r}: parameters with batch axes {batch}; over a "
+                    f"vector base they are (), ({self.n},) or ({c}, "
+                    f"{self.n})")
+            shape = (c, self.n) + event
+        else:
+            shape = tuple(torch.broadcast_shapes(
+                (c, self.n), *(shape_of(p) for p in params)))
+            if shape[0] != c:
+                raise ValueError(f"{self!r}: parameters broadcast to "
+                                 f"{shape}, not to the {c} lanes")
+        return self.base._draw_lanes(key_lanes, shape, dtype, block, *params)
 
     def sample(self, gen, params, dtype=None):
         return self.base.sample_batch(gen, (self.n,), as_param_tuple(params),

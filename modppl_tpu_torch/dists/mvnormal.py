@@ -13,6 +13,16 @@ A covariance given as a constant (a nested sequence of numbers, like the
 spiral's ``OBS_COV``) is factored once on the host, cached, and its entries
 enter the arithmetic as host scalars broadcast over every particle. It is
 never expanded to (N, k, k).
+
+A draw whose covariance is not positive definite takes the reference's
+fallback factor, ``v sqrt(clip(w, 0))`` of ``eigh`` (``factor``), where
+the Cholesky factor has a NaN (below 33 dimensions; above, where
+``cholesky_ex`` reports a failure). As the reference decides it only on
+eager calls, the port decides it only where the answer costs no device
+read: a constant covariance on the host, once, and a CPU tensor outside
+``torch.func`` transforms. A covariance on the card keeps its Cholesky
+factor (a NaN there propagates, as in the reference's compiled calls),
+so a positive-definite path on the card reads nothing back.
 """
 
 import math
@@ -31,6 +41,15 @@ def _sqrt(v):
     return math.sqrt(v) if v >= 0 else math.nan
 
 
+def _div(a, b):
+    """a / b, with IEEE's answers for host numbers at b = 0."""
+    if torch.is_tensor(a) or torch.is_tensor(b) or b != 0:
+        return a / b
+    if a == 0 or math.isnan(a):
+        return math.nan
+    return math.copysign(math.inf, a) * math.copysign(1.0, b)
+
+
 def _log_abs(v):
     return torch.log(torch.abs(v)) if torch.is_tensor(v) else math.log(abs(v))
 
@@ -45,7 +64,7 @@ def _cholesky_entries(a, k):
             s = a(i, j)
             for m in range(j):
                 s = s - L[i][m] * L[j][m]
-            L[i][j] = _sqrt(s) if i == j else s / L[j][j]
+            L[i][j] = _sqrt(s) if i == j else _div(s, L[j][j])
     return L
 
 
@@ -54,13 +73,60 @@ def _constant_cholesky(cov):
     return _cholesky_entries(lambda i, j: float(cov[i][j]), len(cov))
 
 
+def _as_key(cov):
+    return tuple(tuple(float(v) for v in row) for row in cov)
+
+
 def cholesky(cov):
     """The lower factor of ``cov`` as nested entries: host floats for a
     constant covariance, tensors (broadcasting over batch axes) otherwise."""
     if torch.is_tensor(cov):
         return _cholesky_entries(lambda i, j: cov[..., i, j], cov.shape[-1])
-    return _constant_cholesky(tuple(tuple(float(v) for v in row)
-                                    for row in cov))
+    return _constant_cholesky(_as_key(cov))
+
+
+def eigh_factor(cov):
+    """The reference's non-PD factor, ``v * sqrt(clip(w, 0))[..., None, :]``
+    of ``eigh(cov)``: T with T T^T = cov."""
+    w, v = torch.linalg.eigh(cov)
+    return v * torch.sqrt(torch.clamp(w, min=0.0))[..., None, :]
+
+
+@lru_cache(maxsize=256)
+def _constant_factor(cov):
+    L = _constant_cholesky(cov)
+    if not any(math.isnan(x) for row in L for x in row):
+        return L
+    T = eigh_factor(torch.tensor(cov, dtype=torch.float64))
+    return [[float(x) for x in row] for row in T]
+
+
+def _host_checkable(cov):
+    """True where a NaN check on ``cov`` reads nothing from a device: a
+    CPU tensor outside ``torch.func`` transforms."""
+    return (cov.device.type == "cpu"
+            and not torch._C._functorch.is_functorch_wrapped_tensor(cov))
+
+
+def factor(cov):
+    """The factor a draw multiplies its standard normals by: the lower
+    Cholesky factor, or where it fails on a covariance checked on the host
+    (see the module docstring) ``eigh_factor``. Nested host floats for a
+    constant covariance; nested entries (Cholesky) or a (..., k, k) tensor
+    otherwise."""
+    if not torch.is_tensor(cov):
+        return _constant_factor(_as_key(cov))
+    k = cov.shape[-1]
+    if k > SMALL_DIM_MAX:
+        L, info = torch.linalg.cholesky_ex(cov)
+        if _host_checkable(cov) and bool((info != 0).any()):
+            return eigh_factor(cov)
+        return L
+    L = cholesky(cov)
+    if _host_checkable(cov) and bool(torch.isnan(torch.stack(
+            [L[i][j] for i in range(k) for j in range(i + 1)])).any()):
+        return eigh_factor(cov)
+    return L
 
 
 class MvNormal(Distribution):
@@ -84,15 +150,17 @@ class MvNormal(Distribution):
         return tuple(batch) + (_dim(mu, cov),)
 
     def _from_standard(self, z, mu, cov):
-        if _dim(mu, cov) > SMALL_DIM_MAX:
-            L = torch.linalg.cholesky_ex(_as_tensor(cov, z)).L
-            return mu + (L @ z[..., None])[..., 0]
-        L = cholesky(cov)
+        T = factor(_as_tensor(cov, z) if _dim(mu, cov) > SMALL_DIM_MAX
+                   else cov)
+        if torch.is_tensor(T):
+            return mu + (T.to(z.dtype) @ z[..., None])[..., 0]
+        # row i of T z over the entries T holds: j <= i for a Cholesky
+        # factor, every j for the fallback's
         rows = []
-        for i in range(len(L)):
-            acc = L[i][0] * z[..., 0]
-            for j in range(1, i + 1):
-                acc = acc + L[i][j] * z[..., j]
+        for i, row in enumerate(T):
+            acc = row[0] * z[..., 0]
+            for j in range(1, len(row) if _full(T) else i + 1):
+                acc = acc + row[j] * z[..., j]
             rows.append(acc)
         return mu + torch.stack(rows, dim=-1)
 
@@ -123,6 +191,13 @@ class MvNormal(Distribution):
                                        tuple(mu.shape))
         z = torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
         return self._from_standard(z, mu, cov)
+
+
+def _full(T):
+    """True for a factor with entries above its diagonal (the fallback's):
+    a Cholesky factor's are the host zeros of ``_cholesky_entries``."""
+    return any(not (isinstance(x, float) and x == 0.0)
+               for i, row in enumerate(T) for x in row[i + 1:])
 
 
 def _dim(mu, cov):

@@ -7,7 +7,8 @@ a summed log-density. The batched tier needs the elementwise form for
 batch-aware kernels (``auto_batch=False``): the leading axis is the particle
 axis, and each particle keeps its own log-probability, so weights come out
 per particle. Parameters are scalars or tensors that broadcast against
-``(n,)``.
+``(n,)``. Over lane keys a plate draws as its base does, one value a lane
+(the lanes are its particle axis).
 """
 
 from modppl_tpu_torch.dists.base import Distribution, as_param_tuple
@@ -30,6 +31,10 @@ class Plate(Distribution):
 
     def from_standard(self, z, params):
         return self.base.from_standard(z, params)
+
+    def sample_lanes(self, key_lanes, params, dtype=None, block=1):
+        return self.base.sample_lanes(key_lanes, params, dtype=dtype,
+                                      block=block)
 
     def __repr__(self):
         return f"Plate({self.base!r}, n={self.n})"

@@ -6,14 +6,31 @@ Every sampler draws from the ``torch.Generator`` it is given. Integer draws
 (``uniform_discrete``, ``geometric``, ``poisson``) are int64. The log-gamma
 terms are ``torch.lgamma``; ``beta``'s log normaliser adds in the
 reference's order, lgamma(min) + (lgamma(max) - lgamma(a + b)).
+
+Over lane keys (``sample_lanes``) each lane draws from its own words:
+``geometric`` by inverting one uniform; ``uniform_discrete`` by rejection
+on a 63-bit word (exact for any range); ``gamma`` by Marsaglia-Tsang
+(with the boost u^(1/a) below a = 1), ``beta`` as two gammas from split
+keys; ``poisson`` by a search of its CDF below rate POISSON_SWITCH and by
+Hormann's PTRS at and above it, as ``jax.random.poisson`` switches.
 """
 
 import math
 
 import torch
 
-from modppl_tpu_torch.dists.base import Distribution, shape_of
+from modppl_tpu_torch.core.keys import _bits_to_uniform, _srl, split_lanes
+from modppl_tpu_torch.dists.base import (
+    Distribution,
+    cdf_search,
+    rejection_draw,
+    shape_of,
+    standard_lanes,
+)
 from modppl_tpu_torch.utils.numerics import ordered_cumsum
+
+#: a Poisson lane draw searches its CDF below this rate, else runs PTRS
+POISSON_SWITCH = 10.0
 
 
 def _log(v):
@@ -107,6 +124,22 @@ class UniformDiscrete(Distribution):
                                  device=gen.device, dtype=torch.int64)
         u = _uniform01(gen, shape, torch.float64, a, b)
         return (torch.floor(u * (b - a + 1)) + a).to(torch.int64)
+
+    def _draw_lanes(self, key_lanes, shape, dtype, block, a, b):
+        # a word's low 63 bits v, accepted below the largest multiple of the
+        # width m (at least half of them): a + v mod m is then exactly
+        # uniform on [a, b], for any width up to 2^62
+        dev = key_lanes.device
+        a = torch.as_tensor(a, device=dev).to(torch.int64)
+        m = torch.as_tensor(b, device=dev).to(torch.int64) - a + 1
+        top = torch.div((1 << 63) - 1, m, rounding_mode="floor") * m
+
+        def propose(bits, a, m, top):
+            v = _srl(bits[..., 0], 1)
+            return a + torch.remainder(v, m), v < top
+
+        return rejection_draw(key_lanes, shape, block, 1, propose, a, m, top,
+                              unrolled=1)
 
 
 # up to this many categories a draw runs the K-1 comparisons as elementwise
@@ -230,6 +263,7 @@ class Geometric(Distribution):
 
     is_discrete = True
     support = "discrete"
+    standard = "uniform"
 
     def _logpdf(self, k, p):
         k, p = _tensors(k, p)
@@ -238,7 +272,9 @@ class Geometric(Distribution):
                            + torch.log(p), -math.inf)
 
     def _sample(self, gen, shape, dtype, p):
-        u = _uniform01(gen, shape, dtype, p)
+        return self._from_standard(_uniform01(gen, shape, dtype, p), p)
+
+    def _from_standard(self, u, p):
         return torch.floor(torch.log1p(-u) / _log1p_neg(p)).to(torch.int64)
 
 
@@ -264,6 +300,89 @@ class Poisson(Distribution):
         return torch.poisson(rates.expand(shape).contiguous(),
                              generator=gen).to(torch.int64)
 
+    def _draw_lanes(self, key_lanes, shape, dtype, block, rate):
+        return poisson_lanes(key_lanes, shape, block, rate).to(torch.int64)
+
+
+def _ptrs(bits, lam, done):
+    """One round of Hormann's PTRS (transformed rejection with squeeze) for
+    Poisson(lam), lam >= 10, from two words: (candidate, accepted);
+    ``done`` elements accept at once."""
+    u = _bits_to_uniform(bits[..., 0], torch.float64) - 0.5
+    v = _bits_to_uniform(bits[..., 1], torch.float64)
+    us = 0.5 - torch.abs(u)
+    b = 0.931 + 2.53 * torch.sqrt(lam)
+    a = -0.059 + 0.02483 * b
+    inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
+    v_r = 0.9277 - 3.6224 / (b - 2.0)
+    k = torch.floor((2.0 * a / us + b) * u + lam + 0.43)
+    s = torch.log(v * inv_alpha / (a / (us * us) + b))
+    t = -lam + k * torch.log(lam) - torch.lgamma(k + 1.0)
+    quick = (us >= 0.07) & (v <= v_r)
+    reject = (k < 0) | ((us < 0.013) & (v > us))
+    return k, done | quick | (~reject & (s <= t))
+
+
+def poisson_lanes(key_lanes, shape, block, rate):
+    """Poisson lane draws of ``shape`` (see ``rejection_draw``) as float64
+    counts: a CDF search of one uniform (split key 0) where the rate is
+    below POISSON_SWITCH, PTRS (split key 1) elsewhere. A host-number
+    rate picks its arm on the host; a tensor one reads once which arms
+    its elements need."""
+    k_search, k_ptrs = split_lanes(key_lanes, 2).unbind(-1)
+    if torch.is_tensor(rate):
+        n_small = None
+    else:
+        n_small = math.prod(shape) if rate < POISSON_SWITCH else 0
+    rate = torch.broadcast_to(torch.as_tensor(
+        rate, dtype=torch.float64, device=key_lanes.device), shape)
+    small = rate < POISSON_SWITCH
+    if n_small is None:
+        n_small = int(small.sum())  # the host read
+    arms = (n_small > 0, n_small < small.numel() or n_small == 0)
+    k = big = None
+    if arms[0]:
+        lam = torch.where(small, rate, 0.0)
+        u = standard_lanes("uniform", k_search, shape[1:], torch.float64,
+                           block)
+        k = cdf_search(u, torch.exp(-lam), lambda j: lam / j)
+    if arms[1]:
+        big = rejection_draw(k_ptrs, shape, block, 2, _ptrs,
+                             torch.where(small, POISSON_SWITCH, rate), small)
+    if k is None or big is None:
+        return big if k is None else k
+    return torch.where(small, k, big)
+
+
+def _marsaglia_tsang(bits, d, c):
+    """One round of Marsaglia and Tsang's gamma sampler at d = a - 1/3,
+    c = 1 / sqrt(9 d) from two words (a normal and a uniform):
+    (log of the candidate d v, accepted)."""
+    dtype = d.dtype
+    z = torch.special.ndtri(_bits_to_uniform(bits[..., 0], dtype))
+    u = _bits_to_uniform(bits[..., 1], dtype)
+    v = 1.0 + c * z
+    ok = v > 0
+    v3 = torch.where(ok, v * v * v, 1.0)
+    log_v3 = torch.log(v3)
+    accept = ok & (torch.log(u) < 0.5 * z * z + d - d * v3 + d * log_v3)
+    return torch.log(d) + log_v3, accept
+
+
+def log_gamma_lanes(key_lanes, shape, dtype, block, a):
+    """Logs of standard gamma lane draws of shape ``a`` and ``shape`` (see
+    ``rejection_draw``): Marsaglia-Tsang from split key 0, at a + 1 with
+    the boost log(u) / a from split key 1 where a < 1."""
+    k_mt, k_boost = split_lanes(key_lanes, 2).unbind(-1)
+    a = torch.broadcast_to(torch.as_tensor(a, dtype=dtype,
+                                           device=key_lanes.device), shape)
+    boost = a < 1.0
+    d = torch.where(boost, a + 1.0, a) - 1.0 / 3.0
+    log_g = rejection_draw(k_mt, shape, block, 2, _marsaglia_tsang, d,
+                           1.0 / torch.sqrt(9.0 * d))
+    u = standard_lanes("uniform", k_boost, shape[1:], dtype, block)
+    return log_g + torch.where(boost, torch.log(u) / a, 0.0)
+
 
 def _standard_gamma(gen, shape, dtype, a):
     shape = torch.broadcast_shapes(shape, shape_of(a))
@@ -287,6 +406,10 @@ class Gamma(Distribution):
         shape = torch.broadcast_shapes(shape, shape_of(b))
         return _standard_gamma(gen, shape, dtype, a) * b
 
+    def _draw_lanes(self, key_lanes, shape, dtype, block, a, b):
+        return torch.exp(log_gamma_lanes(key_lanes, shape, dtype, block,
+                                         a)) * b
+
 
 class Beta(Distribution):
     """Beta(a, b): (a - 1) ln x + (b - 1) ln(1 - x) - ln B(a, b); draws as
@@ -305,6 +428,13 @@ class Beta(Distribution):
         x = _standard_gamma(gen, shape, dtype, a)
         y = _standard_gamma(gen, shape, dtype, b)
         return x / (x + y)
+
+    def _draw_lanes(self, key_lanes, shape, dtype, block, a, b):
+        # X / (X + Y) as sigmoid(log X - log Y): no 0 / 0 where both
+        # gammas underflow at small a and b
+        ka, kb = split_lanes(key_lanes, 2).unbind(-1)
+        return torch.sigmoid(log_gamma_lanes(ka, shape, dtype, block, a)
+                             - log_gamma_lanes(kb, shape, dtype, block, b))
 
 
 bernoulli = Bernoulli()

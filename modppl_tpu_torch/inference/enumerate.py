@@ -4,14 +4,17 @@ modppl_tpu/inference/enumerate.py).
 Each enumerated address is constrained to every value of its support,
 jointly with the observations; the fully constrained generate weight is
 the log joint. The reference scores the support grid with a ``vmap`` of
-``assess``; the port scores the whole flattened grid in ONE batched
-generate (modeling/autobatch.py), one lane a grid point, as importance
-sampling runs its lanes. Continuous latents must be observed or enumerated
-on a grid the caller supplies (a Riemann-sum marginal).
+``assess``; the port scores a ``@gen`` model's whole flattened grid in ONE
+batched generate (modeling/autobatch.py), one lane a grid point, as
+importance sampling runs its lanes, and any other GenFn by
+``torch.func.vmap`` over its ``assess``, as the reference does. Continuous
+latents must be observed or enumerated on a grid the caller supplies (a
+Riemann-sum marginal).
 """
 
 import torch
 
+from modppl_tpu_torch.core.gfi import GenFn
 from modppl_tpu_torch.inference.importance import _lanes
 from modppl_tpu_torch.modeling.autobatch import _lane_generate
 from modppl_tpu_torch.modeling.gen import Gen
@@ -52,8 +55,11 @@ def enumerate_posterior(model, args, observed, supports, device=None):
     """Score every combination of the given latent supports exactly.
 
     ``model`` is a ``@gen`` model whose body takes a leading lane axis
-    (every port model written for the batched tier does); ``observed`` is
-    the observations' Trie; ``supports`` maps every latent address to a 1-D
+    (every port model written for the batched tier does), scored as one
+    batched generate, or any other GenFn, whose ``assess`` is
+    ``torch.func.vmap``-ped over the grid (it raises ``TypeError`` naming
+    the model where that ``assess`` cannot be vmapped, for example where it
+    branches in Python on a value); ``observed`` is the observations' Trie; ``supports`` maps every latent address to a 1-D
     tensor of candidate values. Runs on ``device``: the card unless the
     caller passes ``device="cpu"``.
 
@@ -63,9 +69,9 @@ def enumerate_posterior(model, args, observed, supports, device=None):
     supports are exhaustive), ``log_posterior`` and ``marginals`` ({addr:
     posterior probabilities aligned with ``supports[addr]``}).
     """
-    if not isinstance(model, Gen):
+    if not isinstance(model, GenFn):
         raise TypeError(f"enumerate_posterior: {model!r} is not a @gen "
-                        "model; the grid is scored as one batched generate")
+                        "model or a GenFn")
     device, args, observed = entry_inputs(device, args, observed,
                                           "enumerate_posterior")
     addrs = tuple(supports)
@@ -74,14 +80,18 @@ def enumerate_posterior(model, args, observed, supports, device=None):
     idx = torch.meshgrid(*(torch.arange(len(ax), device=device)
                            for ax in axes), indexing="ij")
     flat = [ax[i.reshape(-1)] for ax, i in zip(axes, idx)]
-    n = flat[0].shape[0]
-    dtype, _ = infer_dtype_device(args, device)
-    constraints = _lanes(observed, n, dtype, device)
-    for a, v in zip(addrs, flat):
-        constraints.observe(a, v)
-    # every address constrained: the weight is the log joint
-    _, log_joint = _lane_generate(model, 0, args, constraints, n,
-                                  device=device)
+    if isinstance(model, Gen):
+        n = flat[0].shape[0]
+        dtype, _ = infer_dtype_device(args, device)
+        constraints = _lanes(observed, n, dtype, device)
+        for a, v in zip(addrs, flat):
+            constraints.observe(a, v)
+        # every address constrained: the weight is the log joint
+        _, log_joint = _lane_generate(model, 0, args, constraints, n,
+                                      device=device)
+    else:
+        log_joint = _vmapped_assess(model, args, observed, addrs, flat,
+                                    device)
     log_ml = logsumexp(log_joint)
     log_post = log_joint - log_ml
     post_grid = torch.exp(log_post).reshape(tuple(len(ax) for ax in axes))
@@ -97,6 +107,25 @@ def enumerate_posterior(model, args, observed, supports, device=None):
         "log_posterior": log_post,
         "marginals": marginals,
     }
+
+
+def _vmapped_assess(model, args, observed, addrs, flat, device):
+    """The log joint of every grid point: ``torch.func.vmap`` of the
+    model's fully constrained ``assess``, the reference's scoring."""
+
+    def score(*vals):
+        cons = observed.copy()
+        for a, v in zip(addrs, vals):
+            cons.observe(a, v)
+        return torch.as_tensor(model.assess(0, args, cons, device=device))
+
+    try:
+        return torch.func.vmap(score)(*flat)
+    except RuntimeError as err:
+        raise TypeError(
+            f"enumerate_posterior: {model!r}'s assess cannot be vmapped over "
+            f"the grid ({err}); score it with a @gen model, or without "
+            "Python branches on its values") from err
 
 
 def auto_supports(model, args, observed, key=0, device=None):

@@ -20,15 +20,18 @@ Which arguments the lanes share is stated, not read from shapes:
 ``Map(kernel, shared=(i, ...))`` names the positional arguments whose
 leaves are (n, ...) for every lane (the reference's ``vmap`` leaves them
 unmapped); every other argument's leaves are per lane, (C, n, ...), and
-a leaf of another shape raises. A constraint or pool leaf of shape
-(C, n, ...) is per lane, which always states it; one of any other shape
-(n, ...) is shared. So when C == n, a shared leaf with a second axis of n
-must be passed broadcast to (C, n, ...).
+a leaf of another shape raises. The constraint and pool leaves follow
+``Map(kernel, shared_choices=addresses)``: the leaves at (or below) those
+addresses are shared (n, ...), every other one per lane (C, n, ...).
+Without ``shared_choices`` a leaf is read from its shape, (C, n, ...) per
+lane and (n, ...) shared, and a leaf that reads both ways (C == n and a
+second axis of n) raises a ``ValueError`` that names its address.
 """
 
 import torch
 from torch.utils import _pytree as pytree
 
+from modppl_tpu_torch.core.address import Selection, addr_components
 from modppl_tpu_torch.core.gfi import GenFn, Trace
 from modppl_tpu_torch.core.keys import fold_in_lanes, split_keys
 from modppl_tpu_torch.core.trie import Trie
@@ -65,8 +68,9 @@ class _Plate:
     host key), the ``m`` lane keys the kernel runs over and the maps
     between the caller's leaves and the kernel's (m, ...) lanes."""
 
-    def __init__(self, key, args, device, shared):
+    def __init__(self, key, args, device, shared, shared_choices=None):
         lane = torch.is_tensor(key)
+        self.shared_choices = shared_choices
         self.c = key.shape[0] if lane else None
         # (leaf, shared by the lanes) for every tensor leaf of the args
         tagged = [(x, not lane or i in shared)
@@ -95,11 +99,12 @@ class _Plate:
             pytree.tree_map(lambda x, s=(i in shared): self.lanes(x, s), a)
             for i, a in enumerate(args))
 
-    def lanes(self, x, shared=None):
+    def lanes(self, x, shared=None, addr=None):
         """A caller's leaf as the kernel's: (C, n, ...) or a shared
         (n, ...) as (C n, ...); non-tensors as they are. ``shared`` says
-        which the leaf is; None (a trie's leaf) takes (C, n, ...) as per
-        lane and any other (n, ...) as shared."""
+        which the leaf is; None (a constraint or pool leaf of a Map without
+        ``shared_choices``) reads it from its shape and raises where both
+        readings fit, naming ``addr``."""
         if not torch.is_tensor(x):
             return x
         c, n = self.c, self.n
@@ -110,6 +115,12 @@ class _Plate:
             return x
         per_lane = x.ndim >= 2 and tuple(x.shape[:2]) == (c, n)
         is_shared = x.ndim >= 1 and x.shape[0] == n
+        if shared is None and per_lane and is_shared:
+            raise ValueError(
+                f"Map: the leaf at {addr!r} of shape {tuple(x.shape)} reads "
+                f"both as per lane ({c}, {n}, ...) and as shared ({n}, ...) "
+                f"at {c} lanes; name the shared addresses in "
+                "Map(..., shared_choices=)")
         if per_lane and not shared:
             return x.reshape((c * n,) + tuple(x.shape[2:]))
         if is_shared and shared is not False:
@@ -119,7 +130,24 @@ class _Plate:
                       f"({n}, ...)",
                 True: f"not shared ({n}, ...)",
                 False: f"not per lane ({c}, {n}, ...)"}[shared]
-        raise ValueError(f"Map: a leaf of shape {tuple(x.shape)} is {want}")
+        where = "" if addr is None else f" at {addr!r}"
+        raise ValueError(f"Map: a leaf{where} of shape {tuple(x.shape)} is "
+                         f"{want}")
+
+    def choice_shared(self, addr):
+        """Whether the constraint or pool leaf at ``addr`` is shared: True
+        or False under ``shared_choices``, None (read from its shape)
+        without."""
+        if self.shared_choices is None:
+            return None
+        node = self.shared_choices
+        for comp in addr_components(addr):
+            node = node.children.get(comp)
+            if node is None:
+                return False
+            if node.is_leaf():
+                return True
+        return False
 
     def unlanes(self, x):
         """A kernel's (C n, ...) leaf as the caller's (C, n, ...)."""
@@ -138,11 +166,18 @@ class _Plate:
         """A caller's trie (constraints, or with ``shared=False`` a previous
         Map sub-trie, per lane) as the kernel's plain Trie over the lanes,
         its root value dropped."""
-        def lanes(x):
-            return self.lanes(x, shared)
-        t = _convert(trie, lanes, lanes, Trie)
-        t.take_inner()
-        return t
+        def convert(node, path):
+            t = type(node)() if path else Trie()
+            how = shared if shared is not None or not path \
+                else self.choice_shared(path)
+            if node.has_inner() and path:
+                t.value = self.lanes(node.value, how, path)
+            t.logp = self.lanes(node.logp, how, path)
+            t.dist = node.dist
+            t.children = {k: convert(v, k if not path else f"{path} / {k}")
+                          for k, v in node.children.items()}
+            return t
+        return convert(trie, "")
 
     def plate_trie(self, trie):
         """A kernel's trie as the caller's ``PlateTrie``."""
@@ -159,8 +194,11 @@ class _Plate:
     def pool(self, pool):
         if not pool:
             return None
-        return {a: (Standard(self.lanes(v.z)) if isinstance(v, Standard)
-                    else self.lanes(v)) for a, v in pool.items()}
+
+        def lanes(a, v):
+            return self.lanes(v, self.choice_shared(a), a)
+        return {a: (Standard(lanes(a, v.z)) if isinstance(v, Standard)
+                    else lanes(a, v)) for a, v in pool.items()}
 
     def trace(self, args, tr):
         data = self.plate_trie(tr.data)
@@ -171,23 +209,29 @@ class _Plate:
 class Map(GenFn):
     """Apply ``kernel`` independently across the plate axis of its args
     (see the module docstring); under lane keys the positional args
-    numbered in ``shared`` are the lanes' common (n, ...) data."""
+    numbered in ``shared`` are the lanes' common (n, ...) data, and so are
+    the constraint and pool leaves at the addresses of
+    ``shared_choices`` (a Selection or an iterable of addresses)."""
 
-    def __init__(self, kernel, shared=()):
+    def __init__(self, kernel, shared=(), shared_choices=None):
         self.kernel = kernel
         self.shared = frozenset(shared)
+        if shared_choices is not None and not isinstance(shared_choices,
+                                                         Selection):
+            shared_choices = Selection(shared_choices)
+        self.shared_choices = shared_choices
 
     def __repr__(self):
         return f"Map({self.kernel!r})"
 
     def simulate(self, key, args, device=None, pool=None):
-        p = _Plate(key, args, device, self.shared)
+        p = _Plate(key, args, device, self.shared, self.shared_choices)
         tr = self.kernel.simulate(p.keys, p.args, device=p.device,
                                   pool=p.pool(pool))
         return p.trace(args, tr)
 
     def generate(self, key, args, constraints, device=None, pool=None):
-        p = _Plate(key, args, device, self.shared)
+        p = _Plate(key, args, device, self.shared, self.shared_choices)
         tr, w = self.kernel.generate(p.keys, p.args,
                                      p.kernel_trie(constraints),
                                      device=p.device, pool=p.pool(pool))
@@ -195,7 +239,7 @@ class Map(GenFn):
 
     def update(self, key, trace, args, argdiff, constraints, device=None,
                pool=None):
-        p = _Plate(key, args, device, self.shared)
+        p = _Plate(key, args, device, self.shared, self.shared_choices)
         prev = Trace(p.args, p.kernel_trie(trace.data, False), None,
                      0.0)
         tr, discard, w = self.kernel.update(
@@ -205,7 +249,7 @@ class Map(GenFn):
 
     def regenerate(self, key, trace, args, argdiff, selection, device=None,
                    pool=None):
-        p = _Plate(key, args, device, self.shared)
+        p = _Plate(key, args, device, self.shared, self.shared_choices)
         prev = Trace(p.args, p.kernel_trie(trace.data, False), None,
                      0.0)
         tr, w = self.kernel.regenerate(p.keys, prev, p.args, argdiff,

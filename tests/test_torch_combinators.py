@@ -34,7 +34,7 @@ from modppl_tpu_torch.core.address import select
 from modppl_tpu_torch.core.gfi import ArgDiff
 from modppl_tpu_torch.core.keys import split_keys
 from modppl_tpu_torch.core.trie import Trie
-from modppl_tpu_torch.dists import bernoulli, normal
+from modppl_tpu_torch.dists import bernoulli, mvnormal, normal
 from modppl_tpu_torch.inference.importance import importance_sampling
 from modppl_tpu_torch.modeling import gen
 from modppl_tpu_torch.modeling.combinators import Cond, Switch, tree_select
@@ -374,3 +374,44 @@ def test_map_shared_args_are_stated_not_read_from_shapes():
         Map(dot_point).simulate(keys, (w, x))
     with pytest.raises(ValueError, match=r"not shared \(3, \.\.\.\)"):
         plate.simulate(keys, (w, x[:2]))
+
+
+@gen
+def vec_point(h, m):
+    return h.sample(mvnormal, (m, torch.eye(3, dtype=torch.float64)), "v")
+
+
+@pytest.mark.parametrize("c", [2, 3])
+def test_map_shared_constraint_when_lanes_equal_the_plate(c):
+    """Map(vec_point) over n = 3 elements, v ~ mvnormal(m, I_3), with a
+    shared (3, 3) constraint on v. At C = 2 lanes its shape reads one way
+    only; at C = 3 it reads as per lane (C, n) and as shared (n, 3): left
+    undeclared that raises, naming the address and both readings, and
+    declared by ``shared_choices`` it is shared. Every lane's weight is the
+    float64 hand sum of the elements' log-densities."""
+    rng = np.random.default_rng(11)
+    m, v = t64(rng.standard_normal((3, 3))), t64(rng.standard_normal((3, 3)))
+    eye = torch.eye(3, dtype=torch.float64)
+    want = sum(float(mvnormal.logpdf(v[j], (m[j], eye))) for j in range(3))
+    keys = split_keys(12, c, "cpu")
+    obs = Trie.from_dict({"v": v})
+    declared = Map(vec_point, shared=(0,), shared_choices=("v",))
+    for plate in ([Map(vec_point, shared=(0,)), declared] if c != 3
+                  else [declared]):
+        tr, w = plate.generate(keys, (m,), obs)
+        assert w.shape == (c,)
+        torch.testing.assert_close(w, torch.full((c,), want,
+                                                 dtype=torch.float64),
+                                   rtol=1e-12, atol=1e-12)
+        assert torch.equal(tr.data.read("v"), v.expand(c, 3, 3))
+    if c == 3:
+        with pytest.raises(ValueError, match=r"'v' of shape \(3, 3\) reads "
+                           r"both as per lane \(3, 3, \.\.\.\) and as shared "
+                           r"\(3, \.\.\.\)"):
+            Map(vec_point, shared=(0,)).generate(keys, (m,), obs)
+    # the per-lane form, (C, n, 3), states itself at any C
+    per_lane = Trie.from_dict({"v": v.expand(c, 3, 3).clone()})
+    _, w = Map(vec_point, shared=(0,)).generate(keys, (m,), per_lane) \
+        if c != 3 else declared.generate(keys, (m,), obs)
+    torch.testing.assert_close(w, torch.full((c,), want, dtype=torch.float64),
+                               rtol=1e-12, atol=1e-12)

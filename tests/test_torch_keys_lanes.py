@@ -163,8 +163,17 @@ def test_large_k_categorical_lanes_follow_the_cdf():
     (iid(mvnormal, 3), (torch.zeros(2), ((1.0, 0.0), (0.0, 1.0))))],
     ids=["gamma", "iid", "iid_mvnormal"])
 def test_distributions_without_a_lane_form_raise(dist, params):
-    with pytest.raises(NotImplementedError, match="no lane form"):
-        dist.sample_lanes(lanes(1, 4, "cpu"), params)
+    """These three raised NotImplementedError before they had lane forms;
+    the name is kept, and now each draws over lanes: a lane's draw is its
+    1-lane draw and does not depend on the lane count."""
+    ks = lanes(1, 8, "cpu")
+    x = dist.sample_lanes(ks, params)
+    assert x.shape[0] == 8 and bool(torch.isfinite(x).all())
+    torch.testing.assert_close(dist.sample_lanes(lanes(1, 16, "cpu"),
+                                                 params)[:8], x,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(dist.sample_lanes(ks[5:6], params)[0], x[5],
+                               rtol=0, atol=0)
 
 
 @gen

@@ -166,7 +166,16 @@ def test_port_imports_no_jax():
             "_adam.py", "map_laplace.py", "vi.py", "gp.py", "mala.py",
             "chees.py", "stochvol.py", "blocked_smc.py", "pmcmc.py",
             "pgibbs.py", "fivo.py", "smc_sampler.py",
-            "tempering.py"} <= {p.name for p in files}
+            "tempering.py", "build.py", "checkpoint.py", "combinators.py",
+            "map_combinator.py"} <= {p.name for p in files}
+    # the native layer compiles the port's own C sources, which include
+    # system headers only (nothing of the JAX package's native/)
+    native = repo / "modppl_tpu_torch" / "native"
+    for src in ("addrops.c", "ctrie.c"):
+        includes = [ln for ln in (native / src).read_text().splitlines()
+                    if ln.startswith("#include")]
+        assert includes and all(ln.split()[1].startswith("<")
+                                for ln in includes), includes
     files.append(repo / "chip_smoke.py")
     bad = []
     for path in files:
