@@ -330,12 +330,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     scipy) below 1.95 / sqrt(N), or the chi-square over bins of expected
     count >= 5 below its 0.001 quantile, dirichlet by its beta marginals;
     prints each draw's rounds (most, mean), host reads and median ms;
-37. runs NUTS on tests/test_hmc_vi.py's gamma-prior scale model at 10^4
-    chains, 200 + 300, max_depth 6, the chains started from their lane
-    draws of the model (``start="prior"``), with the counters at 0 (no
-    launch), timed: every scale > 0, the mean within 0.08 and within 4
-    Monte Carlo standard errors of the quadrature oracle, divergences
-    below 1%; ESS/s, leaves a transition, value-and-grad calls;
+37. on tests/test_hmc_vi.py's gamma-prior scale model, with the counters
+    at 0 (no launch): ``importance_sampling`` over 10^4 lanes (gamma's
+    lane form under the model), every scale > 0 and the weighted mean
+    within 0.08 and within 4 standard errors at its ESS of the quadrature
+    oracle; then NUTS at 10^4 chains, 200 + 300, max_depth 6, from the
+    reference's start (the initial trace's point plus 0.5 standard
+    normals a chain), timed: every scale > 0, the mean within 0.08 and
+    within 4 Monte Carlo standard errors of the oracle, divergences below
+    1%; ESS/s, leaves a transition, value-and-grad calls;
 38. runs tests/test_spiral_lgssm_moments.py's gate through the vmapped
     ``particle_filter(store_traces=True)``, systematic, at N = 32768 and
     2^20, T = 12, with the counters at 0: 11 launches of kernel 3 and none
@@ -345,9 +348,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     output bitwise its rerun through the plain versions on the recorded
     draws, the peak device memory beside the stored states, timed; then MH
     at phase 18's schedule in turns pure, native, native, pure (each turn
-    a process; ``MODPPL_TORCH_NATIVE=0`` for the pure path), ms a
-    transition; then ``enumerate_posterior`` over a hand-coded GenFn on
-    the card against its closed form (1e-12).
+    a process; the pure turns rebind ``Trie`` to ``PureTrie``), the same
+    chains, ms a transition; then ``enumerate_posterior`` over a
+    hand-coded GenFn on the card against its closed form (1e-12).
 
 Each group of phases prints its seconds as it ends (``# seconds:``).
 
@@ -4597,18 +4600,51 @@ def scale_posterior():
     return mean, float(math.sqrt((w * (grid - mean) ** 2).sum()))
 
 
+def check_is_scale(device="cuda"):
+    """Phase 37a: ``importance_sampling`` of the gamma-prior scale model
+    over NUTS_POS's chain count of lanes, with the counters at 0 (no
+    launch): gamma's lane form under the model. Every scale > 0; the
+    weighted mean within NUTS_POS_GAP and within NUTS_POS_SE posterior sd
+    / sqrt(ESS) of the quadrature oracle, ESS = 1 / sum(w^2). Returns what
+    was seen."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.importance import importance_sampling
+
+    model = small_models(device)["scale_model"]
+    obs = Trie.from_dict({"ys": torch.tensor(SCALE_YS, dtype=torch.float32,
+                                             device=device)})
+    n = NUTS_POS["num_chains"]
+    sync(device)
+    t0 = time.perf_counter()
+    (traces, lw, _), launches = counted(lambda: importance_sampling(
+        37, model, (), obs, n, device=device))
+    sync(device)
+    wall = time.perf_counter() - t0
+    require_launches("importance sampling scale leg", launches, {})
+    scales = traces.data.read("scale").double().cpu()
+    w = torch.softmax(lw.double().cpu(), 0)
+    exact, sd = scale_posterior()
+    ess = 1.0 / float((w * w).sum())
+    seen = {"mean": float((w * scales).sum()), "exact": exact, "ess": ess,
+            "se_bound": NUTS_POS_SE * sd / math.sqrt(ess),
+            "min_scale": float(scales.min()), "wall_s": wall}
+    gap = abs(seen["mean"] - exact)
+    if scales.shape != (n,) or not seen["min_scale"] > 0 \
+            or not gap <= NUTS_POS_GAP or not gap <= seen["se_bound"]:
+        raise AssertionError(f"importance sampling scale leg: {seen}")
+    return seen
+
+
 def make_nuts_scale(device, **overrides):
-    """``nuts_runner`` on normal_scale_model, the chains started from
-    their lane draws of the prior (``start="prior"``: gamma's lane
-    form)."""
+    """``nuts_runner`` on normal_scale_model from the reference's start."""
     from modppl_tpu_torch.core.trie import Trie
     from modppl_tpu_torch.inference.nuts import nuts_runner
 
     model = small_models(device)["scale_model"]
     obs = Trie.from_dict({"ys": torch.tensor(SCALE_YS, dtype=torch.float32,
                                              device=device)})
-    return nuts_runner(model, (), obs, setup_key=99, start="prior",
-                       device=device, **{**NUTS_POS, **overrides})
+    return nuts_runner(model, (), obs, setup_key=99, device=device,
+                       **{**NUTS_POS, **overrides})
 
 
 def check_nuts_scale(device="cuda"):
@@ -4774,55 +4810,67 @@ def check_moments(device="cuda"):
 
 
 MH_TURN_CODE = r"""
-import json, statistics, time, torch
+import json, statistics, sys, time, torch
 import chip_smoke as cs
-from modppl_tpu_torch import native
 from modppl_tpu_torch.core import trie
-cs.run_mh_chain({device!r}, 5, 1)
+if {pure}:
+    # every name Trie in the package is PureTrie from here on: new tries,
+    # function-level imports and isinstance checks alike
+    native_cls = trie.Trie
+    for mod in list(sys.modules.values()):
+        if (getattr(mod, "__name__", "").startswith("modppl_tpu_torch")
+                and getattr(mod, "Trie", None) is native_cls):
+            mod.Trie = trie.PureTrie
+_, _, acc = cs.run_mh_chain({device!r}, 5, 1)
+from modppl_tpu_torch.models import hierarchical_model
+tr, _ = hierarchical_model.generate(0, (list(cs.IS_XS),),
+                                    cs.hierarchical_obs(), device={device!r})
 times = []
 for i in range({runs}):
     cs.sync({device!r})
     t0 = time.perf_counter()
-    cs.run_mh_chain({device!r}, {rounds}, 30 + i)
+    gates, coeffs, acc = cs.run_mh_chain({device!r}, {rounds}, 30 + i)
     cs.sync({device!r})
     times.append(time.perf_counter() - t0)
-print(json.dumps({{"native_trie": native.HAVE_NATIVE_TRIE,
-                  "native_addr": native.HAVE_NATIVE,
-                  "base": trie.Trie.__mro__[2].__name__,
-                  "error": native.BUILD_ERROR, "times": times}}))
+print(json.dumps({{"trie": type(tr.data).__name__, "times": times,
+                  "chain": [gates.tolist(), coeffs.tolist(), acc]}}))
 """
 
 
 def mh_turns(device="cuda"):
     """Phase 38b: MH at BASELINE configs[1]'s schedule on the native trie
-    and on the pure-Python one (``MODPPL_TORCH_NATIVE=0``), each turn a
-    process of its own, in turns pure, native, native, pure: MH_TURN_RUNS
-    timed chains of MH_TURN_ROUNDS rounds each. The native turns must
-    report the C trie and address layer active, the pure ones neither.
-    Returns {path: [ms a transition, a turn's median]}."""
+    and on ``PureTrie``, each turn a process of its own, in turns pure,
+    native, native, pure: MH_TURN_RUNS timed chains of MH_TURN_ROUNDS
+    rounds each. A pure turn rebinds every name ``Trie`` of the package
+    to ``PureTrie`` before its first trie is made (the address layer is C
+    in both). Each turn must report its traces' trie class, and every
+    turn's last chain must be the same, value for value. Returns {path:
+    [ms a transition, a turn's median]}."""
     import os
 
-    code = MH_TURN_CODE.format(runs=MH_TURN_RUNS, rounds=MH_TURN_ROUNDS,
-                               device=device)
     per = MH_TURN_ROUNDS * (MH_DRIFTS + 2)
     out = {"pure": [], "native": [], "turn_s": []}
+    chains = []
     for path in ("pure", "native", "native", "pure"):
+        code = MH_TURN_CODE.format(runs=MH_TURN_RUNS, rounds=MH_TURN_ROUNDS,
+                                   device=device, pure=path == "pure")
         t0 = time.perf_counter()
-        env = dict(os.environ)
-        env["MODPPL_TORCH_NATIVE"] = "0" if path == "pure" else "1"
-        proc = subprocess.run([sys.executable, "-c", code], env=env,
+        proc = subprocess.run([sys.executable, "-c", code],
                               capture_output=True, text=True, timeout=300,
                               cwd=os.path.dirname(os.path.abspath(__file__)))
         if proc.returncode != 0:
             raise AssertionError(f"MH turn ({path}) failed:\n{proc.stderr}")
         seen = json.loads(proc.stdout.strip().splitlines()[-1])
-        want = path == "native"
-        if seen["native_trie"] != want or seen["native_addr"] != want:
-            raise AssertionError(f"MH turn ({path}): native trie "
-                                 f"{seen['native_trie']}, address layer "
-                                 f"{seen['native_addr']} ({seen['error']})")
+        want = "PureTrie" if path == "pure" else "Trie"
+        if seen["trie"] != want:
+            raise AssertionError(f"MH turn ({path}): traces of "
+                                 f"{seen['trie']}, not {want}")
+        chains.append(json.dumps(seen["chain"]))
         out[path].append(statistics.median(seen["times"]) / per * 1e3)
         out["turn_s"].append(time.perf_counter() - t0)
+    if len(set(chains)) != 1:
+        raise AssertionError("MH turns: the pure and native tries gave "
+                             "different chains")
     return out
 
 
@@ -4872,12 +4920,13 @@ def check_enumerate_hand(device="cuda"):
 
 
 def require_native():
-    """The native trie and address layer must be active on this machine."""
+    """The native trie and address layer must be active on this machine
+    (the package does not import without them; this names them)."""
     from modppl_tpu_torch import native
     from modppl_tpu_torch.core import trie
 
     if not (native.HAVE_NATIVE and native.HAVE_NATIVE_TRIE
-            and trie.HAVE_NATIVE_TRIE):
+            and trie.Trie.__mro__[2] is native.ctrie.CTrieBase):
         raise AssertionError(f"native layer not active: {native.BUILD_ERROR}")
     return trie.Trie.__mro__[2].__name__
 
@@ -4909,9 +4958,17 @@ def slice11_phases(card, profile, device="cuda", clock=None):
     sys.stdout.flush()
     if clock:
         clock.mark("36 lane draws")
+    im = check_is_scale(device)
+    print(f"# main path: importance_sampling of the gamma-prior scale model "
+          f"over {NUTS_POS['num_chains']} lanes float32 (gamma's lane form), "
+          f"no kernel launched; weighted mean scale {im['mean']!r} "
+          f"quadrature {im['exact']!r} (bounds {NUTS_POS_GAP}, "
+          f"{im['se_bound']!r} at ESS {im['ess']:.1f}); min scale "
+          f"{im['min_scale']!r}; {im['wall_s'] * 1e3:.3f} ms ({card})")
     nu = check_nuts_scale(device)
     print(f"# main path: NUTS on the gamma-prior scale model {NUTS_POS} "
-          f"float32 through nuts_runner(start='prior'), no kernel launched; "
+          f"float32 through nuts_runner from the reference's start, no "
+          f"kernel launched; "
           f"mean scale {nu['mean']!r} quadrature {nu['exact']!r} (bounds "
           f"{NUTS_POS_GAP}, {nu['se_bound']!r}); min scale "
           f"{nu['min_scale']!r}; divergences {nu['divergence_rate']!r}; "

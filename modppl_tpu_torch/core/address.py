@@ -8,68 +8,18 @@ sides; and ``Selection``, a recursive address set used as a mask
 (regenerate) and as a visitor record (the garbage collection of update and
 regenerate).
 
-The four functions are the C module ``native/addrops.c`` (memoized) when it
-is built (``native.HAVE_NATIVE``), else the pure-Python ``_py_*`` functions
-below; the two agree bitwise (tests/test_torch_native.py).
+The four functions are the C module ``native/addrops.c`` (memoized),
+which follows the reference's Python rule exactly; tests/test_torch_native.py
+holds it to that rule bitwise. The package does not import without it.
 """
 
-import re
-from functools import lru_cache
+from modppl_tpu_torch import native
 
-from modppl_tpu_torch.native import addrops as _native
-
-_ADDR_RE = re.compile(r"^(.*?)/(.*)$")
-
-
-def _py_split_addr(addr):
-    """Split at the first ``/`` into ``(term,)`` or ``(first, rest)``."""
-    m = _ADDR_RE.match(addr)
-    if m is None:
-        return (addr.strip(),)
-    return (m.group(1).strip(), m.group(2))
-
-
-@lru_cache(maxsize=65536)
-def _py_normalize_addr(addr):
-    """Canonicalize separators to ``" / "``."""
-    parts = _py_split_addr(addr)
-    if len(parts) == 1:
-        return parts[0]
-    return f"{parts[0]} / {_py_normalize_addr(parts[1])}"
-
-
-@lru_cache(maxsize=65536)
-def _py_components(addr):
-    """The address's components, outermost first."""
-    out = []
-    while True:
-        parts = _py_split_addr(addr)
-        out.append(parts[0])
-        if len(parts) == 1:
-            return tuple(out)
-        addr = parts[1]
-
-
-@lru_cache(maxsize=65536)
-def _py_addr_hash(addr):
-    """31-bit FNV-1a over the normalized address."""
-    h = 2166136261
-    for b in _py_normalize_addr(addr).encode():
-        h ^= b
-        h = (h * 16777619) & 0xFFFFFFFF
-    return h & 0x7FFFFFFF
-
-
-if _native is not None:
-    split_addr = _native.split_addr
-    normalize_addr = _native.normalize_addr
-    addr_components = _native.addr_components
-    addr_hash = _native.addr_hash
-else:
-    split_addr = _py_split_addr
-    normalize_addr = _py_normalize_addr
-    addr_components = _py_components
-    addr_hash = _py_addr_hash
+_addrops = native.require(native.addrops, "address layer")
+split_addr = _addrops.split_addr
+normalize_addr = _addrops.normalize_addr
+addr_components = _addrops.addr_components
+addr_hash = _addrops.addr_hash
 
 
 class Selection:

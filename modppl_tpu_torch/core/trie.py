@@ -17,18 +17,21 @@ has one log-joint per particle.
 
 **Node core.** The node and its hot walk and mutate methods (search, read,
 w_observe, insert, remove, weight and the inner-value ops) are the C type
-``native/ctrie.c`` that ``Trie`` subclasses when it is built
-(``HAVE_NATIVE_TRIE``), else ``_PyTrieBase`` below; the rest of the API is
-Python either way. ``PureTrie`` always has the pure-Python core: the parity
-oracle (tests/test_torch_native_trie.py). New nodes are of the class's
-``_node_cls`` (``Trie`` for a ``Trie`` or a subclass such as a Map's
-``PlateTrie``, ``PureTrie`` for a ``PureTrie``).
+``native/ctrie.c``, which ``Trie`` subclasses; the rest of the API is
+Python. ``PureTrie`` has the same API on ``_PyTrieBase``, a pure-Python
+node core: the parity oracle (tests/test_torch_native_trie.py), on no
+path of the port. New nodes are of the class's ``_node_cls`` (``Trie`` for
+a ``Trie`` or a subclass such as a Map's ``PlateTrie``, ``PureTrie`` for a
+``PureTrie``). A ``Trie`` takes only C nodes as sub-tries, since its
+walks read them as such; a ``PureTrie`` takes a node of either core.
 """
 
 import torch
 
+from modppl_tpu_torch import native
 from modppl_tpu_torch.core.address import Selection, addr_components
-from modppl_tpu_torch.native import ctrie as _native_trie
+
+_native_trie = native.require(native.ctrie, "trie core")
 
 _EMPTY = object()  # sentinel: "no inner value" (distinct from a stored None)
 
@@ -47,8 +50,9 @@ def _values_equal(a, b):
 
 
 class _PyTrieBase:
-    """The pure-Python node core: the hot methods, as ``native/ctrie.c``'s
-    ``CTrieBase`` implements them (same errors, same pruning)."""
+    """The pure-Python node core of ``PureTrie``: the hot methods, as
+    ``native/ctrie.c``'s ``CTrieBase`` implements them (same errors, same
+    pruning)."""
 
     __slots__ = ("children", "value", "logp", "dist")
 
@@ -146,6 +150,9 @@ class _PyTrieBase:
 
     def insert(self, addr, sub):
         """Insert sub-trie at ``addr``; raises if occupied."""
+        if not isinstance(sub, (_PyTrieBase, _native_trie.CTrieBase)):
+            raise TypeError(f"insert: a sub-trie must be a trie node, not a "
+                            f"{type(sub).__name__}")
         node, last = self._parent_of(addr)
         if last in node.children:
             raise KeyError(
@@ -169,6 +176,7 @@ class _PyTrieBase:
                 break
             del path[i - 1].children[comps[i - 1]]
         return node
+
 
 class _TrieCommon:
     """The trie API above the node core, shared by the native and the
@@ -339,12 +347,7 @@ class _TrieCommon:
         return f"Trie({self.as_dict()!r})"
 
 
-_TrieBase = _native_trie.CTrieBase if _native_trie is not None \
-    else _PyTrieBase
-HAVE_NATIVE_TRIE = _native_trie is not None
-
-
-class Trie(_TrieCommon, _TrieBase):
+class Trie(_TrieCommon, _native_trie.CTrieBase):
     """Hierarchical choice map: children dict + optional inner value + leaf
     logp."""
 
@@ -352,13 +355,12 @@ class Trie(_TrieCommon, _TrieBase):
 
 
 class PureTrie(_TrieCommon, _PyTrieBase):
-    """A ``Trie`` on the pure-Python node core whatever is built: the
-    parity oracle of the native one."""
+    """A ``Trie`` on the pure-Python node core: the parity oracle of the
+    native one."""
 
     __slots__ = ()
 
 
 Trie._node_cls = Trie
 PureTrie._node_cls = PureTrie
-if _native_trie is not None:
-    _native_trie.configure(_EMPTY, addr_components, _leaf_logp, Trie)
+_native_trie.configure(_EMPTY, addr_components, _leaf_logp, Trie)

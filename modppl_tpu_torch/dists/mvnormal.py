@@ -156,10 +156,11 @@ class MvNormal(Distribution):
             return mu + (T.to(z.dtype) @ z[..., None])[..., 0]
         # row i of T z over the entries T holds: j <= i for a Cholesky
         # factor, every j for the fallback's
+        full = _full(T)
         rows = []
         for i, row in enumerate(T):
             acc = row[0] * z[..., 0]
-            for j in range(1, len(row) if _full(T) else i + 1):
+            for j in range(1, len(row) if full else i + 1):
                 acc = acc + row[j] * z[..., j]
             rows.append(acc)
         return mu + torch.stack(rows, dim=-1)

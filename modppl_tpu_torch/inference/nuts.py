@@ -342,32 +342,10 @@ def _nuts_chain(chain_keys, logprob, u0s, num_warmup, num_samples, eps0,
     return (*_stack_samples(ys), eps)
 
 
-def _prior_starts(model, args, observed, target, chain_keys, dtype,
-                  device):
-    """(C, d) start points by one importance-resampling step: C draws of
-    the model given the observations over the chains' lane keys (every
-    latent site's lane form), resampled by their weights (``categorical``'s
-    lane form, lane i's uniform from ``fold_in(key_i, 1)``), unconstrained
-    by the target's bijectors and raveled in its order (sorted addresses).
-    A prior draw far out in a steep tail, where a chain's every tree could
-    diverge at the pooled step size, is so rarely a start."""
-    from modppl_tpu_torch.dists import categorical
-
-    traces, w = model.generate(chain_keys, args, observed, device=device)
-    c = chain_keys.shape[0]
-    probs = torch.softmax(torch.as_tensor(w, dtype=torch.float64)
-                          .reshape(-1).expand(c), 0)
-    idx = categorical.sample_lanes(fold_in_lanes(chain_keys, 1),
-                                   (probs,)).long()
-    return torch.cat([target.bijectors[a].inverse(traces.data.read(a))
-                      .reshape(c, -1)[idx].to(dtype)
-                      for a in sorted(target.bijectors)], dim=-1)
-
-
 def nuts_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                 num_chains=1, step_size=0.1, max_depth=8, target_accept=0.8,
                 selection=None, init_trace=None, pooled_adaptation=None,
-                axis_name=None, setup_key=0, start="jitter", device=None):
+                axis_name=None, setup_key=0, device=None):
     """Build a reusable NUTS sampler: returns ``run(key) -> dict``.
 
     The NUTS counterpart of ``hmc.hmc_runner``: set-up (the initial trace
@@ -376,16 +354,9 @@ def nuts_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     keys chain i ``split(k_run, C)[i]`` (its start point's jitter, and on
     the per-chain path its whole run); ``pooled_adaptation`` (default: more
     than one chain) shares one adapted (eps, inv_mass). ``axis_name``
-    other than None raises (one device). ``start`` is where the chains
-    begin: "jitter" (the reference's: the initial trace's point plus 0.5
-    standard normals a chain) or "prior" (one importance-resampling step:
-    the chains' lane draws of the model given the observations, resampled
-    by their weights; every latent site draws its lane form). ``run.chains`` is the last
-    run's batch, whose ``leaves`` counts its value-and-grad calls.
+    other than None raises (one device). ``run.chains`` is the last run's
+    batch, whose ``leaves`` counts its value-and-grad calls.
     """
-    if start not in ("jitter", "prior"):
-        raise ValueError(f"nuts_runner: start={start!r}; 'jitter' or "
-                         "'prior'")
     if axis_name is not None:
         raise NotImplementedError(f"nuts_runner: {MULTI_SHARD_TODO}")
     device, args, observed = entry_inputs(device, args, observed,
@@ -401,12 +372,8 @@ def nuts_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
 
     def run(k_run):
         chain_keys = split_keys(k_run, num_chains, device)
-        if start == "prior":
-            u0s = _prior_starts(model, args, observed, target, chain_keys,
-                                u0.dtype, device)
-        else:
-            u0s = u0[None, :] + 0.5 * normal_lanes(chain_keys, u0.shape,
-                                                   u0.dtype)
+        u0s = u0[None, :] + 0.5 * normal_lanes(chain_keys, u0.shape,
+                                               u0.dtype)
         run.chains = _Chains(_value_and_grad(target.logprob), max_depth)
         if pooled_adaptation:
             us, logps, aprobs, divs, depths, eps = _pooled_nuts_chains(

@@ -1,40 +1,41 @@
-"""The port's native (C) host components, with pure-Python paths beside
-them (counterpart of modppl_tpu/native/).
+"""The port's native (C) host components (counterpart of
+modppl_tpu/native/).
 
 ``addrops``: the address layer (memoized split / normalize / components /
-``addr_hash``), which core/address.py takes when it is built. ``ctrie``:
-the choice-map node core, ``CTrieBase``, which core/trie.py's ``Trie``
-subclasses when it is built. Both are compiled from this directory's C
-sources at first import (native/build.py) into ``modppl_tpu_torch/_build/``.
+``addr_hash``), which core/address.py's functions are. ``ctrie``: the
+choice-map node core, ``CTrieBase``, which core/trie.py's ``Trie``
+subclasses. Both are compiled from this directory's C sources at first
+import (native/build.py) into ``modppl_tpu_torch/_build/``.
 
-``HAVE_NATIVE`` and ``HAVE_NATIVE_TRIE`` say which path is active. A build
-or load that fails leaves the pure-Python path active, keeps its error in
-``BUILD_ERROR`` and warns; ``MODPPL_TORCH_NATIVE=0`` in the environment
-turns the native path off (``BUILD_ERROR`` then says so), which is how a
-run times the pure path against the native one.
+``HAVE_NATIVE`` and ``HAVE_NATIVE_TRIE`` say whether they built and
+loaded. A build or load that fails keeps its error in ``BUILD_ERROR``, and
+core/address.py and core/trie.py, so the package, then raise ImportError
+with it: the port has one address layer and one trie core, and
+``core.trie.PureTrie`` (a pure-Python node core) is only their parity
+oracle.
 """
-
-import os
-import warnings
 
 addrops = None
 ctrie = None
 BUILD_ERROR = None
 
-if os.environ.get("MODPPL_TORCH_NATIVE", "1") == "0":
-    BUILD_ERROR = "off: MODPPL_TORCH_NATIVE=0"
-else:
-    try:
-        from modppl_tpu_torch.native import build as _build
+try:
+    from modppl_tpu_torch.native import build as _build
 
-        addrops = _build.load("addrops")
-        ctrie = _build.load("ctrie")
-    except Exception as err:  # noqa: BLE001 - kept and reported, not hidden
-        addrops = ctrie = None
-        BUILD_ERROR = f"{type(err).__name__}: {err}"
-        warnings.warn(f"modppl_tpu_torch.native: the C extensions did not "
-                      f"build or load, the pure-Python path is active: "
-                      f"{BUILD_ERROR}", RuntimeWarning, stacklevel=2)
+    addrops = _build.load("addrops")
+    ctrie = _build.load("ctrie")
+except Exception as err:  # noqa: BLE001 - kept, and raised by core/
+    addrops = ctrie = None
+    BUILD_ERROR = f"{type(err).__name__}: {err}"
 
 HAVE_NATIVE = addrops is not None
 HAVE_NATIVE_TRIE = ctrie is not None
+
+
+def require(module, what):
+    """``module`` if it built, else ImportError naming ``what`` and the
+    build's error."""
+    if module is None:
+        raise ImportError(f"modppl_tpu_torch: the native {what} did not "
+                          f"build or load: {BUILD_ERROR}")
+    return module

@@ -19,6 +19,10 @@
  *   (a ``PlateTrie``, whose ``weight`` sums its plate) is asked for its own
  *   ``weight``.
  *
+ * A child is read as a node only after a type check: ``insert`` takes
+ * nodes only, and a walk that meets a value of another type (set through
+ * ``children``) raises TypeError.
+ *
  * Configuration from Python at import (core/trie.py):
  *   _ctrie.configure(empty_sentinel, components_fn, sum_logp_fn, node_cls)
  */
@@ -110,13 +114,25 @@ static PyObject *get_components(PyObject *addr)
     return PyObject_CallFunctionObjArgs(components_fn, addr, NULL);
 }
 
+/* a child met on a walk must be a node before it is read as one: a value
+ * of another type there (set through ``children``) is a TypeError */
+static int check_node(PyObject *child, PyObject *c)
+{
+    if (PyObject_TypeCheck(child, &CTrieType))
+        return 0;
+    PyErr_Format(PyExc_TypeError,
+                 "trie: the child at \"%S\" is a %s, not a trie node", c,
+                 Py_TYPE(child)->tp_name);
+    return -1;
+}
+
 /* borrowed-ref walk to the node at comps[0..n); NULL (no error) if absent */
 static CTrie *walk(CTrie *node, PyObject *comps, Py_ssize_t n)
 {
     for (Py_ssize_t i = 0; i < n; i++) {
         PyObject *c = PyTuple_GET_ITEM(comps, i);
         PyObject *child = PyDict_GetItemWithError(node->children, c);
-        if (!child)
+        if (!child || check_node(child, c) < 0)
             return NULL; /* PyErr may be set by GetItemWithError */
         node = (CTrie *)child;
     }
@@ -142,6 +158,8 @@ static CTrie *walk_create(CTrie *node, PyObject *comps, Py_ssize_t n)
             }
             Py_DECREF(child); /* dict holds it */
         }
+        else if (check_node(child, c) < 0)
+            return NULL;
         node = (CTrie *)child;
     }
     return node;
@@ -303,6 +321,12 @@ static PyObject *ctrie_insert(PyObject *op, PyObject *args)
     PyObject *addr, *sub;
     if (!PyArg_ParseTuple(args, "OO", &addr, &sub))
         return NULL;
+    if (!PyObject_TypeCheck(sub, &CTrieType)) {
+        PyErr_Format(PyExc_TypeError,
+                     "insert: a sub-trie must be a trie node, not a %s",
+                     Py_TYPE(sub)->tp_name);
+        return NULL;
+    }
     if (ensure_configured() < 0)
         return NULL;
     PyObject *comps = get_components(addr);
@@ -350,10 +374,9 @@ static PyObject *ctrie_remove(PyObject *op, PyObject *addr)
     }
     for (Py_ssize_t i = 0; i < n; i++) {
         path[i] = node;
-        PyObject *child =
-            PyDict_GetItemWithError(node->children,
-                                    PyTuple_GET_ITEM(comps, i));
-        if (!child) {
+        PyObject *c = PyTuple_GET_ITEM(comps, i);
+        PyObject *child = PyDict_GetItemWithError(node->children, c);
+        if (!child || check_node(child, c) < 0) {
             PyMem_Free(path);
             Py_DECREF(comps);
             if (PyErr_Occurred())

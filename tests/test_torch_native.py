@@ -1,8 +1,8 @@
 """The port's native address layer (modppl_tpu_torch/native/addrops.c):
 its first-use build into the git-ignored ``_build/``, parity with the
-pure-Python functions of core/address.py (``addr_hash`` bitwise, on the
-reference test's hard addresses and on generated ones), its cache, and the
-switch and the kept error of native/__init__.py. Counterpart of
+reference's pure-Python address functions (``addr_hash`` bitwise, on the
+reference test's hard addresses and on generated ones), its cache, and a
+failed build stopping the import with its error. Counterpart of
 tests/test_native.py."""
 
 import os
@@ -14,6 +14,7 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from modppl_tpu.core import address as R
 from modppl_tpu_torch import native
 from modppl_tpu_torch.core import address as A
 from modppl_tpu_torch.native import build
@@ -69,11 +70,11 @@ def test_native_is_active_here():
 
 
 def _parity(addr):
-    assert native.addrops.split_addr(addr) == A._py_split_addr(addr), addr
+    assert native.addrops.split_addr(addr) == R._py_split_addr(addr), addr
     assert native.addrops.normalize_addr(addr) == \
-        A._py_normalize_addr(addr), addr
-    assert native.addrops.addr_components(addr) == A._py_components(addr), addr
-    assert native.addrops.addr_hash(addr) == A._py_addr_hash(addr), addr
+        R._py_normalize_addr(addr), addr
+    assert native.addrops.addr_components(addr) == R._py_components(addr), addr
+    assert native.addrops.addr_hash(addr) == R._py_addr_hash(addr), addr
 
 
 @pytest.mark.parametrize("addr", HARD)
@@ -95,7 +96,7 @@ def test_native_python_parity_generated(addr):
 def test_addr_hash_bitwise_on_any_text(addr):
     """The lane keys of every site are fold_in_lanes(keys, addr_hash(addr)):
     a mismatch would change every lane draw."""
-    assert native.addrops.addr_hash(addr) == A._py_addr_hash(addr)
+    assert native.addrops.addr_hash(addr) == R._py_addr_hash(addr)
 
 
 def test_native_cache_grows():
@@ -109,29 +110,29 @@ def test_native_cache_grows():
 
 
 def _probe(env):
-    code = ("from modppl_tpu_torch import native; "
-            "from modppl_tpu_torch.core import trie, address; "
+    code = ("import sys\n"
+            "try:\n"
+            "    from modppl_tpu_torch.core import trie\n"
+            "except ImportError as err:\n"
+            "    print('ImportError', err); sys.exit(0)\n"
+            "from modppl_tpu_torch import native\n"
             "print(native.HAVE_NATIVE, native.HAVE_NATIVE_TRIE, "
-            "trie.HAVE_NATIVE_TRIE, trie.Trie.__mro__[2].__name__, "
-            "address.addr_hash('a / b')); print(native.BUILD_ERROR)")
+            "trie.Trie.__mro__[2].__name__, native.BUILD_ERROR)")
     return subprocess.run([sys.executable, "-W", "always", "-c", code],
                           capture_output=True, text=True, cwd=REPO,
                           env={**os.environ, **env})
 
 
 def test_switch_off_and_a_failed_build_are_reported():
-    """MODPPL_TORCH_NATIVE=0 gives the pure path and says so; a compiler
-    that fails leaves the pure path active, keeps its error in
-    BUILD_ERROR and warns. Both hash as the native path does."""
-    want = str(A._py_addr_hash("a / b"))
+    """No switch turns the native path off (MODPPL_TORCH_NATIVE=0 in the
+    environment changes nothing), and a compiler that fails stops the
+    import with an ImportError that carries its error."""
     off = _probe({"MODPPL_TORCH_NATIVE": "0"})
     assert off.returncode == 0, off.stderr
-    first, second = off.stdout.strip().splitlines()
-    assert first.split() == ["False", "False", "False", "_PyTrieBase", want]
-    assert "MODPPL_TORCH_NATIVE=0" in second
+    assert off.stdout.split() == ["True", "True", "CTrieBase", "None"]
     bad = _probe({"CC": "false"})
     assert bad.returncode == 0, bad.stderr
-    first, second = bad.stdout.strip().splitlines()
-    assert first.split() == ["False", "False", "False", "_PyTrieBase", want]
-    assert "RuntimeError" in second and "failed" in second
-    assert "did not build or load" in bad.stderr
+    assert bad.stdout.startswith("ImportError modppl_tpu_torch: the native "
+                                 "address layer did not build or load: "
+                                 "RuntimeError: false ")
+    assert "failed" in bad.stdout

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from modppl_tpu_torch.core.address import select
-from modppl_tpu_torch.core.trie import HAVE_NATIVE_TRIE, PureTrie, Trie
+from modppl_tpu_torch.core.trie import PureTrie, Trie
+from modppl_tpu_torch.native import HAVE_NATIVE_TRIE
 from modppl_tpu_torch.modeling.map_combinator import PlateTrie
 from _torch_threads import one_thread  # noqa: F401
 
@@ -108,6 +109,45 @@ def test_merge_schema_collect_roundtrip(cls):
     assert kept.addresses() == ["a", "b", "s / y"]
     assert cls.from_dict({"p": {"q": 1.0}}).read("p / q") == 1.0
     assert cls.from_dict({"p": 1.0}) == cls.from_dict({"p": 1.0})
+
+
+@pytest.mark.parametrize("cls", CLASSES)
+def test_inserting_a_non_trie_raises(cls):
+    """``insert`` takes trie nodes only, on either core: a value there
+    would be read as a node by the next walk through it. The C core takes
+    its own nodes only (a ``PlateTrie`` is one); the pure core either."""
+    t = cls()
+    with pytest.raises(TypeError, match="must be a trie node"):
+        t.insert("a", 5)
+    with pytest.raises(TypeError, match="must be a trie node"):
+        t.insert("a / b", {"c": 1.0})
+    assert t.is_empty()
+    t.insert("p", Trie.from_dict({"x": 1.0}))
+    t.insert("plate", PlateTrie())
+    assert t.read("p / x") == 1.0
+    if cls is Trie:
+        with pytest.raises(TypeError, match="not a PureTrie"):
+            t.insert("q", PureTrie.from_dict({"x": 2.0}))
+    else:
+        t.insert("q", PureTrie.from_dict({"x": 2.0}))
+        assert t.read("q / x") == 2.0
+
+
+@pytest.mark.parametrize("op", ["read", "search", "w_observe", "insert",
+                                "remove"])
+def test_native_walk_checks_each_child(op):
+    """A non-node set into ``children`` by hand stops every walk of the C
+    core with TypeError, never a read of it as a node."""
+    t = Trie()
+    t.children = {"a": 5}
+    call = {"read": lambda: t.read("a / b"),
+            "search": lambda: t.search("a / b"),
+            "w_observe": lambda: t.w_observe("a / b", 1.0, 0.0),
+            "insert": lambda: t.insert("a / b", Trie()),
+            "remove": lambda: t.remove("a / b")}[op]
+    with pytest.raises(TypeError, match="not a trie node"):
+        call()
+    assert t.children == {"a": 5}
 
 
 def test_plate_trie_through_copy_and_weight():

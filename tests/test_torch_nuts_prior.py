@@ -1,6 +1,7 @@
-"""NUTS on the reference's positive-support model, its chains started from
-lane draws of the prior (``nuts_runner(start="prior")``: gamma's lane
-form), and a NaN leaf counted as accepting nothing, on the CPU.
+"""NUTS on the reference's positive-support model from the reference's
+start (the initial trace's point plus 0.5 standard normals a chain),
+importance sampling over its lane draws (gamma's lane form), and a NaN
+leaf counted as accepting nothing, on the CPU.
 
 The model is tests/test_hmc_vi.py:28-32's ``normal_scale_model``; the gate
 its :68-76 (the posterior mean within 0.08 of the quadrature oracle), at
@@ -40,41 +41,44 @@ def _oracle():
 
 
 def test_nuts_positive_support_from_prior_draws():
+    """The chains start from the reference's jitter around the initial
+    trace, itself a draw of the model given the observations."""
     obs = Trie.from_dict({"ys": torch.tensor(YS, dtype=torch.float64)})
     run = nuts_runner(normal_scale_model, (), obs, num_chains=64,
                       num_warmup=150, num_samples=150, max_depth=6,
-                      start="prior", device="cpu")
+                      device="cpu")
     out = run(0)
     scales = out["samples"]["scale"]
     assert scales.shape == (64, 150) and bool((scales > 0).all())
     assert float(scales.mean()) == pytest.approx(_oracle(), abs=0.08)
     assert float(out["divergences"].double().mean()) < 0.01
-    with pytest.raises(ValueError, match="start="):
-        nuts_runner(normal_scale_model, (), obs, start="median",
-                    device="cpu")
 
 
 def test_prior_starts_are_lane_draws_resampled_by_weight():
-    """The start points are unconstrained lane draws of the model given
-    the observations (a chain's draw is its key's alone), resampled by
-    their weights: every start is one of the draws."""
-    from modppl_tpu_torch.inference.hmc import flat_target
-    from modppl_tpu_torch.inference.nuts import _prior_starts
+    """Importance resampling over the model's lane draws (gamma's lane
+    form): a lane's scale depends on its key alone (the first 100 lanes of
+    500 are the 100-lane draw), every resampled index names a lane, and
+    the resampled mean lies nearer the posterior mean than the draws'
+    mean does."""
+    from modppl_tpu_torch.core.keys import split
+    from modppl_tpu_torch.inference.importance import (
+        importance_resampling,
+        importance_sampling,
+    )
 
     obs = Trie.from_dict({"ys": torch.tensor(YS, dtype=torch.float64)})
-    tr0, _ = normal_scale_model.generate(0, (), obs, device="cpu")
-    target = flat_target(normal_scale_model, (), tr0, obs, device="cpu")
-    keys = split_keys(3, 500, "cpu")
-    u0s = _prior_starts(normal_scale_model, (), obs, target, keys,
-                        torch.float64, "cpu")
-    traces, w = normal_scale_model.generate(keys, (), obs, device="cpu")
-    drawn = torch.log(traces.data.read("scale")).double()
-    assert u0s.shape == (500, 1)
-    assert bool(torch.isin(u0s[:, 0], drawn).all())
-    # resampling moves the starts toward the posterior mean of log scale
-    post = torch.softmax(w, 0) @ drawn
-    assert abs(float(u0s.mean()) - float(post)) < abs(float(drawn.mean())
-                                                      - float(post))
+    traces, idx, _ = importance_resampling(3, normal_scale_model, (), obs,
+                                           500, 500, device="cpu")
+    drawn = traces.data.read("scale")
+    assert drawn.shape == (500,) and bool((drawn > 0).all())
+    fewer, _, _ = importance_sampling(split(3)[0], normal_scale_model, (),
+                                      obs, 100, device="cpu")
+    assert torch.equal(fewer.data.read("scale"), drawn[:100])
+    assert idx.shape == (500,) and bool(((idx >= 0) & (idx < 500)).all())
+    picked = drawn[idx.long()].double()
+    exact = _oracle()
+    assert abs(float(picked.mean()) - exact) < abs(float(drawn.mean())
+                                                   - exact)
 
 
 def test_a_nan_leaf_accepts_nothing():
