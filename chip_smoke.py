@@ -71,7 +71,7 @@ just after:
 - PMMH (``inference/pmcmc.pmmh`` with ``smc_log_ml_fn(auto_batch=True)``)
   on the reference test's 1-D LGSSM: 64 chains x 4096 particles in one
   chain-blocked filter a step (``inference/blocked_smc.py``), kernel 3
-  once a step for all chains, 1200 iterations;
+  once a step for all chains, 600 iterations;
 - particle Gibbs with ancestor sampling (``inference/pgibbs``) on the
   reference test's LGSSM, and one conditional sweep at 2^16 x 100;
 - FIVO (``inference/fivo.fit_proposal``) at the reference test's
@@ -254,13 +254,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 28. holds kernel 3 on a chain-blocked S (64 x 4096) bitwise against its
     plain version, one launch for all chains, and a NaN chain against the
     others (unmoved, bitwise); then runs PMMH (64 chains x 4096 particles,
-    1200 iterations, step 0.15, the reference test's data) with the
-    counters at 0: 1201 x 9 launches of kernel 3 and none other, the
-    posterior mean after 300 within 0.07 of the float64 quadrature oracle,
+    600 iterations, step 0.15, the reference test's data) with the
+    counters at 0: 601 x 9 launches of kernel 3 and none other, the
+    posterior mean after 150 within 0.07 of the float64 quadrature oracle,
     every chain's accept in (0.05, 0.9), the estimator at a = 0.7 over 4
     keys within 0.1 of the Kalman log-ML; timed (ms an iteration,
     chain-iterations/s);
-29. runs particle Gibbs (T = 6, N = 32, 1500 sweeps, 300 burn-in) with the
+29. runs particle Gibbs (T = 6, N = 32, 750 sweeps, 150 burn-in) with the
     counters at 0 (no launch): the trajectory's means and sds within 0.12
     of the Kalman smoother's; then without ancestor sampling at N = 64, the
     last step's mean within 0.12; one ``csmc_sweep`` at N = 2^16, T = 100,
@@ -352,6 +352,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     chains, ms a transition; then ``enumerate_posterior`` over a
     hand-coded GenFn on the card against its closed form (1e-12).
 
+Phases 39-42 (slice 12, layout invariance and multi-device) run the dp = 1
+runs in this process and the dp = 2 (ranks 0-1) and dp = 4 runs on four
+gloo ranks that share this card (``--slice12-rank``, spawned once after the
+kernels are built, killed together past SHARD_TIMEOUT): NCCL refuses two
+ranks on one GPU, so the ranks use gloo (whose send and recv take only
+host tensors: ``ppermute`` stages through the host), and the ranks' times
+are four processes on one card, not four cards.
+
+39. the spiral filter at 2^20 x 10 (BASELINE configs[4]'s 10^6 particles)
+    through ``sharded_batched_particle_filter`` at dp = 1, 2 and 4: every
+    output bitwise across dp (digests) and each run bitwise its rerun
+    through the plain versions; kernels 1-2 9 launches a rank, kernel 3 9
+    at dp = 1, kernel 4 (the parents from the gathered S) 9 a rank at
+    dp > 1; the collectives' bytes a step, the halo and ring exchanges and
+    the host copies; wall ms a dp; kernels 1-2's µs at the shards' rows;
+40. ``ess_threshold=0.5`` and ``halo=1`` (every step the ring) at dp = 4,
+    and the guided and rejuvenated LG filter at 2^20 x 10 at dp = 2, each
+    bitwise its dp = 1 run;
+41. the checkpointed sharded filter at dp = 2, a checkpoint every 3 steps,
+    interrupted after 3 and resumed: bitwise the uninterrupted dp = 1 run;
+42. ``shardmap_hmc`` and ``shardmap_chees`` on hmc-hierarchical-d3's
+    target at 10^4 chains, 60 + 40, dp = 4 against dp = 1 (no kernel):
+    bitwise, or else the largest differences, the target's value-and-grad
+    compared across batch sizes, and both runs held to the posterior gate.
+
 Each group of phases prints its seconds as it ends (``# seconds:``).
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
@@ -359,7 +384,7 @@ path (phases 20, 21 and 32-38 included): device ops, device-to-host
 copies, busy ms and the idle share; a profile that lacks a kernel the
 launch counters saw says so and gives no idle share.
 
-    python3 chip_smoke.py --turns OTHER_TREE [hmc] [resample]
+    python3 chip_smoke.py --turns OTHER_TREE [hmc] [resample] [lanes]
 
 instead compares two checkouts on one card, with each tree's own code, in
 turns (other, this, this, other; each turn a process of its own run from
@@ -376,7 +401,9 @@ bitwise. The groups (both when none is named):
 - ``resample``: kernels 1-4 at N = 2^20 (kernels 3 and 4 digested on all
   three weight kinds), both filters' median wall ms, and one profiled run
   of each: the card's busy ms and each of its kernels' us a launch on its
-  path.
+  path;
+- ``lanes``: the one-device spiral and guided filters at 2^20 x 10,
+  median wall ms of 5 and one profiled run's busy ms each.
 
 The last three lines are the kernels' JSON record, the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -581,8 +608,9 @@ def check_gather(errs, s, kind, seed, device):
         sync(device)
 
 
-def run_filter(device, n, seed, **kwargs):
-    """The main path: the spiral filter on ``device`` in float32."""
+def run_filter(device, n, seed, mesh=None, **kwargs):
+    """The main path: the spiral filter on ``device`` in float32 (over the
+    dp shards of ``mesh``, one device for None)."""
     from modppl_tpu_torch.core.trie import Trie
     from modppl_tpu_torch.models.spiral import (
         circle_observations,
@@ -594,11 +622,12 @@ def run_filter(device, n, seed, **kwargs):
 
     obs = torch.tensor(circle_observations(T), dtype=torch.float32,
                        device=device)
+    kwargs.setdefault("ess_threshold", 1.0)
     return sharded_batched_particle_filter(
-        None, seed, spiral_scan_kernel(),
+        mesh, seed, spiral_scan_kernel(),
         torch.zeros(2, dtype=torch.float32, device=device),
         Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}),
-        n, ess_threshold=1.0, auto_batch=True, device=device, **kwargs)
+        n, auto_batch=True, device=device, **kwargs)
 
 
 def wrappers():
@@ -878,6 +907,10 @@ DECISION_AGREEMENT = 0.999
 ADAPT_TOL = 1e-3
 WARMUP_CHAIN_AGREEMENT = 0.99
 WIDE_DIMS = ((13, 1024), (64, 1024), (128, 4096), (160, 1024))
+# the iterations of each WIDE_DIMS warmup check: a fast phase, two slow
+# windows and the last fast phase (300 before, cut to keep the script
+# inside its time limit)
+WIDE_WARMUP = 100
 # the widest d the d >= 13 kernels take, sampling only with forced accepts:
 # (d, chains)
 WIDEST = (224, 1024)
@@ -1044,7 +1077,8 @@ def check_hmc_kernels(device):
                                   got, want):
                 hold_close(errs, "hmc_sample_chunk", f"{what} (d={d})", x, y,
                            POS_TOL, chains=decided.all(dim=0))
-            z, jit, u01 = lfs.phase_draws(100 + d, 300, n, d, f32, device)
+            z, jit, u01 = lfs.phase_draws(100 + d, WIDE_WARMUP, n, d, f32,
+                                          device)
             same &= hold_warmup(errs, d, lf, (u0, z, jit, u01, lam, b, 0.1,
                                               32))
             bitwise[d] = same
@@ -1275,9 +1309,11 @@ def hmc_bounds(name):
 
 def time_hmc_kernels():
     """(kernel ms, plain ms, bound ms, bound by) per HMC kernel at its
-    leg's shapes, in turns (plain, kernel, kernel, plain): each kernel turn
-    the median of 5 launches, each plain turn one run (a plain run launches
-    ~10^5-10^6 small ops), each reported as the median of its two turns."""
+    leg's shapes, in turns (plain, kernel, kernel): each kernel turn the
+    median of 5 launches, reported as the median of its two turns; the
+    plain version one run (a plain run launches ~10^5-10^6 small ops, and
+    kernels 6-7's take 22-25 s a run on the card, so a second plain turn
+    is left out to keep the script inside its time)."""
     from modppl_tpu_torch.ops import leapfrog as lf
     from modppl_tpu_torch.ops import leapfrog_small as lfs
 
@@ -1299,9 +1335,7 @@ def time_hmc_kernels():
                 p1 = time_ms(lambda: plain(*args), reps=1, warmup=0)
                 k1 = time_ms(lambda: kernel(*args), reps=5, warmup=1)
                 k2 = time_ms(lambda: kernel(*args), reps=5, warmup=1)
-                p2 = time_ms(lambda: plain(*args), reps=1, warmup=0)
-                out[name] = (statistics.median([k1, k2]),
-                             statistics.median([p1, p2]), *bound[phase])
+                out[name] = (statistics.median([k1, k2]), p1, *bound[phase])
             del warm, samp
     return out
 
@@ -1757,10 +1791,10 @@ def lg_kalman_log_ml(ys):
     return total
 
 
-def run_guided(device, n, seed, **kwargs):
+def run_guided(device, n, seed, mesh=None, **kwargs):
     """The guided leg: sharded_batched_particle_filter with the locally
     optimal proposal and one regenerative move of "x" a step, float32, as
-    bench_smc_guided calls it."""
+    bench_smc_guided calls it (over the dp shards of ``mesh``)."""
     from modppl_tpu_torch.core import Trie, select
     from modppl_tpu_torch.inference.vsmc import ScanKernel
     from modppl_tpu_torch.parallel.sharded_smc import (
@@ -1770,7 +1804,7 @@ def run_guided(device, n, seed, **kwargs):
     init, step, prop = lg_models()
     ys = torch.tensor(lg_observations(), device=device)
     return sharded_batched_particle_filter(
-        None, seed, ScanKernel(init, step),
+        mesh, seed, ScanKernel(init, step),
         torch.zeros((), dtype=torch.float32, device=device),
         Trie.from_dict({"y": ys[0]}), Trie.from_dict({"y": ys[1:]}), n,
         ess_threshold=1.0, auto_batch=True, store_ancestry=False,
@@ -3196,7 +3230,10 @@ SV_ESS = 0.5
 SV_GAP = 0.1             # tests/test_stochvol.py's bound on the log-ML
 SV_ORACLE_MOVE = 0.01    # the grid oracle at m = 400 vs m = 1600, wider
 SV_TIMED_RUNS = 5
-PMMH = dict(num_chains=64, num_particles=4096, num_samples=1200, burn=300,
+# 600 iterations, 150 burn-in (the reference test's 1200 and 300 before,
+# cut to keep the script inside its time limit: 64 chains keep 28,800
+# draws against the test's 1,800)
+PMMH = dict(num_chains=64, num_particles=4096, num_samples=600, burn=150,
             step_size=0.15, steps=10)
 # tests/test_pmcmc.py's data: the reference's lgssm_simulate(PRNGKey(0),
 # _params(0.7), 10) as the tests compute it (float64)
@@ -3207,7 +3244,9 @@ PMMH_YS = (1.8543003223768244, 1.8803144089710702, 1.102049900121674,
 PMMH_MEAN_GAP = 0.07     # tests/test_pmcmc.py's bounds
 PMMH_ACCEPT = (0.05, 0.9)
 PMMH_ML_GAP = 0.1
-PG = dict(steps=6, num_particles=32, num_sweeps=1500, burn=300)
+# 750 sweeps, 150 burn-in (the reference's 1500 and 300 before, cut to
+# keep the script inside its time limit; the CPU tests run 500 and 100)
+PG = dict(steps=6, num_particles=32, num_sweeps=750, burn=150)
 PG_GAP = 0.12            # tests/test_pgibbs.py's bound
 CSMC = dict(steps=100, num_particles=1 << 16)
 CSMC_GAP = 1.0
@@ -3977,7 +4016,8 @@ MAP_RTOL = 1e-5
 SPIRAL_KERNELS = ("stats_cumsum", "positions_cummax", "resample_fused_from_s")
 
 
-def run_ckpt_sharded(device, path, num_steps=T, resume_from=None, seed=7):
+def run_ckpt_sharded(device, path, num_steps=T, resume_from=None, seed=7,
+                     mesh=None):
     """Phase 32's filter: the main path's spiral through
     ``checkpointed_sharded_particle_filter``, its first ``num_steps`` - 1
     steps, a checkpoint every CKPT_EVERY steps at ``path``."""
@@ -3993,7 +4033,7 @@ def run_ckpt_sharded(device, path, num_steps=T, resume_from=None, seed=7):
     obs = torch.tensor(circle_observations(T), dtype=torch.float32,
                        device=device)
     return checkpointed_sharded_particle_filter(
-        None, seed, spiral_scan_kernel(),
+        mesh, seed, spiral_scan_kernel(),
         torch.zeros(2, dtype=torch.float32, device=device),
         Trie.from_dict({"obs": obs[0]}),
         Trie.from_dict({"obs": obs[1:num_steps]}), N,
@@ -5021,6 +5061,545 @@ def slice11_phases(card, profile, device="cuda", clock=None):
         clock.mark("38b MH turns, enumerate")
 
 
+# --------------------------------------------------------------------------
+# slice 12: layout invariance and multi-device (phases 39-42)
+# --------------------------------------------------------------------------
+
+# gloo ranks sharing the one card: NCCL refuses two ranks on one GPU, so
+# the ranks' times are those of four processes on one H100, not of four
+# cards
+SHARD_WORLD = 4
+SHARD_TIMEOUT = 480.0             # the whole group, spawns included
+SHARD_COLLECTIVE_TIMEOUT = 240.0  # any one collective
+SHARD_TIMED_RUNS = 3
+SHARD_HMC = dict(num_chains=10_000, num_warmup=60, num_samples=40)
+# a power-of-two run, where the pooled sums' trees are the same at any
+# power-of-two dp (10^4 chains over 4 ranks is 2500 a rank, whose local
+# trees are not the global tree's subtrees)
+SHARD_HMC_POW2 = dict(num_chains=8192, num_warmup=20, num_samples=10)
+SHARD_HMC_SE = 4.0
+SHARD_GUIDED_SEED = 7
+FILTER_DIGESTS = ("state", "log_weights", "log_ml", "ancestors", "ess",
+                  "resampled")
+GUIDED_DIGESTS = ("state", "log_weights", "log_ml", "ess", "acceptance")
+CHAIN_DIGESTS = ("step_size", "unconstrained", "accept_prob")
+
+
+def digest(t):
+    """A short hash of a tensor's dtype, shape and bytes (bitwise equality
+    across processes)."""
+    import hashlib
+
+    t = torch.as_tensor(t).detach().cpu().contiguous()
+    h = hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode())
+    h.update(t.numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def whole_outputs(mesh, out):
+    """A filter's outputs with the shard's per-particle ones gathered whole
+    (in shard order; ``mesh`` None: as they are)."""
+    res = dict(out)
+    if mesh is None:
+        return res
+    for k in ("state", "log_weights"):
+        res[k] = mesh.gather(out[k])
+    if out.get("ancestors") is not None:
+        res["ancestors"] = mesh.gather(out["ancestors"].t().contiguous()).t()
+    return res
+
+
+def digests_of(out, keys):
+    return {k: digest(out[k]) for k in keys if out.get(k) is not None}
+
+
+def sharded_plain_versions():
+    """Kernels 1-4's plain versions where the sharded filter calls them:
+    kernels 1-2 everywhere, kernel 3 on one shard, kernel 4 (the parents
+    from the gathered S) on several."""
+    from modppl_tpu_torch.ops import fused_resample as fr
+    from modppl_tpu_torch.ops import grid_positions as gp
+    from modppl_tpu_torch.ops import resample as rs
+    from modppl_tpu_torch.parallel import resample
+    from modppl_tpu_torch.parallel import sharded_smc as smc
+
+    return swapped([(smc, "stats_cumsum", gp.stats_cumsum_plain),
+                    (smc, "positions_cummax", gp.positions_cummax_plain),
+                    (smc, "grid_rank", rs.grid_rank_plain),
+                    (resample, "resample_fused_from_s",
+                     fr.resample_fused_plain),
+                    (fr, "resample_fused_from_s", fr.resample_fused_plain)])
+
+
+def shard_hmc_target(device):
+    """hmc-hierarchical-d3's target (bench.py:65-125): the static
+    hierarchical model on hierarchical_data, the gate observed."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.models.hierarchical_static import (
+        make_hierarchical_static,
+    )
+
+    xs, ys = hierarchical_data(device)
+    return (make_hierarchical_static(10), (xs,),
+            Trie.from_dict({"ys": ys, "is_linear": False}))
+
+
+def shard_chains(mesh, sampler, device, config=None):
+    """``shardmap_hmc`` or ``shardmap_chees`` at ``config`` (SHARD_HMC by
+    default) over ``mesh``'s dp axis, key 42 (the generic path: no
+    kernel)."""
+    from modppl_tpu_torch.parallel import distributed
+
+    model, args, obs = shard_hmc_target(device)
+    fn = (distributed.shardmap_hmc if sampler == "hmc"
+          else distributed.shardmap_chees)
+    kw = dict(config or SHARD_HMC, device=device)
+    if sampler == "hmc":
+        kw["num_leapfrog"] = LEGS["hierarchical"]["num_leapfrog"]
+    return fn(mesh, 42, model, args, obs, **kw)
+
+
+def timed_sharded(fn, mesh, device, runs=SHARD_TIMED_RUNS):
+    """Wall ms of ``fn(i)`` on this rank, every rank of ``mesh`` starting
+    together (a barrier) and the device synchronised after: one warm-up,
+    then ``runs`` timed."""
+    from modppl_tpu_torch.parallel.collectives import barrier
+
+    times = []
+    for i in range(runs + 1):
+        if mesh is not None:
+            with mesh:
+                barrier("dp")
+        sync(device)
+        t0 = time.perf_counter()
+        fn(i)
+        sync(device)
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def shard_spiral(mesh, device, **kw):
+    """Phase 39's run over ``mesh`` (None: one device): the spiral at
+    2^20 x 10, key 7, counted; then its rerun through the plain versions;
+    the collectives' counts and the exchanges of the counted run. Returns
+    a dict of what the rank saw."""
+    from modppl_tpu_torch.parallel import collectives
+    from modppl_tpu_torch.parallel import sharded_smc as smc
+
+    collectives.reset_counts()
+    smc.exchanges.update(halo=0, ring=0)
+    out, launches = counted(lambda: run_filter(device, N, 7, mesh=mesh,
+                                               **kw))
+    moved = collectives.counts()
+    exchanges = dict(smc.exchanges)
+    whole = whole_outputs(mesh, out)
+    with sharded_plain_versions():
+        plain = whole_outputs(mesh, run_filter(device, N, 7, mesh=mesh,
+                                               **kw))
+    return {"digests": digests_of(whole, FILTER_DIGESTS),
+            "plain_digests": digests_of(plain, FILTER_DIGESTS),
+            "launches": launches, "moved": moved, "exchanges": exchanges,
+            "log_ml": float(out["log_ml"]),
+            "resampled": int(out["resampled"].sum())}
+
+
+def slice12_rank(rank, world, workdir, device, n, num_chains,
+                 backend="gloo"):
+    """One rank of phases 39-42's group (``python3 chip_smoke.py
+    --slice12-rank <rank> <world> <workdir> <device> <N> <chains>
+    <backend>``, as ``spawn_shards`` starts it): the dp = 2 (ranks 0-1)
+    and dp = world runs of N particles and ``num_chains`` chains, on the
+    card this rank shares with the others over gloo, or on its own card
+    over nccl (``device="cpu"`` rehearses on the CPU). Rank 0 writes what
+    it saw to ``workdir/slice12.json`` and phase 42's chains to
+    ``workdir/chains.npz``."""
+    global N
+    N = int(n)
+    SHARD_HMC["num_chains"] = int(num_chains)
+    from modppl_tpu_torch.parallel import sharded_smc as smc
+    from modppl_tpu_torch.parallel.collectives import barrier
+    from modppl_tpu_torch.parallel.mesh import initialize_runtime, make_mesh
+
+    initialize_runtime(f"file://{workdir}/store", world, rank,
+                       backend=backend, timeout=SHARD_COLLECTIVE_TIMEOUT)
+    meshes = {2: make_mesh(dp=2, ranks=[0, 1]), world: make_mesh(dp=world)}
+    seen, chains = {}, {}
+    t0 = time.perf_counter()
+    for dp, mesh in meshes.items():
+        if not mesh.member:
+            continue
+        s = shard_spiral(mesh, device)
+        s["ms"] = timed_sharded(lambda i: run_filter(
+            device, N, 101 + i, mesh=mesh, store_ancestry=False), mesh,
+            device)
+        seen[f"39/dp{dp}"] = s
+    seen["39/seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = meshes[world]
+    seen[f"40/threshold/dp{world}"] = shard_spiral(mesh, device,
+                                                   ess_threshold=0.5)
+    seen[f"40/halo1/dp{world}"] = shard_spiral(mesh, device, halo=1)
+    if meshes[2].member:
+        out, launches = counted(lambda: run_guided(
+            device, N, SHARD_GUIDED_SEED, mesh=meshes[2]))
+        whole = whole_outputs(meshes[2], out)
+        with sharded_plain_versions():
+            plain = whole_outputs(meshes[2], run_guided(
+                device, N, SHARD_GUIDED_SEED, mesh=meshes[2]))
+        seen["40/guided/dp2"] = {
+            "digests": digests_of(whole, GUIDED_DIGESTS),
+            "plain_digests": digests_of(plain, GUIDED_DIGESTS),
+            "launches": launches, "log_ml": float(out["log_ml"]),
+            "ms": timed_sharded(lambda i: run_guided(
+                device, N, 101 + i, mesh=meshes[2]), meshes[2], device)}
+    seen["40/seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if meshes[2].member:
+        path = f"{workdir}/ckpt_dp2"
+        head, launches = counted(lambda: run_ckpt_sharded(
+            device, path, num_steps=CKPT_HEAD + 1, mesh=meshes[2]))
+        resumed, more = counted(lambda: run_ckpt_sharded(
+            device, path, resume_from=path, mesh=meshes[2]))
+        whole = whole_outputs(meshes[2], resumed)
+        seen["41/dp2"] = {"digests": digests_of(whole, CKPT_OUTPUTS),
+                          "t": int(resumed["t"]),
+                          "launches": {k: launches[k] + more[k]
+                                       for k in launches}}
+    seen["41/seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for sampler in ("hmc", "chees"):
+        with mesh:
+            barrier("dp")
+        c0 = time.perf_counter()
+        out, launches = counted(lambda: shard_chains(mesh, sampler, device))
+        ms = [(time.perf_counter() - c0) * 1e3]
+        for k in CHAIN_DIGESTS:
+            v = out[k]
+            chains[f"{sampler}/{k}"] = (mesh.gather(v) if v.ndim else v)
+        pow2 = shard_chains(mesh, sampler, device, SHARD_HMC_POW2)
+        seen[f"42/{sampler}/dp{world}"] = {
+            "launches": launches, "ms": ms,
+            "pow2": digests_of({k: mesh.gather(pow2[k]) if pow2[k].ndim
+                                else pow2[k] for k in CHAIN_DIGESTS},
+                               CHAIN_DIGESTS)}
+    seen["42/seconds"] = time.perf_counter() - t0
+    from modppl_tpu_torch.parallel import collectives
+
+    seen["gloo_cuda_ops"] = sorted(collectives.GLOO_CUDA_OPS)
+    seen["exchanges_total"] = dict(smc.exchanges)
+    if rank == 0:
+        np.savez(f"{workdir}/chains.npz",
+                 **{k: v.cpu().numpy() for k, v in chains.items()})
+        with open(f"{workdir}/slice12.json", "w") as f:
+            json.dump(seen, f)
+    # every rank past its last collective before any closes its links
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_shards(workdir, world=SHARD_WORLD, device="cuda", backend="gloo",
+                 timeout=SHARD_TIMEOUT):
+    """Run ``slice12_rank`` on ``world`` ranks over ``backend``; every rank
+    is killed if the group has not ended within ``timeout`` s. Returns
+    (rank 0's json, its chains, the group's seconds)."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--slice12-rank",
+         str(r), str(world), workdir, device, str(N),
+         str(SHARD_HMC["num_chains"]), backend], env=env,
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            left = max(timeout - (time.perf_counter() - t0), 1.0)
+            outs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        raise AssertionError(f"phases 39-42: the {world} ranks did not end "
+                             f"within {timeout} s; every rank killed")
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phases 39-42: rank {r} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+    with open(f"{workdir}/slice12.json") as f:
+        seen = json.load(f)
+    with np.load(f"{workdir}/chains.npz") as data:
+        chains = {k: data[k] for k in data.files}
+    return seen, chains, time.perf_counter() - t0
+
+
+def require_digests(what, got, want):
+    for k, d in want.items():
+        if got.get(k) != d:
+            raise AssertionError(f"{what}: {k} differs bitwise "
+                                 f"({got.get(k)} against {d})")
+
+
+def kernel_us_at(n_local, n=N):
+    """Kernels 1-2's device µs at a shard's rows (n_local / 1024 rows of
+    1024) of an N-particle filter, one process, CUDA events, L2 flushed."""
+    from modppl_tpu_torch.ops import grid_positions as gp
+    from modppl_tpu_torch.parallel import sharded_smc as smc
+
+    lw = make_lw("uniform", n_local, 0, "cuda")
+    rows, m = lw.reshape(-1, smc._cdf_block(n)), lw.max()
+    cum, totals, _ = gp.stats_cumsum_plain(rows, m)
+    offs = torch.cat([totals.new_zeros(1),
+                      gp.doubling_cumsum(totals[None, :])[0][:-1]])
+    total = offs[-1] + totals[-1]
+    u = torch.tensor(0.37, dtype=torch.float32, device="cuda")
+    return {"stats_cumsum": 1e3 * time_ms(lambda: gp.stats_cumsum(rows, m)),
+            "positions_cummax": 1e3 * time_ms(lambda: gp.positions_cummax(
+                cum, offs, total, u, n))}
+
+
+def pooled_sum_split(device, c, shards, width=7):
+    """The largest difference between ``adaptation._pooled_sum`` of a (c,
+    width) batch on one device and over ``shards`` shards (each shard's
+    tree-partial, then the tree over the partials, as the sharded sum adds
+    them): 0 where the local trees are the global tree's subtrees."""
+    from modppl_tpu_torch.inference.adaptation import _pooled_sum, _tree_sum
+
+    g = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn(c, width, generator=g, device=device)
+    m = c // shards
+    split = _tree_sum(torch.stack([_tree_sum(x[i * m:(i + 1) * m])
+                                   for i in range(shards)]))
+    return float((_pooled_sum(x) - split).abs().max())
+
+
+def batch_invariance(device, c, c_local):
+    """The largest differences between the hierarchical target's batched
+    value-and-grad (and the iid plate's sum over its 10 points, the one
+    reduction of its log-density) on ``c`` chains and on their first
+    ``c_local``: where they are 0 the model is bitwise in the batch
+    size."""
+    from modppl_tpu_torch.dists import iid, normal
+    from modppl_tpu_torch.inference.hmc import _value_and_grad, flat_target
+
+    model, args, obs = shard_hmc_target(device)
+    tr, _ = model.generate(42, args, obs, device=device)
+    vag = _value_and_grad(flat_target(model, args, tr, obs,
+                                      device=device).logprob)
+    g = torch.Generator(device=device).manual_seed(0)
+    us = torch.randn(c, 3, generator=g, device=device)
+    lp, gr = vag(us)
+    lp_l, gr_l = vag(us[:c_local].clone())
+    xs = args[0]
+    mean = us[:, :1] + us[:, 1:2] * xs + us[:, 2:3] * xs * xs
+    plate = iid(normal, xs.shape[0])
+    s = plate.logpdf(obs["ys"], (mean, 0.1))
+    s_l = plate.logpdf(obs["ys"], (mean[:c_local].clone(), 0.1))
+    return {"logp": float((lp[:c_local] - lp_l).abs().max()),
+            "grad": float((gr[:c_local] - gr_l).abs().max()),
+            "iid_sum": float((s[:c_local] - s_l).abs().max())}
+
+
+def chain_summary(us):
+    """(posterior mean (3,), min-coordinate ESS) of (chains, samples, 3)
+    draws, float64."""
+    from modppl_tpu_torch.utils.diagnostics import ess_autocorr
+
+    us = np.asarray(us, dtype=np.float64)
+    ess = np.array([ess_autocorr(us[:, :, j]) for j in range(us.shape[-1])])
+    return us.reshape(-1, us.shape[-1]).mean(0), ess
+
+
+def slice12_phases(card, profile, device="cuda", clock=None,
+                   backend="gloo"):
+    """Phases 39-42 (slice 12), with their lines of output: the dp = 1
+    runs here, the dp = 2 and dp = 4 runs on SHARD_WORLD ranks (spawned
+    once for the four phases), every output held bitwise to dp = 1 and
+    each rank's run to its plain rerun. With ``backend="gloo"`` (the
+    script's) the ranks share this card; with ``"nccl"`` each rank owns
+    card ``rank`` (four cards). ``profile`` is accepted for the phase
+    groups' common signature; these phases are timed, not profiled."""
+    import tempfile
+
+    from modppl_tpu_torch.parallel import sharded_smc as smc
+    from modppl_tpu_torch.parallel.mesh import make_mesh
+
+    world = SHARD_WORLD
+    t0 = time.perf_counter()
+    one = shard_spiral(None, device)
+    one["ms"] = timed_sharded(lambda i: run_filter(
+        device, N, 101 + i, store_ancestry=False), None, device)
+    thr = shard_spiral(None, device, ess_threshold=0.5)
+    g_out, g_launches = counted(lambda: run_guided(device, N,
+                                                   SHARD_GUIDED_SEED))
+    guided = digests_of(whole_outputs(None, g_out), GUIDED_DIGESTS)
+    guided_ms = timed_sharded(lambda i: run_guided(device, N, 101 + i), None,
+                              device)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = run_ckpt_sharded(device, f"{tmp}/full")
+    ckpt = digests_of(ck, CKPT_OUTPUTS)
+    ref_chains, ref_ms, ref_pow2 = {}, {}, {}
+    for sampler in ("hmc", "chees"):
+        c0 = time.perf_counter()
+        out, launches = counted(lambda: shard_chains(make_mesh(), sampler,
+                                                     device))
+        ref_ms[sampler] = (time.perf_counter() - c0) * 1e3
+        require_launches(f"phase 42 {sampler} dp=1", launches, {})
+        ref_chains[sampler] = {k: out[k].cpu().numpy()
+                               for k in CHAIN_DIGESTS}
+        ref_pow2[sampler] = digests_of(shard_chains(
+            make_mesh(), sampler, device, SHARD_HMC_POW2), CHAIN_DIGESTS)
+    us_at = {n_local: (kernel_us_at(n_local) if device == "cuda" else {})
+             for n_local in (N // 2, N // world)}
+    parent_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as workdir:
+        seen, chains, group_s = spawn_shards(workdir, world, device,
+                                             backend)
+    where = (f"{world} {backend} ranks sharing one card" if backend == "gloo"
+             else f"{world} {backend} ranks, a card each")
+
+    # phase 39: the sharded spiral, dp = 1, 2, 4
+    want = {"stats_cumsum": T - 1, "positions_cummax": T - 1}
+    require_launches("phase 39 dp=1", one["launches"],
+                     {**want, "resample_fused_from_s": T - 1})
+    require_digests("phase 39 dp=1 plain rerun", one["plain_digests"],
+                    one["digests"])
+    for dp in (2, world):
+        s = seen[f"39/dp{dp}"]
+        require_launches(f"phase 39 dp={dp}", s["launches"],
+                         {**want, "grid_rank": T - 1})
+        require_digests(f"phase 39 dp={dp}", s["digests"], one["digests"])
+        require_digests(f"phase 39 dp={dp} plain rerun", s["plain_digests"],
+                        one["digests"])
+        moved = s["moved"]
+        per_step = {op: c["bytes"] / (T - 1) for op, c in moved.items()
+                    if isinstance(c, dict)}
+        if max(c["max_bytes"] for op, c in moved.items()
+               if isinstance(c, dict) and op == "all_gather") > 4 * N:
+            raise AssertionError(f"phase 39 dp={dp}: an all_gather larger "
+                                 f"than the O(N) int32 S: {moved}")
+        print(f"# main path: sharded spiral filter N={N} T={T} float32 at "
+              f"dp={dp} over {dp} of {where}; launches a "
+              f"rank {s['launches']['stats_cumsum']}, "
+              f"{s['launches']['positions_cummax']}, grid_rank "
+              f"{s['launches']['grid_rank']}, kernel 3 "
+              f"{s['launches']['resample_fused_from_s']}; == dp=1 bitwise on "
+              f"{list(one['digests'])}, == its plain rerun bitwise; log_ml "
+              f"{s['log_ml']!r}; exchanges {s['exchanges']}; bytes a step "
+              f"received a rank {per_step}; host copies "
+              f"{moved['host_copies']} (under gloo the ppermutes' tensors, "
+              f"which its send and recv take only from the host); wall ms "
+              f"{[round(t, 3) for t in s['ms']]} (rank 0) ({card})")
+    print(f"# main path: the same spiral at dp=1 (mesh None): launches "
+          f"{ {k: v for k, v in one['launches'].items() if v} }; log_ml "
+          f"{one['log_ml']!r} (phase 4's run, key 7, met its CPU-replay "
+          f"gate {LOG_ML_GAP}); wall ms {[round(t, 3) for t in one['ms']]}; "
+          f"kernels 1-2 µs at n_local {N // 2}: "
+          f"{ {k: round(v, 2) for k, v in us_at[N // 2].items()} }, at "
+          f"{N // world}: "
+          f"{ {k: round(v, 2) for k, v in us_at[N // world].items()} } "
+          f"({card})")
+    # phase 40: the other arms
+    t40 = seen[f"40/threshold/dp{world}"]
+    require_digests(f"phase 40 ess_threshold=0.5 dp={world}", t40["digests"],
+                    thr["digests"])
+    require_digests(f"phase 40 ess_threshold=0.5 dp={world} plain",
+                    t40["plain_digests"], thr["digests"])
+    h40 = seen[f"40/halo1/dp{world}"]
+    require_digests(f"phase 40 halo=1 dp={world}", h40["digests"],
+                    one["digests"])
+    if h40["exchanges"]["ring"] != T - 1:
+        raise AssertionError(f"phase 40 halo=1: {h40['exchanges']}")
+    g40 = seen["40/guided/dp2"]
+    require_launches("phase 40 guided dp=1", g_launches,
+                     {**want, "resample_fused_from_s": T - 1})
+    require_launches("phase 40 guided dp=2", g40["launches"],
+                     {**want, "grid_rank": T - 1})
+    require_digests("phase 40 guided dp=2", g40["digests"], guided)
+    require_digests("phase 40 guided dp=2 plain", g40["plain_digests"],
+                    guided)
+    print(f"# phase 40: ess_threshold=0.5 at dp={world} == dp=1 bitwise "
+          f"({thr['resampled']} of {T - 1} steps resampled; launches a rank "
+          f"{ {k: v for k, v in t40['launches'].items() if v} }); halo=1 at "
+          f"dp={world} == dp=1 bitwise, exchanges {h40['exchanges']}; "
+          f"guided and rejuvenated LG N={N} T={T} at dp=2 == dp=1 bitwise "
+          f"on {list(guided)} and its plain rerun, launches a rank "
+          f"{ {k: v for k, v in g40['launches'].items() if v} }, log_ml "
+          f"{g40['log_ml']!r}; guided wall ms dp=1 "
+          f"{[round(t, 3) for t in guided_ms]}, dp=2 "
+          f"{[round(t, 3) for t in g40['ms']]} ({card})")
+    # phase 41: the checkpointed sharded filter
+    c41 = seen["41/dp2"]
+    require_digests("phase 41 resumed dp=2", c41["digests"], ckpt)
+    require_launches("phase 41 dp=2", c41["launches"],
+                     {**want, "grid_rank": T - 1})
+    print(f"# phase 41: checkpointed sharded spiral N={N} T={T} at dp=2, a "
+          f"checkpoint every {CKPT_EVERY} steps, interrupted after "
+          f"{CKPT_HEAD} and resumed: == the uninterrupted dp=1 run bitwise "
+          f"on {list(ckpt)}; launches a rank over both "
+          f"{ {k: v for k, v in c41['launches'].items() if v} }")
+    # phase 42: shardmap_hmc and shardmap_chees
+    from modppl_tpu_torch.models.hierarchical_static import (
+        exact_hierarchical_posterior,
+    )
+
+    xs, ys = (x.numpy() for x in hierarchical_data("cpu"))
+    _, _, _, mean, cov, _ = exact_hierarchical_posterior(xs, ys)
+    sd = np.sqrt(np.diag(cov))
+    c_local = SHARD_HMC["num_chains"] // world
+    batch = batch_invariance(device, SHARD_HMC["num_chains"], c_local)
+    trees = {c: pooled_sum_split(device, c, world)
+             for c in (SHARD_HMC["num_chains"], SHARD_HMC_POW2["num_chains"])}
+    for sampler in ("hmc", "chees"):
+        s = seen[f"42/{sampler}/dp{world}"]
+        require_launches(f"phase 42 {sampler} dp={world}", s["launches"], {})
+        require_digests(f"phase 42 {sampler} {SHARD_HMC_POW2} dp={world}",
+                        s["pow2"], ref_pow2[sampler])
+        ref = ref_chains[sampler]
+        same = {k: bool(np.array_equal(chains[f"{sampler}/{k}"], ref[k]))
+                for k in CHAIN_DIGESTS}
+        diff = {k: float(np.max(np.abs(chains[f"{sampler}/{k}"]
+                                       - ref[k]))) for k in CHAIN_DIGESTS}
+        gates = {}
+        for tag, us in (("dp1", ref["unconstrained"]),
+                        (f"dp{world}", chains[f"{sampler}/unconstrained"])):
+            m, ess = chain_summary(us)
+            bound = SHARD_HMC_SE * sd / math.sqrt(ess.min())
+            gates[tag] = {"gap": np.abs(m - mean).tolist(),
+                          "bound": bound.tolist()}
+            if not bool(np.isfinite(us).all()) or \
+                    not (np.abs(m - mean) <= bound).all():
+                raise AssertionError(f"phase 42 {sampler} {tag}: posterior "
+                                     f"mean {m} exact {mean} bound {bound}")
+        exact = "bitwise" if all(same.values()) else (
+            f"NOT bitwise: largest differences {diff}; held to the leg's "
+            f"posterior gate instead. The op: adaptation._pooled_sum's add "
+            f"tree over {c_local} chains a rank is not a subtree of the "
+            f"one over {SHARD_HMC['num_chains']} (a (c, 7) batch's sum "
+            f"moves by {trees}, one device against {world} shards); the "
+            f"target's value-and-grad is bitwise in the batch ({batch})")
+        print(f"# phase 42: shardmap_{sampler} on hmc-hierarchical-d3's "
+              f"target {SHARD_HMC} float32, dp={world} against dp=1, no "
+              f"kernel launched: {exact}; at {SHARD_HMC_POW2} == dp=1 "
+              f"bitwise on {list(CHAIN_DIGESTS)}; posterior gates (gap, "
+              f"{SHARD_HMC_SE} se bound) {gates}; wall ms dp=1 "
+              f"{ref_ms[sampler]:.1f}, dp={world} "
+              f"{[round(t, 1) for t in s['ms']]} ({card})")
+    print(f"# phases 39-42: dp=1 runs {parent_s:.1f} s; the group of "
+          f"{where} {group_s:.1f} s (39: {seen['39/seconds']:.1f}, 40: "
+          f"{seen['40/seconds']:.1f}, 41: {seen['41/seconds']:.1f}, 42: "
+          f"{seen['42/seconds']:.1f}); gloo ops that take CUDA tensors as "
+          f"they are: {seen['gloo_cuda_ops']}")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("39-42 sharded filter, HMC")
+    return {"dp1": one, "seen": seen}
+
+
 SOURCES = {
     "stats_cumsum": ("modppl_tpu_torch/csrc/grid_positions.cu",
                      "modppl_tpu/ops/grid_positions_pallas.py:59"),
@@ -5189,6 +5768,20 @@ for label, run, symbols in (
     out.update({f"{k}_path_us": v for k, v in per.items()})
 """}
 
+TURN_GROUPS["lanes"] = r"""
+# the one-device spiral and guided legs at 2^20 x 10, the filters whose
+# draws moved to lane streams: median wall ms of 5 after a warm-up, and one
+# profiled run's busy ms
+for label, timer, run in (
+        ("spiral", cs.time_filter,
+         lambda: cs.run_filter("cuda", cs.N, 201, store_ancestry=False)),
+        ("guided", cs.time_guided, lambda: cs.run_guided("cuda", cs.N, 201))):
+    med, times = timer()
+    busy, _ = on_path(run, {})
+    out[f"{label}_wall_ms"] = med * 1e3
+    out[f"{label}_runs_ms"] = [t * 1e3 for t in times]
+    out[f"{label}_busy_ms"] = busy
+"""
 TURN_TAIL = r"""
 print("TURN " + json.dumps(out))
 """
@@ -5291,6 +5884,8 @@ def slice7_phases(card, profile, device="cuda", clock=None):
 
 
 def main(argv):
+    if argv[:1] == ["--slice12-rank"]:
+        return slice12_rank(int(argv[1]), int(argv[2]), *argv[3:8])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -5551,6 +6146,7 @@ def main(argv):
     slice9_phases(card, "--profile" in argv, clock=clock)
     slice10_phases(card, "--profile" in argv, clock=clock)
     slice11_phases(card, "--profile" in argv, clock=clock)
+    slice12_phases(card, "--profile" in argv, clock=clock)
     launches.update(hmc_launches)
     launches.update(quad_launches)
     launches["grid_rank"] = rank_launches

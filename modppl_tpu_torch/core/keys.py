@@ -105,18 +105,23 @@ def key_lane(key, device):
     return _as_lanes(key, device).reshape(1)
 
 
-def lanes(key, c, device):
-    """(c,) lane keys, lane i ``fold_in(key, i)``: a chain's key keyed by
-    its index, as the reference's ``fold_in(k, i)``."""
-    return fold_in_lanes(key, torch.arange(c, dtype=torch.int64,
-                                           device=device))
+def _indices(c, device, offset):
+    return torch.arange(offset, offset + c, dtype=torch.int64, device=device)
 
 
-def split_keys(key, c, device):
-    """(c,) lane keys, lane i ``split(key, c)[i]``, as the reference's
-    ``split(k, c)`` keys one particle or chain each."""
-    return fold_in_lanes(key, torch.arange(c, dtype=torch.int64,
-                                           device=device) + (1 << 32))
+def lanes(key, c, device, offset=0):
+    """(c,) lane keys, lane i ``fold_in(key, offset + i)``: a chain's key
+    keyed by its global index, as the reference's ``fold_in(k, i)``. A
+    shard holding the indices ``[offset, offset + c)`` builds its own
+    lanes without the others'."""
+    return fold_in_lanes(key, _indices(c, device, offset))
+
+
+def split_keys(key, c, device, offset=0):
+    """(c,) lane keys, lane i ``split(key, C)[offset + i]`` for any C >
+    offset + i, as the reference's ``split(k, C)`` keys one particle or
+    chain each; ``offset`` as in :func:`lanes`."""
+    return fold_in_lanes(key, _indices(c, device, offset) + (1 << 32))
 
 
 def split_lanes(key_lanes, num=2):

@@ -18,15 +18,17 @@ Two tiers:
 - :func:`run_warmup_pooled`: one shared (step size, inverse mass), adapted
   from the accept statistics and draws of all chains.
 
-The reference's pooled sums can cross shards (``axis_name``); the port has
-one device, and ``axis_name`` other than None raises (ROADMAP Queue 1 item
-14).
+The pooled sums can cross shards (``axis_name``, a mesh axis of
+parallel/mesh.py, one process a shard): each shard's tree-partial is
+all-gathered in shard order and the partials summed by the same tree on
+every shard, as the reference's ``_pooled_sum`` does, so the adapted
+(step size, inverse mass) are bitwise the same at any power-of-two layout.
 """
 
 import torch
 
 from modppl_tpu_torch.core.keys import fold_in, split
-from modppl_tpu_torch.inference.hmc import MULTI_SHARD_TODO, da_init, da_update
+from modppl_tpu_torch.inference.hmc import da_init, da_update
 
 
 def warmup_schedule(num_warmup, init_buffer=None, term_buffer=None,
@@ -157,11 +159,29 @@ def _tree_sum(x):
 
 
 def _pooled_sum(x, axis_name=None):
-    """Sum ``x`` over its leading (chain) axis in a fixed order: the
-    adjacent-pairing tree of :func:`_tree_sum`. One device only."""
-    if axis_name is not None:
-        raise NotImplementedError(MULTI_SHARD_TODO)
-    return _tree_sum(x)
+    """Sum ``x`` over its leading (chain) axis in a fixed order.
+
+    One device: the adjacent-pairing tree of :func:`_tree_sum`. Over the
+    shards of ``axis_name``: the local tree-partial is all-gathered in
+    shard order and the partials tree-summed on every shard alike; for
+    power-of-two chains a shard and shard counts this is the same global
+    tree, bitwise."""
+    part = _tree_sum(x)
+    if axis_name is None:
+        return part
+    from modppl_tpu_torch.parallel.collectives import all_gather
+
+    return _tree_sum(all_gather(part, axis_name, tiled=False))
+
+
+def pooled_chains(c_local, axis_name=None):
+    """(all chains, this shard's first global chain index) of ``c_local``
+    chains a shard over ``axis_name`` (None: one device)."""
+    if axis_name is None:
+        return c_local, 0
+    from modppl_tpu_torch.parallel.collectives import axis_index, axis_size
+
+    return c_local * axis_size(axis_name), c_local * axis_index(axis_name)
 
 
 def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
@@ -178,7 +198,9 @@ def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
     which ``torch.func.vmap`` cannot map, so a per-chain transition runs
     chain by chain; a batched transition avoids that. Each iteration's
     accept mean and the batch's (Chan) Welford update use the fixed-order
-    sums of :func:`_pooled_sum`. Returns (us (C, d), eps (), inv_mass
+    sums of :func:`_pooled_sum`. Over the shards of ``axis_name`` ``u0s``
+    is the shard's (C_local, d) chains, i its global index, and the sums
+    pool every shard's chains. Returns (us (C, d), eps (), inv_mass
     (d,)).
 
     ``phase_inputs(phase, phase_key, length)`` gives a phase's iteration
@@ -190,20 +212,22 @@ def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
     of ``us``, the window statistics read its first entry, and the final
     tuple is returned in place of ``us``.
     """
-    if axis_name is not None:
-        raise NotImplementedError(MULTI_SHARD_TODO)
     if carry is not None and not batched_transition:
         raise ValueError("run_warmup_pooled: a carry needs "
                          "batched_transition=True")
     c = u0s.shape[0]
     zeros = u0s.new_zeros(u0s.shape[1:])
     inv_mass = torch.ones_like(zeros)
-    c_total = u0s.new_tensor(float(c))
+    c_all, c0 = pooled_chains(c, axis_name)
+    c_total = u0s.new_tensor(float(c_all))
+
+    def psum(x):
+        return _pooled_sum(x, axis_name)
 
     def move(k, us, eps, inv_mass):
         if batched_transition:
             return transition(k, us, eps, inv_mass)
-        outs = [transition(fold_in(k, i), us[i], eps, inv_mass)
+        outs = [transition(fold_in(k, c0 + i), us[i], eps, inv_mass)
                 for i in range(c)]
         return (torch.stack([u for u, _ in outs]),
                 torch.stack([torch.as_tensor(a, dtype=us.dtype,
@@ -216,13 +240,13 @@ def run_warmup_pooled(key, u0s, transition, num_warmup, eps0,
             eps = torch.exp(da["log_eps"])
             state, aprobs = move(x, state, eps, inv_mass)
             us = state if carry is None else state[0]
-            a_mean = _pooled_sum(aprobs) / c_total
+            a_mean = psum(aprobs) / c_total
             da = da_update(da, a_mean, target=target_accept)
             if adapt_mass:
                 # the batched (Chan) Welford update pooling the
                 # iteration's C draws at once
-                b_mean = _pooled_sum(us) / c_total
-                b_m2 = _pooled_sum((us - b_mean[None]) ** 2)
+                b_mean = psum(us) / c_total
+                b_m2 = psum((us - b_mean[None]) ** 2)
                 n_new = n + c_total
                 delta = b_mean - mean
                 mean = mean + delta * c_total / n_new

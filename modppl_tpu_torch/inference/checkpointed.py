@@ -14,17 +14,11 @@ stream that the chunking could shift.
 import math
 
 import torch
+from torch.utils import _pytree as pytree
 
-from modppl_tpu_torch.core.keys import (
-    fold_in,
-    lanes,
-    normal_lanes,
-    split,
-    split_keys,
-    split_lanes,
-    uniform_lanes,
-)
+from modppl_tpu_torch.core.keys import fold_in, split
 from modppl_tpu_torch.inference import vsmc
+from modppl_tpu_torch.inference.hmc import _lane_draws, start_points
 from modppl_tpu_torch.modeling.handlers import (
     entry_device,
     entry_inputs,
@@ -37,16 +31,19 @@ from modppl_tpu_torch.utils.checkpoint import (
 from modppl_tpu_torch.utils.numerics import logsumexp
 
 
-def _run_chunks(s, step, total, checkpoint_path, checkpoint_every):
+def _run_chunks(s, step, total, checkpoint_path, checkpoint_every,
+                save=None):
     """Steps ``s.t - 1`` .. ``total - 1`` of ``step(s, i) -> s``, saving
-    ``s`` after every ``checkpoint_every`` of them."""
+    ``s`` after every ``checkpoint_every`` of them (by ``save(path, s,
+    step=)``, ``save_checkpoint`` by default)."""
+    save = save_checkpoint if save is None else save
     done = s.t - 1
     while done < total:
         k = min(checkpoint_every, total - done)
         for i in range(done, done + k):
             s = step(s, i)
         done += k
-        save_checkpoint(checkpoint_path, s, step=done)
+        save(checkpoint_path, s, step=done)
     return s
 
 
@@ -119,36 +116,73 @@ def checkpointed_sharded_particle_filter(mesh, key, kernel, state0,
                                          num_particles, *, checkpoint_path,
                                          checkpoint_every, resume_from=None,
                                          ess_threshold=1.0, auto_batch=False,
-                                         device=None):
-    """``parallel/sharded_smc.sharded_batched_particle_filter``, with a
-    checkpoint after every ``checkpoint_every`` steps, on the card unless
-    ``device`` names another. Each step is the one-shot filter's own body
+                                         halo=None, device=None):
+    """``parallel/sharded_smc.sharded_batched_particle_filter`` over the dp
+    shards of ``mesh`` (None: one device), with a checkpoint after every
+    ``checkpoint_every`` steps, on the card unless ``device`` names
+    another. Each step is the one-shot filter's own body
     (``sharded_smc._filter_parts``), so an uninterrupted run is bitwise the
     one-shot filter's state, log-weights and log-ML, and a resumed run
-    bitwise the uninterrupted one. Kernels 1-3 launch once a step on the
-    card. Only ``mesh=None`` (one device) is ported.
+    bitwise the uninterrupted one, at any dp. Kernels 1-2 launch once a
+    step on the card, and kernel 3 (one shard) or kernel 4 (several).
 
-    Returns {"state", "log_weights", "log_ml", "t"}.
+    The checkpoint holds the whole carry in the reference's layout, the
+    same file at any dp: over several shards the particles are gathered in
+    shard order and rank 0 writes it (aside, then renamed into place);
+    every rank restores the whole carry and keeps its own particles.
+
+    Returns {"state", "log_weights", "log_ml", "t"}: the shard's state and
+    log-weights (the mesh's ``gather`` assembles them), the replicated
+    log-ML and step.
     """
     from modppl_tpu_torch.parallel import sharded_smc
+    from modppl_tpu_torch.parallel.collectives import barrier
 
-    body, lse, wrapped = sharded_smc._filter_parts(
-        mesh, kernel, num_particles, ess_threshold, auto_batch)
-    device = entry_device(device, "checkpointed_sharded_particle_filter")
+    device = sharded_smc.filter_device(mesh, device,
+                                       "checkpointed_sharded_particle_filter")
+    body, lse, wrapped, offset = sharded_smc._filter_parts(
+        mesh, kernel, num_particles, ess_threshold, auto_batch, halo=halo)
+    n_shards = 1 if mesh is None else mesh.axis("dp").size
+    n_local = num_particles // n_shards
     state0, init_constraints, step_constraints = to_device(
         (state0, init_constraints, step_constraints), device,
         trie_tensors=True)
     total = vsmc.num_steps(step_constraints)
-    s, _ = vsmc.batched_smc_init(key, wrapped, state0, init_constraints,
-                                 num_particles)
-    s = _start(s, resume_from)
 
-    def step(s, i):
-        s, _ = body(s, step_constraints.map(lambda v: v[i]))
-        return s
+    def whole(s, fn):
+        """The carry ``s`` with its per-particle leaves mapped by ``fn``."""
+        return vsmc.SMCState(s.key, pytree.tree_map(fn, s.state),
+                             fn(s.log_weights), s.log_ml, s.t)
 
-    s = _run_chunks(s, step, total, checkpoint_path, checkpoint_every)
-    log_ml = s.log_ml + lse(s.log_weights) - math.log(float(num_particles))
+    def save(path, s, step):
+        if n_shards == 1:
+            save_checkpoint(path, s, step=step)
+            return
+        s = whole(s, mesh.gather)
+        if mesh.rank == mesh.devices.flat[0]:
+            save_checkpoint(path, s, step=step)
+        barrier("dp")
+
+    def part(x):
+        return x[offset:offset + n_local]
+
+    with sharded_smc.entered(mesh):
+        s, _ = vsmc.batched_smc_init(key, wrapped, state0, init_constraints,
+                                     n_local, offset=offset)
+        if resume_from is not None:
+            # the whole carry's shapes, then this shard's part of it
+            example = whole(s, lambda x: x.new_zeros(
+                (num_particles,) + tuple(x.shape[1:])))
+            s = whole(_start(example, resume_from), part)
+
+        def step(s, i):
+            s, _ = body(s, step_constraints.map(lambda v: v[i]))
+            return s
+
+        s = _run_chunks(s, step, total, checkpoint_path, checkpoint_every,
+                        save=save)
+        log_ml = (s.log_ml + lse(s.log_weights)
+                  - math.log(float(num_particles)))
     return {"state": s.state, "log_weights": s.log_weights, "log_ml": log_ml,
             "t": s.t}
 
@@ -156,17 +190,6 @@ def checkpointed_sharded_particle_filter(mesh, key, kernel, state0,
 # --------------------------------------------------------------------------
 # HMC: the pooled-adaptation sampler, chunked
 # --------------------------------------------------------------------------
-
-def _lane_draws(key, num_chains, dim, dtype, device):
-    """One transition's (z (C, d), jitter (C,), accept uniform (C,)): chain
-    i's from the lane key ``fold_in(key, i)``, split three ways, so a
-    chain's draws do not depend on the chain count."""
-    k_z, k_jit, k_u = split_lanes(lanes(key, num_chains, device),
-                                  3).unbind(-1)
-    return (normal_lanes(k_z, (dim,), dtype),
-            0.5 + uniform_lanes(k_jit, (), dtype),
-            uniform_lanes(k_u, (), dtype))
-
 
 def checkpointed_hmc_runner(model, args, observed, *, checkpoint_path,
                             checkpoint_every, num_samples=1000,
@@ -238,8 +261,7 @@ def checkpointed_hmc_runner(model, args, observed, *, checkpoint_path,
 
     def warm(k_run, phases, u0s):
         if u0s is None:
-            u0s = u0[None, :] + 0.5 * normal_lanes(
-                split_keys(k_run, num_chains, device), (dim,), dtype)
+            u0s = start_points(k_run, u0, num_chains)
 
         def inputs(phase, phase_key, length):
             if phases[phase] is None:

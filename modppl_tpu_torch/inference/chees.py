@@ -23,12 +23,12 @@ each selected by ``i < L_t`` on the device: no host read, and no step
 count above ``max_leapfrog`` (the reference ignores ``max_leapfrog`` there,
 ``modppl_tpu/inference/chees.py:225``).
 
-The reference keys each chain's pre-drawn randoms by its global index
-(``fold_in(segment_key, i)``); as the port's generic HMC path does
-(inference/hmc._phase_randoms), one generator draws a whole segment for
-the batch, and the tests carry the reference's draws through ``draws=``.
-Per-chain streams come with ROADMAP Queue 1 item 8b, cross-shard pooling
-(``axis_name``) with item 14.
+Each chain's pre-drawn randoms come from its own lane stream keyed by its
+global index (``inference/hmc._lane_draws``, as the reference's
+``fold_in(segment_key, i)``), so a run over the shards of a mesh axis
+(``axis_name``) replays the one-device chains; the pooled statistics
+cross the shards through ``adaptation._pooled_sum``'s fixed add trees. The
+tests carry the reference's draws through ``draws=``.
 """
 
 import math
@@ -36,20 +36,23 @@ import math
 import numpy as np
 import torch
 
-from modppl_tpu_torch.core.keys import fold_in, generator, split
+from modppl_tpu_torch.core.keys import fold_in, split
 from modppl_tpu_torch.inference.adaptation import (
     _pooled_sum,
     _window_metric,
+    pooled_chains,
     warmup_phases,
 )
 from modppl_tpu_torch.inference.hmc import (
-    MULTI_SHARD_TODO,
+    _lane_draws,
     _segments,
     _stack_samples,
     _value_and_grad,
     da_init,
     da_update,
     flat_target,
+    shard_chains,
+    start_points,
 )
 from modppl_tpu_torch.modeling.handlers import entry_inputs
 
@@ -86,15 +89,15 @@ def _adam_update(st, grad, lr, beta1=0.9, beta2=0.95, eps=1e-8):
     return {"log_tau": log_tau, "m": m, "v": v, "t": t}
 
 
-def _phase_randoms(seg_key, num_chains, length, dim, dtype, device):
-    """One segment's pre-drawn randoms from ONE generator keyed
-    ``seg_key``: momenta (W, C, d) standard normals and accept uniforms
-    (W, C); ``hmc._phase_randoms`` without the step-size jitter (ChEES
-    jitters the trajectory length instead)."""
-    g = generator(seg_key, device)
-    kw = dict(generator=g, dtype=dtype, device=device)
-    return (torch.randn((length, num_chains, dim), **kw),
-            torch.rand((length, num_chains), **kw))
+def _phase_randoms(seg_key, num_chains, length, dim, dtype, device,
+                   offset=0):
+    """One segment's pre-drawn randoms keyed ``seg_key``: momenta (W, C,
+    d) standard normals and accept uniforms (W, C), chain i from its lane
+    stream by its global index ``offset + i``; ``hmc._phase_randoms``
+    without the step-size jitter (ChEES jitters the trajectory length
+    instead)."""
+    return _lane_draws(seg_key, num_chains, dim, dtype, device, length=length,
+                       offset=offset, jitter=False)
 
 
 def _chees_transition(vag, U, LP, G, eps, num_steps, inv_mass, mom_t,
@@ -157,15 +160,22 @@ def chees_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     everything runs on ``device``: the card unless the caller passes
     ``device="cpu"``. ``run.chains(k_run, u0s, draws=None)`` runs the
     pipeline from given start points (C, d); ``run.constrain_flat`` and
-    ``run.u0_flat`` expose the flat coordinates. ``axis_name`` other than
-    None raises (multi-device, ROADMAP Queue 1 item 14).
+    ``run.u0_flat`` expose the flat coordinates.
+
+    ``axis_name`` names a mesh axis (parallel/mesh.py) to shard the chains
+    over, as ``hmc.hmc_runner``'s does: ``num_chains`` is the total, each
+    rank runs (inside ``with mesh:``) its shard's chains by their global
+    indices on its shard device, the pooled (eps, tau, mass) from every
+    shard's chains; ``run.chains`` then takes the shard's start points.
     """
-    if axis_name is not None:
-        raise NotImplementedError(f"chees_runner: {MULTI_SHARD_TODO}")
     if num_chains < 2:
         raise ValueError("chees: pooled trajectory adaptation needs "
                          "num_chains >= 2 (the criterion is a cross-chain "
                          "variance)")
+    if axis_name is not None:
+        from modppl_tpu_torch.parallel.mesh import shard_device
+
+        device = shard_device(device)
     device, args, observed = entry_inputs(device, args, observed,
                                           "chees_runner")
     if init_trace is None:
@@ -194,7 +204,12 @@ def chees_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
         then sampling; interop.chees_phase_draws carries the reference's),
         replaces the segments drawn from ``k_run``. Returns (us (C, S, d),
         logps, aprobs, divs (C, S), num_leapfrog (S,), eps, tau)."""
-        c_total = u0s.new_tensor(float(u0s.shape[0]))
+        c_all, offset = pooled_chains(u0s.shape[0], axis_name)
+        c_total = u0s.new_tensor(float(c_all))
+
+        def psum(x):
+            return _pooled_sum(x, axis_name)
+
         phases = warmup_phases(num_warmup)
         if draws is not None and len(draws) != len(phases) + 1:
             raise ValueError(f"draws: expected one entry per phase "
@@ -207,7 +222,7 @@ def chees_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
             if given is not None:
                 return zip(*given)
             return _segments(phase_key, length, lambda k, w: _phase_randoms(
-                k, u0s.shape[0], w, dim, dt, u0s.device))
+                k, u0s.shape[0], w, dim, dt, u0s.device, offset))
 
         def body(carry, mom_t, acc_t, h_t, inv_mass, adapt_mass, adapt):
             U, LP, G, da, adam, mean, m2, n = carry
@@ -219,7 +234,7 @@ def chees_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                 vag, U, LP, G, eps, num_steps, inv_mass, mom_t, acc_t,
                 max_leapfrog, static_unroll=static_unroll)
             if adapt:
-                a_sum = _pooled_sum(aprob)
+                a_sum = psum(aprob)
                 da = da_update(da, a_sum / c_total, target=target_accept)
                 # keep tau >= 2 eps: if eps outgrows tau the step count
                 # pins at 1 and tau stops affecting the kernel (its
@@ -234,17 +249,16 @@ def chees_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                        & torch.all(torch.isfinite(p_end), -1))
                 u_safe = torch.where(fin[:, None], u_prop, 0.0)
                 p_safe = torch.where(fin[:, None], p_end, 0.0)
-                ubar = _pooled_sum(U) / c_total
-                n_fin = torch.clamp(_pooled_sum(fin.to(dt)), min=1.0)
-                ubar_p = _pooled_sum(u_safe) / n_fin
+                ubar = psum(U) / c_total
+                n_fin = torch.clamp(psum(fin.to(dt)), min=1.0)
+                ubar_p = psum(u_safe) / n_fin
                 d_prev = torch.sum((U - ubar[None, :]) ** 2, -1)
                 cent = u_safe - ubar_p[None, :]
                 d_prop = torch.sum(cent * cent, -1)
                 proj = torch.sum(cent * (inv_mass[None, :] * p_safe), -1)
                 per_chain = torch.where(fin, aprob * (d_prop - d_prev) * proj,
                                         0.0)
-                grad = h_t * _pooled_sum(per_chain) / torch.clamp(a_sum,
-                                                                  min=1e-6)
+                grad = h_t * psum(per_chain) / torch.clamp(a_sum, min=1e-6)
                 # normalize the scale so Adam's lr is problem-independent
                 grad = grad / (1.0 + torch.abs(grad))
                 grad = torch.where(torch.isfinite(grad), grad, 0.0)
@@ -253,8 +267,8 @@ def chees_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                     adam["log_tau"], log_tau_lo, log_tau_hi))
             if adapt_mass:
                 # the batched (Chan) Welford merge of the iteration's draws
-                b_mean = _pooled_sum(U2) / c_total
-                b_m2 = _pooled_sum((U2 - b_mean[None]) ** 2)
+                b_mean = psum(U2) / c_total
+                b_m2 = psum((U2 - b_mean[None]) ** 2)
                 n_new = n + c_total
                 delta = b_mean - mean
                 mean = mean + delta * c_total / n_new
@@ -306,11 +320,10 @@ def chees_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
         return us, logps, aprobs, divs, nsteps, eps, tau
 
     def run(k_run):
-        k_chains, _ = split(k_run)
-        # overdispersed start points around the initial trace
-        u0s = u0_flat[None, :] + 0.5 * torch.randn(
-            (num_chains, dim), generator=generator(k_chains, device),
-            dtype=dt, device=device)
+        # overdispersed start points around the initial trace, chain i's
+        # jitter keyed by its global index
+        u0s = start_points(k_run, u0_flat, *shard_chains(num_chains,
+                                                         axis_name))
         us, logps, aprobs, divs, nsteps, eps, tau = chains(k_run, u0s)
         return {
             "samples": constrain_flat(us),

@@ -17,7 +17,10 @@ distributions), then takes one of three paths:
   or one per chain (``_single_chain``, the whole batch at once).
 
 Adaptation state, accept probabilities and flags stay on the device: the
-generic path reads nothing back to the host per transition.
+generic path reads nothing back to the host per transition. Every chain
+draws from its own lane stream keyed by its global index (``_lane_draws``),
+so a run over the shards of a mesh axis (``axis_name``, parallel/mesh.py)
+replays the one-device chains.
 """
 
 from typing import Callable, NamedTuple
@@ -25,13 +28,18 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from modppl_tpu_torch.core.keys import fold_in, generator, split
+from modppl_tpu_torch.core.keys import (
+    fold_in,
+    generator,
+    lanes,
+    normal_lanes,
+    split,
+    split_keys,
+    split_lanes,
+    uniform_lanes,
+)
 from modppl_tpu_torch.inference.transforms import transform_for
 from modppl_tpu_torch.modeling.handlers import entry_inputs
-
-MULTI_SHARD_TODO = ("axis_name: pooling across shards is not ported (ROADMAP "
-                    "Queue 1 item 14, multi-device); the port runs on one "
-                    "device, pass axis_name=None")
 
 # below this dimension the d <= 12 kernels run (ops/leapfrog_small.py),
 # from it the d >= 13 kernels (ops/leapfrog.py), as in the reference
@@ -179,17 +187,18 @@ def hmc_transition(key, u_flat, logp_flat, grad_flat, eps, num_leapfrog,
     ``grad_flat`` take what ``u_flat`` is. The step size is jittered ±50%
     per transition, momenta are z / sqrt(inv_mass), and a transition whose
     energy error is not finite or below -1000 is divergent and rejected.
-    The draws come from one generator keyed ``key`` on the chains' device:
-    standard normals z of u_flat's shape, then per chain an accept uniform
-    u01 and a step-size jitter in [0.5, 1.5); ``draws`` = (z, jit, u01)
-    replaces them. Returns (u', logp(u'), accept_prob, divergent).
+    The draws come from the chains' lane streams keyed ``key``
+    (:func:`_lane_draws`, chain i's from ``fold_in(key, i)``; one chain is
+    chain 0): standard normals z, a step-size jitter in [0.5, 1.5) and an
+    accept uniform u01 a chain; ``draws`` = (z, jit, u01) replaces them.
+    Returns (u', logp(u'), accept_prob, divergent).
     """
     if draws is None:
-        g = generator(key, u_flat.device)
-        kw = dict(generator=g, dtype=u_flat.dtype, device=u_flat.device)
-        z = torch.randn(u_flat.shape, **kw)
-        u01 = torch.rand(u_flat.shape[:-1], **kw)
-        draws = z, 0.5 + torch.rand(u_flat.shape[:-1], **kw), u01
+        one = u_flat.ndim == 1
+        draws = _lane_draws(key, 1 if one else u_flat.shape[0],
+                            u_flat.shape[-1], u_flat.dtype, u_flat.device)
+        if one:
+            draws = tuple(x[0] for x in draws)
     z, jit, u01 = draws
     eps = (eps * jit)[..., None]
     p0 = z / torch.sqrt(inv_mass)
@@ -320,31 +329,54 @@ def _quadratic_chains(key, lam, b, u0s, num_warmup, num_samples, eps0,
 _PREDRAW_SEG = 64
 
 
-def _phase_randoms(seg_key, num_chains, length, dim, dtype, device):
-    """Pre-draw one segment's per-transition randoms on ``device`` from ONE
-    generator keyed ``seg_key`` (``fold_in(phase_key, seg)``): momenta
-    (W, C, d) standard normals, step-size jitters (W, C) in [0.5, 1.5) and
-    accept uniforms (W, C).
+def _lane_draws(key, num_chains, dim, dtype, device, length=None, offset=0,
+                jitter=True):
+    """Per-chain randoms from lane streams: chain i (its global index
+    ``offset + i``) draws from the lane key ``fold_in(key, offset + i)``,
+    split three ways, so a chain's draws depend on its index and the shapes
+    alone, never on the chain count or the shard. One transition's (z (C,
+    d), jitter (C,) in [0.5, 1.5), accept uniform (C,)), or with ``length``
+    W a segment's (W, C, d), (W, C), (W, C); without ``jitter`` (z, u)."""
+    k_z, k_jit, k_u = split_lanes(lanes(key, num_chains, device,
+                                        offset=offset), 3).unbind(-1)
+    lead = () if length is None else (length,)
+    z = normal_lanes(k_z, lead + (dim,), dtype)
+    u = uniform_lanes(k_u, lead, dtype)
+    if length is not None:
+        z, u = z.transpose(0, 1), u.transpose(0, 1)
+    if not jitter:
+        return z, u
+    jit = 0.5 + uniform_lanes(k_jit, lead, dtype)
+    return z, (jit if length is None else jit.transpose(0, 1)), u
 
-    The reference keys one stream per chain by its global index, so that
-    any sharding replays the same chains; one generator per chain (10^4 of
-    them) is no design for the port's host-integer keys, so the batch draws
-    from one stream, and layout-invariant per-chain streams come with
-    multi-device (ROADMAP Queue 1 item 14).
-    """
-    g = generator(seg_key, device)
-    kw = dict(generator=g, dtype=dtype, device=device)
-    mom = torch.randn((length, num_chains, dim), **kw)
-    jit = 0.5 + torch.rand((length, num_chains), **kw)
-    return mom, jit, torch.rand((length, num_chains), **kw)
+
+def start_points(key, u0, num_chains, offset=0):
+    """Overdispersed start points ``u0 + 0.5 z`` (C, d), chain i's z from
+    the lane key ``split(key, C)[offset + i]``, as the reference's
+    ``split(k_run, C)`` keys them."""
+    return u0[None, :] + 0.5 * normal_lanes(
+        split_keys(key, num_chains, u0.device, offset=offset), u0.shape,
+        u0.dtype)
 
 
-def _phase_steps(phase_key, length, u0s, draws=None):
+def _phase_randoms(seg_key, num_chains, length, dim, dtype, device,
+                   offset=0):
+    """One segment's per-transition randoms on ``device``, keyed
+    ``seg_key`` (``fold_in(phase_key, seg)``): momenta (W, C, d) standard
+    normals, step-size jitters (W, C) in [0.5, 1.5) and accept uniforms
+    (W, C), chain i from its lane stream (:func:`_lane_draws`), as the
+    reference keys each chain by its global index."""
+    return _lane_draws(seg_key, num_chains, dim, dtype, device, length=length,
+                       offset=offset)
+
+
+def _phase_steps(phase_key, length, u0s, draws=None, offset=0):
     """The per-iteration (z (C, d), jit (C,), u01 (C,)) of one phase for the
     chains ``u0s`` (C, d): the rows of ``draws`` = (z (T, C, d), jit (T, C),
     u01 (T, C)) when given, else segments of ``_PREDRAW_SEG`` iterations
     from :func:`_phase_randoms`, segment ``seg`` keyed
-    ``fold_in(phase_key, seg)``."""
+    ``fold_in(phase_key, seg)``, the chains from the global index
+    ``offset``."""
     if draws is not None:
         if tuple(draws[0].shape) != (length,) + tuple(u0s.shape):
             raise ValueError(f"draws: a phase of {length} iterations over "
@@ -352,12 +384,8 @@ def _phase_steps(phase_key, length, u0s, draws=None):
                              f"{(length,) + tuple(u0s.shape)}, got "
                              f"{tuple(draws[0].shape)}")
         return zip(*draws)
-    return _drawn_steps(phase_key, length, u0s)
-
-
-def _drawn_steps(phase_key, length, u0s):
     return _segments(phase_key, length, lambda k, w: _phase_randoms(
-        k, u0s.shape[0], w, u0s.shape[1], u0s.dtype, u0s.device))
+        k, u0s.shape[0], w, u0s.shape[1], u0s.dtype, u0s.device, offset))
 
 
 def _segments(phase_key, length, draw):
@@ -443,26 +471,39 @@ def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
     drawn segments (interop.pooled_phase_draws carries the reference's).
     Returns (us, logps, aprobs, divs) as (chains, samples, ...), the shared
     eps () and inv_mass (dim,).
+
+    Over the shards of ``axis_name`` (a mesh axis, inside ``with mesh:``)
+    ``u0s`` is the shard's chains; each chain draws by its global index
+    and the pooled statistics are the fixed-order sums of
+    ``adaptation._pooled_sum`` over every shard's chains (one device uses
+    ``torch.sum``), so dp = 1 and dp = k runs agree bitwise where the
+    model's log-density is bitwise in the batch size.
     """
     from modppl_tpu_torch.inference.adaptation import (
+        _pooled_sum,
         _window_metric,
+        pooled_chains,
         warmup_phases,
     )
 
-    if axis_name is not None:
-        raise NotImplementedError(MULTI_SHARD_TODO)
     vag = _value_and_grad(logprob)
     dim = u0s.shape[1]
-    c_total = u0s.new_tensor(float(u0s.shape[0]))
+    c_all, offset = pooled_chains(u0s.shape[0], axis_name)
+    c_total = u0s.new_tensor(float(c_all))
     zeros = u0s.new_zeros(dim)
     phase_draws = _phase_draws(draws, num_warmup)
+
+    def psum0(x):
+        if axis_name is None:
+            return torch.sum(x, 0)
+        return _pooled_sum(x, axis_name)
 
     def run_phase(phase_key, carry, inv_mass, length, adapt_mass,
                   collect=False, adapt_da=True, ref=None):
         U, LP, G, da, s1, s2, n = carry
         ys = []
         for mom_t, jit_t, acc_t in _phase_steps(phase_key, length, U,
-                                                next(phase_draws)):
+                                                next(phase_draws), offset):
             eps = torch.exp(da["log_eps"])
             U, LP, G, aprob, div = _transition_batch(
                 vag, U, LP, G, eps, inv_mass, mom_t, jit_t, acc_t,
@@ -471,14 +512,13 @@ def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
                 # one reduction for the accept mean and the window's moment
                 # sums, centred at the window-start pooled mean ``ref``
                 Uc = U - ref[None, :]
-                stat = torch.sum(torch.cat([aprob[:, None], Uc, Uc * Uc], 1),
-                                 0)
+                stat = psum0(torch.cat([aprob[:, None], Uc, Uc * Uc], 1))
                 a_mean = stat[0] / c_total
                 s1 = s1 + stat[1:1 + dim]
                 s2 = s2 + stat[1 + dim:]
                 n = n + c_total
             elif adapt_da:
-                a_mean = torch.sum(aprob, 0) / c_total
+                a_mean = psum0(aprob) / c_total
             if adapt_da:
                 da = da_update(da, a_mean, target=target_accept)
             if collect:
@@ -493,7 +533,7 @@ def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
     k_warm = fold_in(key, 0)
     for phase, (length, slow) in enumerate(warmup_phases(num_warmup)):
         # a slow window's moment sums are centred at its start's pooled mean
-        ref = torch.sum(carry[0], 0) / c_total if slow else None
+        ref = psum0(carry[0]) / c_total if slow else None
         carry, _ = run_phase(fold_in(k_warm, phase), carry, inv_mass, length,
                              slow, ref=ref)
         if slow:
@@ -514,7 +554,7 @@ def _pooled_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
 
 
 def _single_chain(key, logprob, u0s, num_warmup, num_samples, eps0,
-                  num_leapfrog, target_accept, draws=None):
+                  num_leapfrog, target_accept, draws=None, offset=0):
     """Every chain adapts its own (eps, inv_mass) (``adaptation.run_warmup``)
     and samples with :func:`hmc_transition`: the counterpart of the
     reference's ``jax.vmap(_single_chain)``, run as one batch (no loop over
@@ -523,9 +563,10 @@ def _single_chain(key, logprob, u0s, num_warmup, num_samples, eps0,
     ``u0s``: (C, dim). Phase keys as :func:`_pooled_chains`'s; each phase's
     draws are segments of :func:`_phase_randoms`, or the rows of ``draws``
     (one (z, jit, u01) per phase, as there; interop.chain_phase_draws
-    carries the reference's per-chain draws). Returns (us, logps, aprobs,
-    divs) as (chains, samples, ...), eps (chains,) and inv_mass (chains,
-    dim).
+    carries the reference's per-chain draws). ``offset`` is the first
+    chain's global index (a shard's chains draw by it). Returns (us,
+    logps, aprobs, divs) as (chains, samples, ...), eps (chains,) and
+    inv_mass (chains, dim).
     """
     from modppl_tpu_torch.inference.adaptation import run_warmup
 
@@ -542,10 +583,10 @@ def _single_chain(key, logprob, u0s, num_warmup, num_samples, eps0,
         fold_in(key, 0), u0s, warm_transition, num_warmup, eps0,
         target_accept,
         phase_inputs=lambda phase, phase_key, length: _phase_steps(
-            phase_key, length, u0s, next(phase_draws)))
+            phase_key, length, u0s, next(phase_draws), offset))
     ys = []
     for x in _phase_steps(fold_in(key, 2), num_samples, u0s,
-                          next(phase_draws)):
+                          next(phase_draws), offset):
         us, lp, aprob, div = hmc_transition(None, us, logp, grad, eps,
                                             num_leapfrog, inv_mass, draws=x)
         ys.append((us, lp, aprob, div))
@@ -573,12 +614,27 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     None detects it when ``num_warmup >= 1``, True requires it, False never
     takes it); every other run takes the generic path, with one shared
     adapted (eps, inv_mass) when ``pooled_adaptation`` (default: more than
-    one chain) and one per chain otherwise. ``axis_name`` names the mesh
-    axis of a sharded run in the reference; the port has one device, so
-    only None is accepted.
+    one chain) and one per chain otherwise.
+
+    ``axis_name`` names a mesh axis (parallel/mesh.py) to shard the chains
+    over: each rank builds the runner alike and calls ``run`` inside the
+    mesh (``with mesh:``); ``num_chains`` is the total, each shard runs its
+    ``num_chains / shards`` chains (chain i keyed by its global index, as
+    one device keys it) on its shard device, and the pooled adaptation
+    sums over every shard's chains. Returned per-chain values are the
+    shard's; eps and inv_mass are replicated. The fused quadratic path
+    does not pool across shards, so ``use_fused_quadratic=True`` with
+    ``axis_name`` raises and detection is off.
     """
+    if use_fused_quadratic and axis_name is not None:
+        raise ValueError(
+            "use_fused_quadratic=True cannot be combined with axis_name: "
+            "the fused quadratic path does not pool adaptation across "
+            "shards (use the generic pooled path)")
     if axis_name is not None:
-        raise NotImplementedError(f"hmc_runner: {MULTI_SHARD_TODO}")
+        from modppl_tpu_torch.parallel.mesh import shard_device
+
+        device = shard_device(device)
     device, args, observed = entry_inputs(device, args, observed,
                                           "hmc_runner")
     if init_trace is None:
@@ -597,7 +653,7 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     # use_fused_quadratic=True always detects, and _quadratic_chains raises
     # on num_warmup=0, as the reference does
     if use_fused_quadratic or (use_fused_quadratic is None
-                               and num_warmup >= 1):
+                               and axis_name is None and num_warmup >= 1):
         quad = detect_quadratic_target(logprob_flat, dim, u0_flat.dtype,
                                        device)
         if quad is None and use_fused_quadratic:
@@ -606,17 +662,20 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                 "not quadratic in the unconstrained latents")
 
     def run(k_run):
-        k_chains, _ = split(k_run)
+        c_local, offset = shard_chains(num_chains, axis_name)
         # overdispersed start points around the initial trace
-        jitter = 0.5 * torch.randn((num_chains, dim),
-                                   generator=generator(k_chains, device),
-                                   dtype=u0_flat.dtype, device=device)
-        u0s = u0_flat[None, :] + jitter
-        if quad is None:
-            chains = _pooled_chains if pooled_adaptation else _single_chain
-            us, logps, aprobs, divs, eps, inv_mass = chains(
+        u0s = start_points(k_run, u0_flat, c_local, offset)
+        if quad is None and pooled_adaptation:
+            us, logps, aprobs, divs, eps, inv_mass = _pooled_chains(
                 fold_in(k_run, 0), logprob_flat, u0s, num_warmup,
-                num_samples, step_size, num_leapfrog, target_accept)
+                num_samples, step_size, num_leapfrog, target_accept,
+                axis_name=axis_name)
+        elif quad is None:
+            us, logps, aprobs, divs, eps, inv_mass = _single_chain(
+                fold_in(k_run, 0), logprob_flat, u0s, num_warmup,
+                num_samples, step_size, num_leapfrog, target_accept,
+                offset=offset)
+        if quad is None:
             dev = u0s.new_zeros(())
             quad_ok = torch.ones((), dtype=torch.bool, device=device)
         else:
@@ -647,6 +706,22 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     # (ops/leapfrog.hmc_quadratic) on the same target after this warmup
     run.quadratic = quad
     return run
+
+
+def shard_chains(num_chains, axis_name=None):
+    """(this shard's chain count, its first global index) of
+    ``num_chains`` over the shards of ``axis_name`` (None: all, from 0).
+    The chains must divide over the shards."""
+    if axis_name is None:
+        return num_chains, 0
+    from modppl_tpu_torch.parallel.collectives import axis_index, axis_size
+
+    size = axis_size(axis_name)
+    if num_chains % size:
+        raise ValueError(f"num_chains {num_chains} not divisible by "
+                         f"{axis_name}={size}")
+    c_local = num_chains // size
+    return c_local, c_local * axis_index(axis_name)
 
 
 def _quad_check(logprob_flat, us, logps):

@@ -7,7 +7,9 @@ The reference vmaps one chain's scan over the chains; the port runs the
 whole batch at once, as ``adaptation.run_warmup`` does for HMC: each step
 is ONE ``vmap(grad_and_value)`` call over the chains, and every chain keeps
 its own dual-averaging state (leaves of shape (chains,)). Nothing is read
-back to the host per transition.
+back to the host per transition. Each chain draws from its own lane stream
+keyed by its index (``inference/hmc._lane_draws``), so chain i's draws do
+not depend on the chain count.
 
 Proposal: u' = u + (eps^2 / 2) grad(u) + eps * xi,  xi ~ N(0, I)
 Accept:   log u01 < logp(u') - logp(u) + log q(u | u') - log q(u' | u)
@@ -15,13 +17,15 @@ Accept:   log u01 < logp(u') - logp(u) + log q(u | u') - log q(u' | u)
 
 import torch
 
-from modppl_tpu_torch.core.keys import fold_in, generator, split
+from modppl_tpu_torch.core.keys import fold_in, split
 from modppl_tpu_torch.inference.hmc import (
+    _lane_draws,
     _segments,
     _value_and_grad,
     da_init,
     da_update,
     flat_target,
+    start_points,
 )
 from modppl_tpu_torch.modeling.handlers import entry_inputs
 
@@ -55,15 +59,17 @@ def mala_transition(key, u, logp_val, grad_val, logp_fn, grad_fn, eps,
     what ``u`` is).
 
     Carries (logp, grad) of the current point, so a transition costs one
-    fresh gradient. The draws come from one generator keyed ``key`` on
-    u's device (standard normals like u, then one uniform a chain);
-    ``draws`` = (noise, u01) replaces them. Returns (u', logp', grad',
-    accept_prob).
+    fresh gradient. The draws come from the chains' lane streams keyed
+    ``key`` (chain i's from ``fold_in(key, i)``, one chain is chain 0):
+    standard normals like u and one uniform a chain; ``draws`` = (noise,
+    u01) replaces them. Returns (u', logp', grad', accept_prob).
     """
     if draws is None:
-        g = generator(key, u.device)
-        kw = dict(generator=g, dtype=u.dtype, device=u.device)
-        draws = torch.randn(u.shape, **kw), torch.rand(u.shape[:-1], **kw)
+        one = u.ndim == 1
+        draws = _lane_draws(key, 1 if one else u.shape[0], u.shape[-1],
+                            u.dtype, u.device, jitter=False)
+        if one:
+            draws = tuple(x[0] for x in draws)
     return _mala_step(u, logp_val, grad_val,
                       lambda x: (logp_fn(x), grad_fn(x)), eps, *draws)
 
@@ -71,8 +77,8 @@ def mala_transition(key, u, logp_val, grad_val, logp_fn, grad_fn, eps,
 def _phase_draws(phase_key, length, u0s, draws=None):
     """A phase's per-iteration (noise (C, d), u01 (C,)): the rows of
     ``draws`` = (noise (T, C, d), u01 (T, C)) when given, else segments
-    (``hmc._segments``), segment ``seg`` from one generator keyed
-    ``fold_in(phase_key, seg)``."""
+    (``hmc._segments``), segment ``seg`` keyed ``fold_in(phase_key,
+    seg)``, chain i from its lane stream (``hmc._lane_draws``)."""
     if draws is not None:
         if tuple(draws[0].shape) != (length,) + tuple(u0s.shape):
             raise ValueError(f"draws: noise of shape "
@@ -82,10 +88,8 @@ def _phase_draws(phase_key, length, u0s, draws=None):
         return
 
     def draw(seg_key, w):
-        kw = dict(generator=generator(seg_key, u0s.device), dtype=u0s.dtype,
-                  device=u0s.device)
-        return (torch.randn((w,) + tuple(u0s.shape), **kw),
-                torch.rand((w, u0s.shape[0]), **kw))
+        return _lane_draws(seg_key, u0s.shape[0], u0s.shape[1], u0s.dtype,
+                           u0s.device, length=w, jitter=False)
 
     yield from _segments(phase_key, length, draw)
 
@@ -123,7 +127,8 @@ def mala(key, model, args, observed, *, num_samples=1000, num_warmup=500,
     shape}), ``logp``, ``accept_prob``, ``step_size`` (chains,) and
     ``unconstrained``. 0.574 is the optimal-scaling acceptance target for
     Langevin proposals (Roberts & Rosenthal 1998). Chains start at the
-    initial trace's values plus 0.5 standard normals. Runs on ``device``:
+    initial trace's values plus 0.5 standard normals, chain i's keyed
+    ``split(k_chains, C)[i]``. Runs on ``device``:
     the card unless the caller passes ``device="cpu"``."""
     device, args, observed = entry_inputs(device, args, observed, "mala")
     k_init, k_run = split(key)
@@ -133,10 +138,7 @@ def mala(key, model, args, observed, *, num_samples=1000, num_warmup=500,
     target = flat_target(model, args, init_trace, observed, selection,
                          device=device)
     k_chains, k_steps = split(k_run)
-    u0s = target.u0[None, :] + 0.5 * torch.randn(
-        (num_chains,) + tuple(target.u0.shape),
-        generator=generator(k_chains, device), dtype=target.u0.dtype,
-        device=device)
+    u0s = start_points(k_chains, target.u0, num_chains)
     us, logps, aprobs, eps = _chains(k_steps, target.logprob, u0s,
                                      num_warmup, num_samples, step_size,
                                      target_accept)

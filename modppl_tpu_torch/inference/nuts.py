@@ -44,7 +44,7 @@ from modppl_tpu_torch.core.keys import (
     uniform_lanes,
 )
 from modppl_tpu_torch.inference.hmc import (
-    MULTI_SHARD_TODO,
+    shard_chains,
     _stack_samples,
     _value_and_grad,
     flat_target,
@@ -274,21 +274,24 @@ def _pooled_nuts_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
     """Every chain shares ONE pooled-adapted (eps, inv_mass), as the
     reference's ``_pooled_nuts_chains``: ``adaptation.run_warmup_pooled``
     with a batched transition, chain i of an iteration keyed ``fold_in(k,
-    i)``. ``draws``, one entry a transition (the warmup's, then
-    sampling's; see ``nuts_transition``), replaces the lane draws.
-    Returns (us, logps, aprobs, divs, depths) as (chains, samples, ...)
-    and the shared eps."""
-    from modppl_tpu_torch.inference.adaptation import run_warmup_pooled
+    i)``, i its global index. ``draws``, one entry a transition (the
+    warmup's, then sampling's; see ``nuts_transition``), replaces the lane
+    draws. Over the shards of ``axis_name`` ``u0s`` is the shard's chains
+    and the adaptation pools every shard's. Returns (us, logps, aprobs,
+    divs, depths) as (chains, samples, ...) and the shared eps."""
+    from modppl_tpu_torch.inference.adaptation import (
+        pooled_chains,
+        run_warmup_pooled,
+    )
 
-    if axis_name is not None:
-        raise NotImplementedError(MULTI_SHARD_TODO)
     c, device = u0s.shape[0], u0s.device
+    offset = pooled_chains(c, axis_name)[1]
     step = chains or _Chains(_value_and_grad(logprob), max_depth)
     it = iter(draws) if draws is not None else None
 
     def move(k, us, eps, inv_mass):
-        u, lp, stats = step(lanes(k, c, device), us, eps, inv_mass,
-                            next(it) if it is not None else None)
+        u, lp, stats = step(lanes(k, c, device, offset=offset), us, eps,
+                            inv_mass, next(it) if it is not None else None)
         return u, lp, stats
 
     def warm_transition(k, us, eps, inv_mass):
@@ -297,7 +300,7 @@ def _pooled_nuts_chains(key, logprob, u0s, num_warmup, num_samples, eps0,
 
     us, eps, inv_mass = run_warmup_pooled(
         fold_in(key, 0), u0s, warm_transition, num_warmup, eps0,
-        target_accept, batched_transition=True)
+        target_accept, axis_name=axis_name, batched_transition=True)
     ys = []
     for k in split(fold_in(key, 2), num_samples):
         us, lp, stats = move(k, us, eps, inv_mass)
@@ -354,11 +357,15 @@ def nuts_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
     keys chain i ``split(k_run, C)[i]`` (its start point's jitter, and on
     the per-chain path its whole run); ``pooled_adaptation`` (default: more
     than one chain) shares one adapted (eps, inv_mass). ``axis_name``
-    other than None raises (one device). ``run.chains`` is the last run's
-    batch, whose ``leaves`` counts its value-and-grad calls.
+    names a mesh axis to shard the chains over, as ``hmc.hmc_runner``'s
+    does: each rank runs (inside ``with mesh:``) its shard's chains, chain
+    i keyed by its global index. ``run.chains`` is the last run's batch,
+    whose ``leaves`` counts its value-and-grad calls.
     """
     if axis_name is not None:
-        raise NotImplementedError(f"nuts_runner: {MULTI_SHARD_TODO}")
+        from modppl_tpu_torch.parallel.mesh import shard_device
+
+        device = shard_device(device)
     device, args, observed = entry_inputs(device, args, observed,
                                           "nuts_runner")
     if init_trace is None:
@@ -371,7 +378,8 @@ def nuts_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
         pooled_adaptation = num_chains > 1
 
     def run(k_run):
-        chain_keys = split_keys(k_run, num_chains, device)
+        c_local, offset = shard_chains(num_chains, axis_name)
+        chain_keys = split_keys(k_run, c_local, device, offset=offset)
         u0s = u0[None, :] + 0.5 * normal_lanes(chain_keys, u0.shape,
                                                u0.dtype)
         run.chains = _Chains(_value_and_grad(target.logprob), max_depth)
@@ -379,7 +387,7 @@ def nuts_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
             us, logps, aprobs, divs, depths, eps = _pooled_nuts_chains(
                 fold_in(k_run, 0), target.logprob, u0s, num_warmup,
                 num_samples, step_size, max_depth, target_accept,
-                chains=run.chains)
+                axis_name=axis_name, chains=run.chains)
         else:
             us, logps, aprobs, divs, depths, eps = _nuts_chain(
                 chain_keys, target.logprob, u0s, num_warmup, num_samples,

@@ -8,8 +8,10 @@ i is keyed by its own lane (``split(k, N)[i]``, core/keys.py) and the
 per-particle kernel runs ONCE over the lane axis with lane keys
 (modeling/handlers.py), so particle i's draws are those of its key alone.
 The batched tier (``batched_smc_init``, ``batched_smc_step``,
-``batched_particle_filter``) draws a site for every particle from one
-stream, as the reference's batched tier does.
+``batched_particle_filter``) runs a site once for every particle, particle
+i drawing from its own lane stream keyed by its global index
+(modeling/autobatch.py), so a shard of the particles draws what one device
+draws for them.
 
 The particle axis is an ordinary tensor axis: one generate per step extends
 every particle at once, and resampling is one scheme of
@@ -46,17 +48,14 @@ from modppl_tpu_torch.core.gfi import ArgDiff, Trace
 from modppl_tpu_torch.core.keys import (
     fold_in,
     fold_in_lanes,
+    lanes,
     split,
     split_keys,
     split_lanes,
     uniform_lanes,
 )
 from modppl_tpu_torch.core.trie import Trie
-from modppl_tpu_torch.inference.mcmc import (
-    _split,
-    accept_uniform,
-    tree_select,
-)
+from modppl_tpu_torch.inference.mcmc import _split, tree_select
 from modppl_tpu_torch.modeling.autobatch import _per_particle
 from modppl_tpu_torch.modeling.handlers import (
     entry_device,
@@ -115,14 +114,36 @@ def generated_draws(trace, constraints):
             if a not in constraints}
 
 
+def tier_call(part, key, n, offset, args):
+    """The key and keyword arguments of a batched-tier call of ``part``
+    (a kernel's init or step) over ``n`` particles from the global index
+    ``offset``: an auto-batched part takes the host key and the offset; a
+    batch-aware one the particles' lane keys (``lanes(key, n, device,
+    offset)`` on the device of ``args``), so its plate sites draw one lane
+    a particle; a (C,) tensor of chain keys goes as it is
+    (inference/blocked_smc.py)."""
+    from modppl_tpu_torch.modeling.autobatch import (
+        AutoBatchedInit,
+        AutoBatchedStep,
+    )
+
+    if isinstance(part, (AutoBatchedInit, AutoBatchedStep)):
+        return key, {"offset": offset}
+    if torch.is_tensor(key):
+        return key, {}
+    return lanes(key, n, infer_dtype_device(args)[1], offset=offset), {}
+
+
 def batched_smc_init(key, kernel, state0, constraints, num_particles,
-                     pool=None):
+                     pool=None, offset=0):
     """Initialize via ONE generate over a batch-aware init model
     (``kernel.init`` takes args ``(state0, n)``). ``pool`` replaces the
-    draws of the addresses it holds."""
+    draws of the addresses it holds; the particles start at the global
+    index ``offset`` (:func:`tier_call`)."""
     k_gen, k_carry = split(key)
+    k, kw = tier_call(kernel.init, k_gen, num_particles, offset, (state0,))
     trace, log_weights = kernel.init.generate(
-        k_gen, (state0, num_particles), constraints, pool=pool)
+        k, (state0, num_particles), constraints, pool=pool, **kw)
     log_ml = torch.zeros((), dtype=log_weights.dtype,
                          device=log_weights.device)
     return SMCState(k_carry, trace.retv, log_weights, log_ml, 1), trace
@@ -162,7 +183,7 @@ def _resample(key, s, resampler, ess_threshold, num_particles, u=None):
 
 def extend(kernel, key, t, state, constraints_t, num_particles,
            proposal=None, proposal_params=None, pool=None,
-           proposal_pool=None):
+           proposal_pool=None, offset=0):
     """ONE generate that extends every particle: bootstrap, or guided by a
     batched ``proposal`` (``propose(key, (t, state, constraints_t[,
     params]), n) -> (choices, logjp)``); ``key`` is a host key, or a (C,)
@@ -170,20 +191,24 @@ def extend(kernel, key, t, state, constraints_t, num_particles,
     (inference/blocked_smc.py). The observations are broadcast to
     the particle axis as views, merged with the proposed choices and
     constrain a per-particle generate; the weight is ``model weight -
-    proposal logjp``. Returns (trace, weight, proposed choices or None)."""
-    if proposal is None:
-        trace, w = kernel.step.generate(key, (t, state), constraints_t,
-                                        pool=pool)
-        return trace, w, None
+    proposal logjp``. The particles start at the global index ``offset``
+    (:func:`tier_call`). Returns (trace, weight, proposed choices or
+    None)."""
     n = num_particles
+    if proposal is None:
+        k, kw = tier_call(kernel.step, key, n, offset, (state,))
+        trace, w = kernel.step.generate(k, (t, state), constraints_t,
+                                        pool=pool, **kw)
+        return trace, w, None
     k_prop, k_mod = _split(key, 2)
     pargs = ((t, state, constraints_t) if proposal_params is None
              else (t, state, constraints_t, proposal_params))
-    pchoices, plogjp = proposal.propose(k_prop, pargs, n, pool=proposal_pool)
+    pchoices, plogjp = proposal.propose(k_prop, pargs, n, pool=proposal_pool,
+                                        offset=offset)
     cons = constraints_t.map(lambda x: x.expand((n,) + tuple(x.shape)))
     cons.merge(pchoices)
     trace, mw = kernel.step.generate_constrained_batched(
-        k_mod, (t, state), cons, pool=pool)
+        k_mod, (t, state), cons, pool=pool, offset=offset)
     return trace, mw - plogjp, pchoices
 
 
@@ -209,13 +234,14 @@ def extend_lanes(kernel, keys, t, state, constraints_t, proposal=None,
 
 
 def _rejuvenate(key, trace, kernel, selection, num_moves, moves=None,
-                record=None):
+                record=None, offset=0):
     """Resample-move rejuvenation: ``num_moves`` regenerative-MH moves of
     every particle over ``selection`` in the step's batched trace. Move r
     takes ``fold_in(key, r)``, split into the regenerate's key and the
-    accept uniforms' (one stream a move). ``moves`` replays ``(pool,
-    accept_u)`` a move; ``record`` receives them. Returns (trace, the
-    accept flags of each move)."""
+    accept uniforms' key; particle i's accept uniform is drawn from
+    ``fold_in(k_acc, offset + i)``, its global index. ``moves`` replays
+    ``(pool, accept_u)`` a move; ``record`` receives them. Returns (trace,
+    the accept flags of each move)."""
     # a selection outside the kernel's address set would silently no-op
     missing = [a for a in selection.leaf_addresses()
                if trace.data.search(a) is None]
@@ -230,9 +256,10 @@ def _rejuvenate(key, trace, kernel, selection, num_moves, moves=None,
         drawn = {}
         new, w = kernel.step.regenerate(k_regen, trace, trace.args,
                                         ArgDiff.NO_CHANGE, selection,
-                                        pool=pool, drawn=drawn)
+                                        pool=pool, drawn=drawn, offset=offset)
         if u is None:
-            u = accept_uniform(k_acc, w)
+            u = uniform_lanes(lanes(k_acc, w.shape[0], w.device,
+                                    offset=offset), (), w.dtype)
         accept = torch.log(u) < w
         trace = tree_select(accept, new, trace)
         accepts.append(accept)
@@ -242,17 +269,21 @@ def _rejuvenate(key, trace, kernel, selection, num_moves, moves=None,
 
 
 def guided_step(s, kernel, k_gen, k_rej, constraints_t, num_particles,
-                proposal, proposal_params, rejuvenation, entry, record=False):
+                proposal, proposal_params, rejuvenation, entry, record=False,
+                offset=0):
     """Extend (bootstrap or guided) and rejuvenate the resampled carry
-    ``s``, one filter step's model half. ``entry`` replays ``(pool,
-    proposal_pool, moves)`` (each None to draw). Returns (trace, weight, the
-    acceptance of each move or None, and with ``record`` the step's record
-    entry less its resample uniform: ``(pool,)`` for a bootstrap step, else
-    ``(pool, proposal_pool, moves)``; None without)."""
+    ``s``, one filter step's model half, over ``num_particles`` particles
+    from the global index ``offset``. ``entry`` replays ``(pool, proposal_pool,
+    moves)`` (each None to draw). Returns (trace, weight, the per-particle
+    accept flags of each move stacked (num_moves, n) or None, and with
+    ``record`` the step's record entry less its resample uniform:
+    ``(pool,)`` for a bootstrap step, else ``(pool, proposal_pool,
+    moves)``; None without)."""
     pool, proposal_pool, moves = entry
     trace, w, pchoices = extend(kernel, k_gen, s.t, s.state, constraints_t,
                                 num_particles, proposal, proposal_params,
-                                pool=pool, proposal_pool=proposal_pool)
+                                pool=pool, proposal_pool=proposal_pool,
+                                offset=offset)
     draws, moved = None, None
     if record:
         proposed = {} if pchoices is None else {
@@ -266,8 +297,9 @@ def guided_step(s, kernel, k_gen, k_rej, constraints_t, num_particles,
     if rejuvenation is not None:
         selection, num_moves = rejuvenation
         trace, accepts = _rejuvenate(k_rej, trace, kernel, selection,
-                                     num_moves, moves=moves, record=moved)
-        acceptance = torch.stack(accepts).to(w.dtype).mean(dim=1)
+                                     num_moves, moves=moves, record=moved,
+                                     offset=offset)
+        acceptance = torch.stack(accepts)
     return trace, w, acceptance, draws
 
 
@@ -285,12 +317,14 @@ def batched_smc_step(s, kernel, constraints_t, num_particles, resampler,
     u, *entry = replay_entry(replay)
     s, parents, ess, resampled, u = _resample(
         k_res, s, resampler, ess_threshold, num_particles, u=u)
-    trace, w, acceptance, draws = guided_step(
+    trace, w, accepts, draws = guided_step(
         s, kernel, k_gen, k_rej, constraints_t, num_particles, proposal,
         proposal_params, rejuvenation, entry, record=record is not None)
     if record is not None:
         record.append((u, *draws))
     new = SMCState(key, trace.retv, s.log_weights + w, s.log_ml, s.t + 1)
+    acceptance = (None if accepts is None
+                  else accepts.to(w.dtype).mean(dim=1))
     return new, (parents, ess, resampled, acceptance)
 
 
@@ -395,14 +429,16 @@ def batched_particle_filter(key, kernel, state0, init_constraints,
 # The vmapped tier: one key stream a particle
 # --------------------------------------------------------------------------
 
-def smc_init(key, kernel, state0, constraints, num_particles, pool=None):
+def smc_init(key, kernel, state0, constraints, num_particles, pool=None,
+             offset=0):
     """Initialize N particles: ONE generate of ``kernel.init`` over args
     ``(state0,)`` with the N lane keys ``split(k_sim, N)``, the
-    reference's vmapped ``init.generate``. ``pool`` replaces the draws of
-    the addresses it holds. Returns (state, the batched init trace)."""
+    reference's vmapped ``init.generate`` (a shard's ``num_particles``
+    from the global index ``offset``). ``pool`` replaces the draws of the
+    addresses it holds. Returns (state, the batched init trace)."""
     k_sim, k_carry = split(key)
     dtype, device = infer_dtype_device((state0,))
-    keys = split_keys(k_sim, num_particles, device)
+    keys = split_keys(k_sim, num_particles, device, offset=offset)
     trace, log_weights = kernel.init.generate(keys, (state0,), constraints,
                                               pool=pool)
     log_ml = torch.zeros((), dtype=dtype, device=device)

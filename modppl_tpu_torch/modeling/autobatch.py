@@ -7,10 +7,12 @@ tracers, so the port's rule is explicit:
 
 - the body runs ONCE, on tensors whose leading axis is the particle axis
   (models index the trailing axes: ``pol[..., 0]``);
-- a site whose params carry no particle axis (``Distribution.batched`` is
-  false) draws one ``(n,)`` plate with ``sample_batch`` from the address's
-  own stream;
-- a site whose params are per-particle draws elementwise from that stream.
+- every site draws one value a particle, particle i from its own lane
+  stream ``fold_in(addr_subkey(key, addr), i)`` (``Distribution.
+  sample_lanes``), ``i`` its GLOBAL index: a shard holding the particles
+  ``[offset, offset + n)`` draws exactly what one device draws for them,
+  whatever the shard count (the reference gets this from partitionable
+  threefry), and particle i's draws do not depend on N.
 
 ``pool`` maps addresses to pre-drawn ``(n,)`` tensors (or ``Standard``
 draws) that replace the draw, as the reference's ``_lane_generate`` pool
@@ -26,7 +28,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from modppl_tpu_torch.core.gfi import Trace
-from modppl_tpu_torch.core.keys import generator
+from modppl_tpu_torch.core.keys import lanes
 from modppl_tpu_torch.core.trie import Trie
 from modppl_tpu_torch.modeling.gen import (
     Gen,
@@ -45,10 +47,10 @@ from modppl_tpu_torch.modeling.handlers import (
 
 def _batch_draw(handler, dist, params, addr):
     """The draw at ``addr`` over ``handler.n`` particles: the pool's, else
-    elementwise from the address's stream (per-particle params) or one
-    ``(n,)`` plate from it (shared params). A (C,) tensor of chain keys
-    gives each chain's block of n / C particles the address's stream of
-    its own chain (``Distribution.sample_lanes`` with ``block``)."""
+    one value a particle from the lane keys ``particle_keys(addr)``. A
+    (C,) tensor of chain keys gives each chain's block of n / C particles
+    the address's stream of its own chain (``Distribution.sample_lanes``
+    with ``block``)."""
     x = pooled(handler.pool, dist, params, addr)
     if x is not None:
         return x
@@ -56,22 +58,43 @@ def _batch_draw(handler, dist, params, addr):
         keys = handler._subkey(addr)
         return dist.sample_lanes(keys, params, dtype=handler.dtype,
                                  block=handler.n // keys.shape[0])
-    g = generator(handler._subkey(addr), handler.device)
-    if dist.batched(params):
-        return dist.sample(g, params, dtype=handler.dtype)
-    return dist.sample_batch(g, (handler.n,), params, dtype=handler.dtype)
+    return dist.sample_lanes(handler.particle_keys(addr), params,
+                             dtype=handler.dtype)
 
 
-class BatchGenerateHandler(GenerateHandler):
-    """GenerateHandler over ``n`` particles at once. A call of another
-    ``Gen`` runs its body over the same ``n`` particles."""
+class _Particles:
+    """The batched handlers' particles: ``n`` of them, from the global
+    index ``offset``."""
 
-    def __init__(self, key, trace, constraints, dtype, device, n, pool=None):
+    def particle_keys(self, addr):
+        """(n,) lane keys at ``addr``: particle i's is
+        ``fold_in(addr_subkey(key, addr), offset + i)``."""
+        return lanes(self._subkey(addr), self.n, self.device,
+                     offset=self.offset)
+
+
+class BatchGenerateHandler(_Particles, GenerateHandler):
+    """GenerateHandler over ``n`` particles at once, the first at the
+    global index ``offset``. A call of another ``Gen`` runs its body over
+    the same particles; a call of any other generative function (``Map``,
+    ``Cond``, ...) runs it over the particles' lane keys at its address,
+    one lane a particle."""
+
+    def __init__(self, key, trace, constraints, dtype, device, n, pool=None,
+                 offset=0):
         super().__init__(key, trace, constraints, dtype, device, pool=pool)
         self.n = n
+        self.offset = offset
 
     def _draw(self, dist, params, addr):
         return _batch_draw(self, dist, params, addr)
+
+    def _sub(self, addr):
+        """A call of another generative function gets the particles' lane
+        keys at ``addr`` (a (C,) tensor of chain keys: its own)."""
+        key, kw = super()._sub(addr)
+        return (key if torch.is_tensor(self.key)
+                else self.particle_keys(addr)), kw
 
     def trace_call(self, gen_fn, args, addr):
         if not isinstance(gen_fn, Gen):
@@ -80,7 +103,8 @@ class BatchGenerateHandler(GenerateHandler):
         subtrace, d_weight = _lane_generate(
             gen_fn, self._subkey(addr), args,
             Trie() if choices is None else choices, self.n,
-            pool=sub_pool(self.pool, addr), device=self.device)
+            pool=sub_pool(self.pool, addr), device=self.device,
+            offset=self.offset)
         if choices is not None:
             self.weight = self.weight + d_weight
         sub = subtrace.data
@@ -89,14 +113,17 @@ class BatchGenerateHandler(GenerateHandler):
         return subtrace.retv
 
 
-class BatchRegenerateHandler(RegenerateHandler):
-    """RegenerateHandler over ``n`` particles at once: a trace whose leaves
-    carry the particle axis, per-particle weights. Its draws are kept in
-    ``drawn``, for a filter's record."""
+class BatchRegenerateHandler(_Particles, RegenerateHandler):
+    """RegenerateHandler over ``n`` particles at once (the first at the
+    global index ``offset``): a trace whose leaves carry the particle axis,
+    per-particle weights. Its draws are kept in ``drawn``, for a filter's
+    record."""
 
-    def __init__(self, key, trace, diff, mask, dtype, device, n, pool=None):
+    def __init__(self, key, trace, diff, mask, dtype, device, n, pool=None,
+                 offset=0):
         super().__init__(key, trace, diff, mask, dtype, device, pool=pool)
         self.n = n
+        self.offset = offset
         self.drawn = {}
 
     def _draw(self, dist, params, addr):
@@ -113,15 +140,16 @@ def _per_particle(x, n, dtype, device):
 
 
 def _lane_generate(gen_fn, key, args, constraints, n, pool=None,
-                   device=None):
-    """``Gen.generate`` over all ``n`` particles with the batch handler, on
-    ``device`` (else the arguments'). Returns (trace, weight) with a
-    per-particle ``(n,)`` weight."""
+                   device=None, offset=0):
+    """``Gen.generate`` over ``n`` particles with the batch handler, on
+    ``device`` (else the arguments'), the first particle at the global
+    index ``offset``. Returns (trace, weight) with a per-particle ``(n,)``
+    weight."""
     constraints = constraints.copy()
     constraints.take_inner()
     dtype, device = infer_dtype_device(args, device)
     g = BatchGenerateHandler(key, Trace(args, Trie(), None, 0.0), constraints,
-                             dtype, device, n, pool=pool)
+                             dtype, device, n, pool=pool, offset=offset)
     trace, weight = run_generate(g, gen_fn.fn, args)
     return trace, _per_particle(weight, n, dtype, device)
 
@@ -133,10 +161,10 @@ class AutoBatchedInit:
         self.inner = inner
         self.__name__ = f"auto_batch({inner.__name__})"
 
-    def generate(self, key, args, constraints, pool=None):
+    def generate(self, key, args, constraints, pool=None, offset=0):
         *a, n = args
         return _lane_generate(self.inner, key, tuple(a), constraints, n,
-                              pool=pool)
+                              pool=pool, offset=offset)
 
 
 class AutoBatchedStep:
@@ -147,21 +175,23 @@ class AutoBatchedStep:
         self.inner = inner
         self.__name__ = f"auto_batch({inner.__name__})"
 
-    def generate(self, key, args, constraints, pool=None):
+    def generate(self, key, args, constraints, pool=None, offset=0):
         t, state = args
         return _lane_generate(self.inner, key, (t, state), constraints,
-                              _num_particles(state), pool=pool)
+                              _num_particles(state), pool=pool,
+                              offset=offset)
 
     def generate_constrained_batched(self, key, args, constraints_batched,
-                                     pool=None):
+                                     pool=None, offset=0):
         """Generate with per-particle constraints: ``constraints_batched``
         carries leaves with a leading particle axis, the guided filter's
         proposed choices merged with the step's observations. The body runs
         once over the particle axis either way, so this is ``generate``."""
-        return self.generate(key, args, constraints_batched, pool=pool)
+        return self.generate(key, args, constraints_batched, pool=pool,
+                             offset=offset)
 
     def regenerate(self, key, trace, args, argdiff, selection, pool=None,
-                   drawn=None):
+                   drawn=None, offset=0):
         """Regenerate ``selection`` in a batched trace: (trace, weight),
         the weight per particle. ``drawn``, a dict, receives the draws."""
         t, state = args
@@ -170,7 +200,7 @@ class AutoBatchedStep:
         g = BatchRegenerateHandler(
             key, Trace(args, trace.data.copy(), trace.retv, trace.logjp),
             argdiff, regenerate_mask(trace, selection), dtype, device, n,
-            pool=pool)
+            pool=pool, offset=offset)
         new, weight = run_regenerate(g, self.inner.fn, args)
         if drawn is not None:
             drawn.update(g.drawn)
@@ -188,9 +218,9 @@ class AutoBatchedPropose:
         self.inner = inner
         self.__name__ = f"auto_batch_propose({inner.__name__})"
 
-    def propose(self, key, args, n, pool=None):
+    def propose(self, key, args, n, pool=None, offset=0):
         trace, _ = _lane_generate(self.inner, key, tuple(args), Trie(), n,
-                                  pool=pool)
+                                  pool=pool, offset=offset)
         dtype, device = infer_dtype_device(args)
         return trace.data, _per_particle(trace.logjp, n, dtype, device)
 

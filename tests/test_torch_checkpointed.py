@@ -274,12 +274,23 @@ def test_sharded_filter_resume_bitwise_and_the_one_shot(tmp_path):
 
 
 def test_checkpointed_filters_refuse_a_mesh(tmp_path):
+    """Anything but a ``parallel.mesh.Mesh`` (or None) is refused; a mesh of
+    this one process runs the one-device filter, bitwise (the multi-shard
+    runs are tests/test_torch_sharded_batched.py's)."""
+    from modppl_tpu_torch.parallel.mesh import make_mesh
+
     init_c, step_c = _spiral_data()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         checkpointed_sharded_particle_filter(
             object(), 0, spiral_scan_kernel(), torch.zeros(2), init_c,
             step_c, 1024, checkpoint_path=str(tmp_path / "m"),
             checkpoint_every=3, device="cpu")
+    one, none = (checkpointed_sharded_particle_filter(
+        mesh, 0, spiral_scan_kernel(), torch.zeros(2), init_c, step_c, 1024,
+        checkpoint_path=str(tmp_path / tag), checkpoint_every=3,
+        auto_batch=True, device="cpu")
+        for mesh, tag in ((make_mesh(), "one"), (None, "none")))
+    _assert_same(one, none)
 
 
 def test_vmapped_checkpointed_filter_matches_kalman(tmp_path):

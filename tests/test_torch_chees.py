@@ -248,8 +248,10 @@ def test_chees_requires_multiple_chains_and_one_device(monkeypatch):
 
     with pytest.raises(ValueError, match="num_chains"):
         tchees.chees_runner(m, (), Trie(), num_chains=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tchees.chees_runner(m, (), Trie(), axis_name="dp", device="cpu")
+    run = tchees.chees_runner(m, (), Trie(), axis_name="dp", device="cpu",
+                              num_warmup=5, num_samples=2)
+    with pytest.raises(RuntimeError, match="outside a mesh"):
+        run(0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     obs = Trie.from_dict({"x": 1.0})
     with pytest.raises(RuntimeError, match="no CUDA device"):

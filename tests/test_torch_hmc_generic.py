@@ -263,15 +263,23 @@ def test_run_warmup_pooled_matches_reference(batched):
 
 
 def test_pooled_sum_is_the_reference_tree_and_one_device_only():
+    """The one-device sum is the reference's tree. Over a mesh axis the
+    sum needs the mesh (``with mesh:``), and over a mesh of this one
+    process it is the same tree; the multi-shard sums are
+    tests/test_torch_sharded_mcmc.py's."""
+    from modppl_tpu_torch.parallel.mesh import make_mesh
+
     x = np.random.default_rng(11).standard_normal((37, 5))
-    np.testing.assert_array_equal(
-        tad._pooled_sum(tensor(x)).numpy(),
-        np.asarray(jad._pooled_sum(jnp.asarray(x), None)))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    want = np.asarray(jad._pooled_sum(jnp.asarray(x), None))
+    np.testing.assert_array_equal(tad._pooled_sum(tensor(x)).numpy(), want)
+    with pytest.raises(RuntimeError, match="outside a mesh"):
         tad._pooled_sum(tensor(x), "dp")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(RuntimeError, match="outside a mesh"):
         tad.run_warmup_pooled(0, tensor(x), _t_step_batched, 10, 0.1,
                               axis_name="dp", batched_transition=True)
+    with make_mesh():
+        np.testing.assert_array_equal(
+            tad._pooled_sum(tensor(x), "dp").numpy(), want)
 
 
 # --------------------------------------------------------------------------
@@ -399,10 +407,25 @@ def test_runner_generic_path_shapes_and_determinism(pooled):
 
 
 def test_runner_refuses_axis_name():
+    """With ``axis_name`` the runner refuses the fused quadratic path, as
+    the reference does, and runs only inside a mesh: over a mesh of this
+    one process it is the one-device run of its chains."""
+    from modppl_tpu_torch.parallel.mesh import make_mesh
+
     X, ys = _logreg_data(16, 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        thmc.hmc_runner(tlr.make_logreg(2), logreg_data_from_numpy(X, ys),
-                        Trie(), num_chains=4, axis_name="dp", device="cpu")
+    args = (tlr.make_logreg(2), logreg_data_from_numpy(X, ys), Trie())
+    kw = dict(num_chains=4, num_warmup=10, num_samples=5, num_leapfrog=3,
+              device="cpu")
+    with pytest.raises(ValueError, match="use_fused_quadratic=True"):
+        thmc.hmc_runner(*args, axis_name="dp", use_fused_quadratic=True,
+                        **kw)
+    run = thmc.hmc_runner(*args, axis_name="dp", **kw)
+    with pytest.raises(RuntimeError, match="outside a mesh"):
+        run(0)
+    with make_mesh():
+        out = run(0)
+    assert out["unconstrained"].shape == (4, 5, 2)
+    assert not out["fused_quadratic"]
 
 
 def test_runner_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

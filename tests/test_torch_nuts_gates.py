@@ -149,9 +149,10 @@ def test_early_stop_reads_change_only_the_leaf_count(monkeypatch):
 
 
 def test_runner_refuses_axis_name_and_needs_a_card_by_default(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        nuts_runner(conjugate, (), _conj_obs(), axis_name="chains",
-                    device="cpu")
+    run = nuts_runner(conjugate, (), _conj_obs(), axis_name="chains",
+                      device="cpu", num_warmup=5, num_samples=2)
+    with pytest.raises(RuntimeError, match="outside a mesh"):
+        run(0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         nuts_runner(conjugate, (), _conj_obs())
