@@ -377,6 +377,55 @@ are four processes on one card, not four cards.
     bitwise, or else the largest differences, the target's value-and-grad
     compared across batch sizes, and both runs held to the posterior gate.
 
+Phases 43-47 (slice 13) drive, through their normal entry points on the
+card, the arms that had run only on the CPU, each at the width of its
+PERF.md section-4 configuration; every run that reaches a kernel is
+counted and bitwise its rerun through the plain versions (which launches
+nothing), every other requires no launch:
+
+43. the guided leg's model at 2^20 x 10 through
+    ``inference/vsmc.batched_particle_filter`` and the one-device sharded
+    entry, each with the locally optimal proposal and one move of x a step,
+    with the learnable proposal at FIVO's start (mismatched, through
+    ``proposal_params``) and with ``auto_batch=False`` and a batch-aware
+    plate kernel: kernel 3 9 times a vsmc run, kernels 1-3 9 times a
+    sharded run, the log-ML within the reference tests' bounds of the
+    Kalman value; then the vmapped ``particle_filter`` with the proposal
+    and the move at 10^4 particles (kernel 3 9 times), against the same
+    key on the CPU by the log-ML;
+44. PMMH at 64 x 4096 with each chain-blocked scheme, 50 iterations:
+    residual, multinomial and stratified launch nothing; systematic on a
+    float64 state (no fused gather) launches kernel 4 once a step; each
+    estimator at a = 0.7 within 0.1 of the Kalman log-ML; then
+    ``fit_proposal`` trained through residual resampling at an ESS
+    threshold of 0.5 (N 256, batch 4, 400 steps), the reference test's
+    gates on the learned parameters; and FIVO's value and gradient at 2^20
+    with ``ess_threshold=0.5`` through kernel 3's backward, bitwise the
+    plain rerun's under deterministic algorithms;
+45. NUTS with per-chain adaptation on the hierarchical target (8 chains,
+    100 + 100), phase 15's per-chain HMC run timed, ``hmc_runner`` on the
+    gamma-prior scale model (Exp bijector) at 10^4 chains, 100 + 100, and
+    ``parallel_tempering(move="mala")`` at 6 x 4 x 400, each at its
+    reference test's posterior gate;
+46. at 2^20 lanes: ``Switch`` under ``importance_sampling`` (P(k | y)
+    within 4 Monte Carlo standard errors), ``PointedModel(vectorized=
+    True)`` (log-ML within 0.05 of log 1/100), ``Map`` over lanes, under
+    the batched tier and with ``shared_choices`` (weights the float64 sums
+    of their terms), and ``mvnormal`` on a rank-deficient covariance
+    computed on the card (the eigendecomposition factor, T T^T = cov
+    within 1e-10);
+47. ``parallel/distributed.sharded_particle_filter`` on BASELINE
+    configs[2]'s spiral (10^4 x 12) at dp = 1, 2 and 4, bitwise across dp
+    and bitwise ``vsmc.particle_filter`` (kernel 3 11 times a rank);
+    ``sharded_hmc`` and ``nuts_runner(axis_name="dp")`` at 8192 chains, 20
+    + 10, bitwise across dp. The dp = 2 and 4 runs are in the ranks that
+    phases 39-42 spawn.
+
+    python3 chip_smoke.py --slice13
+
+builds the kernels and runs phases 43-47 alone (phase 47 with ranks of
+its own).
+
 Each group of phases prints its seconds as it ends (``# seconds:``).
 
 ``--profile`` adds a torch.profiler breakdown by kernel of one run of each
@@ -2992,9 +3041,10 @@ def profile_nuts(device="cuda"):
         profile_run(f"nuts leg {NUTS_PROFILED}", lambda: run(7), wall)
 
 
-def run_pf_spiral(device, seed, **kwargs):
+def run_pf_spiral(device, seed, n=PF_PARTICLES, **kwargs):
     """BASELINE configs[2]: the spiral ScanKernel through the vmapped
-    ``particle_filter``, float32, systematic, PF_PARTICLES x PF_STEPS."""
+    ``particle_filter``, float32, systematic, ``n`` (PF_PARTICLES) x
+    PF_STEPS."""
     from modppl_tpu_torch.core.trie import Trie
     from modppl_tpu_torch.inference.vsmc import particle_filter
     from modppl_tpu_torch.models.spiral import spiral_scan_kernel
@@ -3004,7 +3054,7 @@ def run_pf_spiral(device, seed, **kwargs):
         seed, spiral_scan_kernel(),
         torch.zeros(2, dtype=torch.float32, device=device),
         Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}),
-        PF_PARTICLES, resampling="systematic", ess_threshold=1.0,
+        n, resampling="systematic", ess_threshold=1.0,
         store_traces=False, device=device, **kwargs)
 
 
@@ -5205,18 +5255,22 @@ def shard_spiral(mesh, device, **kw):
 
 
 def slice12_rank(rank, world, workdir, device, n, num_chains,
-                 backend="gloo"):
-    """One rank of phases 39-42's group (``python3 chip_smoke.py
+                 backend="gloo", groups="39-42,47", pf_particles=PF_PARTICLES,
+                 pow2_chains=None):
+    """One rank of the spawned phases (``python3 chip_smoke.py
     --slice12-rank <rank> <world> <workdir> <device> <N> <chains>
-    <backend>``, as ``spawn_shards`` starts it): the dp = 2 (ranks 0-1)
-    and dp = world runs of N particles and ``num_chains`` chains, on the
-    card this rank shares with the others over gloo, or on its own card
-    over nccl (``device="cpu"`` rehearses on the CPU). Rank 0 writes what
-    it saw to ``workdir/slice12.json`` and phase 42's chains to
+    <backend> <groups> <pf_particles> <pow2_chains>``, as ``spawn_shards``
+    starts it): the dp = 2 (ranks 0-1) and dp = world runs of phases 39-42
+    (N particles, ``num_chains`` chains) and of phase 47
+    (``pf_particles``, ``pow2_chains``), each where ``groups`` names it, on
+    the card this rank shares with the others over gloo, or on its own
+    card over nccl (``device="cpu"`` rehearses on the CPU). Rank 0 writes
+    what it saw to ``workdir/slice12.json`` and phase 42's chains to
     ``workdir/chains.npz``."""
     global N
     N = int(n)
     SHARD_HMC["num_chains"] = int(num_chains)
+    groups = groups.split(",")
     from modppl_tpu_torch.parallel import sharded_smc as smc
     from modppl_tpu_torch.parallel.collectives import barrier
     from modppl_tpu_torch.parallel.mesh import initialize_runtime, make_mesh
@@ -5225,65 +5279,71 @@ def slice12_rank(rank, world, workdir, device, n, num_chains,
                        backend=backend, timeout=SHARD_COLLECTIVE_TIMEOUT)
     meshes = {2: make_mesh(dp=2, ranks=[0, 1]), world: make_mesh(dp=world)}
     seen, chains = {}, {}
-    t0 = time.perf_counter()
-    for dp, mesh in meshes.items():
-        if not mesh.member:
-            continue
-        s = shard_spiral(mesh, device)
-        s["ms"] = timed_sharded(lambda i: run_filter(
-            device, N, 101 + i, mesh=mesh, store_ancestry=False), mesh,
-            device)
-        seen[f"39/dp{dp}"] = s
-    seen["39/seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mesh = meshes[world]
-    seen[f"40/threshold/dp{world}"] = shard_spiral(mesh, device,
-                                                   ess_threshold=0.5)
-    seen[f"40/halo1/dp{world}"] = shard_spiral(mesh, device, halo=1)
-    if meshes[2].member:
-        out, launches = counted(lambda: run_guided(
-            device, N, SHARD_GUIDED_SEED, mesh=meshes[2]))
-        whole = whole_outputs(meshes[2], out)
-        with sharded_plain_versions():
-            plain = whole_outputs(meshes[2], run_guided(
+    if "39-42" in groups:
+        t0 = time.perf_counter()
+        for dp, mesh in meshes.items():
+            if not mesh.member:
+                continue
+            s = shard_spiral(mesh, device)
+            s["ms"] = timed_sharded(lambda i: run_filter(
+                device, N, 101 + i, mesh=mesh, store_ancestry=False), mesh,
+                device)
+            seen[f"39/dp{dp}"] = s
+        seen["39/seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh = meshes[world]
+        seen[f"40/threshold/dp{world}"] = shard_spiral(mesh, device,
+                                                       ess_threshold=0.5)
+        seen[f"40/halo1/dp{world}"] = shard_spiral(mesh, device, halo=1)
+        if meshes[2].member:
+            out, launches = counted(lambda: run_guided(
                 device, N, SHARD_GUIDED_SEED, mesh=meshes[2]))
-        seen["40/guided/dp2"] = {
-            "digests": digests_of(whole, GUIDED_DIGESTS),
-            "plain_digests": digests_of(plain, GUIDED_DIGESTS),
-            "launches": launches, "log_ml": float(out["log_ml"]),
-            "ms": timed_sharded(lambda i: run_guided(
-                device, N, 101 + i, mesh=meshes[2]), meshes[2], device)}
-    seen["40/seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if meshes[2].member:
-        path = f"{workdir}/ckpt_dp2"
-        head, launches = counted(lambda: run_ckpt_sharded(
-            device, path, num_steps=CKPT_HEAD + 1, mesh=meshes[2]))
-        resumed, more = counted(lambda: run_ckpt_sharded(
-            device, path, resume_from=path, mesh=meshes[2]))
-        whole = whole_outputs(meshes[2], resumed)
-        seen["41/dp2"] = {"digests": digests_of(whole, CKPT_OUTPUTS),
-                          "t": int(resumed["t"]),
-                          "launches": {k: launches[k] + more[k]
-                                       for k in launches}}
-    seen["41/seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for sampler in ("hmc", "chees"):
-        with mesh:
-            barrier("dp")
-        c0 = time.perf_counter()
-        out, launches = counted(lambda: shard_chains(mesh, sampler, device))
-        ms = [(time.perf_counter() - c0) * 1e3]
-        for k in CHAIN_DIGESTS:
-            v = out[k]
-            chains[f"{sampler}/{k}"] = (mesh.gather(v) if v.ndim else v)
-        pow2 = shard_chains(mesh, sampler, device, SHARD_HMC_POW2)
-        seen[f"42/{sampler}/dp{world}"] = {
-            "launches": launches, "ms": ms,
-            "pow2": digests_of({k: mesh.gather(pow2[k]) if pow2[k].ndim
-                                else pow2[k] for k in CHAIN_DIGESTS},
-                               CHAIN_DIGESTS)}
-    seen["42/seconds"] = time.perf_counter() - t0
+            whole = whole_outputs(meshes[2], out)
+            with sharded_plain_versions():
+                plain = whole_outputs(meshes[2], run_guided(
+                    device, N, SHARD_GUIDED_SEED, mesh=meshes[2]))
+            seen["40/guided/dp2"] = {
+                "digests": digests_of(whole, GUIDED_DIGESTS),
+                "plain_digests": digests_of(plain, GUIDED_DIGESTS),
+                "launches": launches, "log_ml": float(out["log_ml"]),
+                "ms": timed_sharded(lambda i: run_guided(
+                    device, N, 101 + i, mesh=meshes[2]), meshes[2], device)}
+        seen["40/seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if meshes[2].member:
+            path = f"{workdir}/ckpt_dp2"
+            head, launches = counted(lambda: run_ckpt_sharded(
+                device, path, num_steps=CKPT_HEAD + 1, mesh=meshes[2]))
+            resumed, more = counted(lambda: run_ckpt_sharded(
+                device, path, resume_from=path, mesh=meshes[2]))
+            whole = whole_outputs(meshes[2], resumed)
+            seen["41/dp2"] = {"digests": digests_of(whole, CKPT_OUTPUTS),
+                              "t": int(resumed["t"]),
+                              "launches": {k: launches[k] + more[k]
+                                           for k in launches}}
+        seen["41/seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for sampler in ("hmc", "chees"):
+            with mesh:
+                barrier("dp")
+            c0 = time.perf_counter()
+            out, launches = counted(lambda: shard_chains(mesh, sampler,
+                                                         device))
+            ms = [(time.perf_counter() - c0) * 1e3]
+            for k in CHAIN_DIGESTS:
+                v = out[k]
+                chains[f"{sampler}/{k}"] = (mesh.gather(v) if v.ndim else v)
+            pow2 = shard_chains(mesh, sampler, device, SHARD_HMC_POW2)
+            seen[f"42/{sampler}/dp{world}"] = {
+                "launches": launches, "ms": ms,
+                "pow2": digests_of({k: mesh.gather(pow2[k]) if pow2[k].ndim
+                                    else pow2[k] for k in CHAIN_DIGESTS},
+                                   CHAIN_DIGESTS)}
+        seen["42/seconds"] = time.perf_counter() - t0
+    if "47" in groups:
+        seen.update(slice13_rank(meshes, device, int(pf_particles), dict(
+            S13_SHARD_CHAINS, num_chains=int(
+                pow2_chains or S13_SHARD_CHAINS["num_chains"]))))
     from modppl_tpu_torch.parallel import collectives
 
     seen["gloo_cuda_ops"] = sorted(collectives.GLOO_CUDA_OPS)
@@ -5300,10 +5360,12 @@ def slice12_rank(rank, world, workdir, device, n, num_chains,
 
 
 def spawn_shards(workdir, world=SHARD_WORLD, device="cuda", backend="gloo",
-                 timeout=SHARD_TIMEOUT):
-    """Run ``slice12_rank`` on ``world`` ranks over ``backend``; every rank
-    is killed if the group has not ended within ``timeout`` s. Returns
-    (rank 0's json, its chains, the group's seconds)."""
+                 timeout=SHARD_TIMEOUT, groups="39-42,47",
+                 pf_particles=PF_PARTICLES, pow2_chains=None):
+    """Run ``slice12_rank`` on ``world`` ranks over ``backend``, the phase
+    groups ``groups`` (phases 39-42, 47 or both); every rank is killed if
+    the group has not ended within ``timeout`` s. Returns (rank 0's json,
+    its chains, the group's seconds)."""
     import os
 
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -5311,7 +5373,8 @@ def spawn_shards(workdir, world=SHARD_WORLD, device="cuda", backend="gloo",
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--slice12-rank",
          str(r), str(world), workdir, device, str(N),
-         str(SHARD_HMC["num_chains"]), backend], env=env,
+         str(SHARD_HMC["num_chains"]), backend, groups, str(pf_particles),
+         str(pow2_chains or S13_SHARD_CHAINS["num_chains"])], env=env,
         stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     outs = []
@@ -5324,11 +5387,11 @@ def spawn_shards(workdir, world=SHARD_WORLD, device="cuda", backend="gloo",
             p.kill()
         for p in procs:
             p.communicate()
-        raise AssertionError(f"phases 39-42: the {world} ranks did not end "
-                             f"within {timeout} s; every rank killed")
+        raise AssertionError(f"phases {groups}: the {world} ranks did not "
+                             f"end within {timeout} s; every rank killed")
     for r, (p, out) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"phases 39-42: rank {r} exited "
+            raise AssertionError(f"phases {groups}: rank {r} exited "
                                  f"{p.returncode}:\n{out[-6000:]}")
     with open(f"{workdir}/slice12.json") as f:
         seen = json.load(f)
@@ -5598,6 +5661,1093 @@ def slice12_phases(card, profile, device="cuda", clock=None,
     if clock:
         clock.mark("39-42 sharded filter, HMC")
     return {"dp1": one, "seen": seen}
+
+
+# --------------------------------------------------------------------------
+# slice 13: the ported arms that had run only on the CPU (phases 43-47)
+# --------------------------------------------------------------------------
+
+# FIVO's starting proposal (tests/test_batched_filter.py:155-156): it holds
+# no term of the model, the proposal a user has before any training
+LG_MISMATCHED = dict(w_prev=0.0, w_obs=0.0, bias=0.0, raw_std=0.5)
+LG_PLATE_GAP = 0.12      # tests/test_batched_filter.py:80-86's bound
+LG_ARMS = ("guided", "mismatched", "plate")
+LG_ENTRIES = ("vsmc", "sharded")
+S13_PMMH_ITERS = 25      # a layout check of each chain-blocked scheme
+# the chain-blocked schemes; "systematic" here runs a float64 state, which
+# kernel 3 does not take, so its parents come from kernel 4
+S13_SCHEMES = ("residual", "multinomial", "stratified", "systematic")
+S13_FIVO = dict(FIVO, resampling="residual", ess_threshold=0.5)
+S13_FIVO_GRAD_ESS = 0.5
+# tests/test_nuts.py:135-150's per-chain arm (8 chains, max_depth 6) on the
+# hierarchical target, cut in depth from 300 + 600
+S13_NUTS_PER_CHAIN = dict(num_chains=8, num_warmup=40, num_samples=40,
+                          max_depth=6, pooled_adaptation=False)
+# phase 15's per-chain run (LOGREG_PER_CHAIN) cut in depth from 200 + 200
+S13_HMC_PER_CHAIN = (LOGREG_PER_CHAIN[0], 100, 100)
+# tests/test_hmc_vi.py:61-76 (4 chains, 500 + 1500, L = 16) widened to
+# nuts-positive-support-10^4's chains and cut in depth
+S13_HMC_SCALE = dict(num_chains=10_000, num_warmup=60, num_samples=60)
+S13_HMC_SCALE_GAP = 0.08
+PT_MALA_STEP = 0.3       # tests/test_smc_sampler.py:60-66's MALA step
+S13_LANES = 1 << 20      # cond-is-2^20's lanes
+SWITCH_MUS = (-1.0, 0.0, 1.0)
+SWITCH_SD = 0.1
+SWITCH_Y = 0.7
+SWITCH_SE = 4.0
+POINTED_COV = ((1.0, -0.6), (-0.6, 2.0))   # tests/test_importance.py
+POINTED_GAP = 0.05       # tests/test_importance.py's log-ML bound
+MAP_XS = (1.0, 2.0, 3.0)
+MAP_YS = (0.5, 1.1, 1.4)
+# tests/test_torch_mvnormal_nonpd.py's rank-2 covariance of 3, here the
+# product B B^T computed on the device
+NONPD_B = ((1.0, 0.0), (1.0, 0.0), (0.0, math.sqrt(2.0)))
+NONPD_TOL = 1e-10        # the CPU test's tolerance, float64
+NONPD_SE = 4.0
+# phase 47: BASELINE configs[2]'s spiral and the pooled chains at a power
+# of two (bitwise across dp)
+S13_SHARD_CHAINS = dict(num_chains=8192, num_warmup=20, num_samples=10)
+
+
+def on_card(device, want):
+    """The launches an arm must make: ``want`` on the card, none on the
+    CPU, where every wrapper computes its plain version."""
+    return want if torch.device(device).type == "cuda" else {}
+
+
+_LG_BATCHED = {}
+
+
+def lg_batch_aware():
+    """The guided leg's model as a batch-aware kernel (plate sites), the
+    reference's lg_init_batched / lg_step_batched
+    (tests/test_batched_filter.py:25-38)."""
+    if not _LG_BATCHED:
+        from modppl_tpu_torch.dists import normal, plate
+        from modppl_tpu_torch.inference.vsmc import ScanKernel
+        from modppl_tpu_torch.modeling import gen
+
+        @gen
+        def init(h, _s0, n):
+            x = h.sample(plate(normal, n), (0.0, 1.0), "x")
+            h.sample(normal, (x, LG_R), "y")
+            return x
+
+        @gen
+        def step(h, t, prev):
+            x = h.sample(plate(normal, prev.shape[0]), (LG_A * prev, LG_Q),
+                         "x")
+            h.sample(normal, (x, LG_R), "y")
+            return x
+
+        _LG_BATCHED["kernel"] = ScanKernel(init, step)
+    return _LG_BATCHED["kernel"]
+
+
+def run_lg(entry, arm, device, n, seed, **kwargs):
+    """The guided leg's model and data (``lg_observations``, float32)
+    through ``entry``: "vsmc" is ``inference/vsmc.batched_particle_filter``,
+    "sharded" ``sharded_batched_particle_filter`` on one device. ``arm``:
+    "guided", the locally optimal proposal and one move of x a step (the
+    leg's); "mismatched", the learnable proposal at LG_MISMATCHED through
+    ``proposal_params``; "plate", ``auto_batch=False`` with the batch-aware
+    kernel. Systematic, every step resampling."""
+    from modppl_tpu_torch.core import Trie, select
+    from modppl_tpu_torch.inference.vsmc import (
+        ScanKernel,
+        batched_particle_filter,
+    )
+    from modppl_tpu_torch.parallel.sharded_smc import (
+        sharded_batched_particle_filter,
+    )
+
+    init, step, prop = lg_models()
+    ys = torch.tensor(lg_observations(), device=device)
+    if arm == "plate":
+        kernel, kw = lg_batch_aware(), {"auto_batch": False}
+    elif arm == "guided":
+        kernel = ScanKernel(init, step)
+        kw = {"auto_batch": True, "proposal": prop,
+              "rejuvenation": (select("x"), 1)}
+    else:
+        kernel = ScanKernel(init, step)
+        kw = {"auto_batch": True, "proposal": fivo_proposal(),
+              "proposal_params": fivo_params(device, **LG_MISMATCHED)}
+    args = (seed, kernel, torch.zeros((), dtype=torch.float32, device=device),
+            Trie.from_dict({"y": ys[0]}), Trie.from_dict({"y": ys[1:]}), n)
+    kw.update(kwargs, ess_threshold=1.0, device=device)
+    if entry == "vsmc":
+        return batched_particle_filter(*args, **kw)
+    return sharded_batched_particle_filter(None, *args, **kw)
+
+
+def check_lg_arm(entry, arm, device="cuda", n=N):
+    """Phase 43 (a)-(c): one arm on one entry with the counters at 0:
+    kernel 3 T - 1 times and no other kernel through vsmc (the batched
+    filter's systematic resampling of a float32 state is the fused gather
+    alone, modppl_tpu/inference/vsmc.py:93-96), kernels 1-3 T - 1 times each
+    through the sharded entry; the log-ML within the reference test's bound
+    of the exact Kalman value (LG_LOG_ML_GAP with a proposal,
+    LG_PLATE_GAP for the bootstrap plate kernel); the moves' acceptance in
+    (0, 1); every output bitwise its rerun through the plain versions on
+    the recorded draws. Timed. Returns what was seen."""
+    exact = lg_kalman_log_ml(lg_observations())
+    rec = []
+    sync(device)
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: run_lg(entry, arm, device, n, 43,
+                                           record=rec))
+    wall = time.perf_counter() - t0
+    want = ({"resample_fused_from_s": T - 1} if entry == "vsmc"
+            else {k: T - 1 for k in GUIDED_KERNELS})
+    what = f"phase 43 {entry} {arm}"
+    require_launches(what, launches, on_card(device, want))
+    log_ml = float(out["log_ml"])
+    gap = abs(log_ml - exact)
+    bound = LG_PLATE_GAP if arm == "plate" else LG_LOG_ML_GAP
+    acc = (None if out["acceptance"] is None
+           else float(out["acceptance"].double().mean()))
+    seen = {"log_ml": log_ml, "exact": exact, "gap": gap, "bound": bound,
+            "acceptance": acc, "ms": wall * 1e3,
+            "launches": {k: v for k, v in launches.items() if v}}
+    if not (math.isfinite(log_ml) and gap <= bound
+            and out["state"].shape == (n,)
+            and bool(out["state"].isfinite().all())
+            and (arm != "guided" or 0.0 < acc < 1.0)):
+        raise AssertionError(f"{what}: {seen}")
+    sync(device)
+    t0 = time.perf_counter()
+    with plain_versions():
+        plain = run_lg(entry, arm, device, n, 43, replay=rec)
+    sync(device)
+    seen["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    require_equal(what, out, plain, FILTER_OUTPUTS + (
+        () if acc is None else ("acceptance",)))
+    return seen
+
+
+def run_lg_vmapped(device, n, seed, **kwargs):
+    """The guided leg's model through the vmapped ``particle_filter``, with
+    the locally optimal proposal and one move of x a step, systematic."""
+    from modppl_tpu_torch.core import Trie, select
+    from modppl_tpu_torch.inference.vsmc import ScanKernel, particle_filter
+
+    init, step, prop = lg_models()
+    ys = torch.tensor(lg_observations(), device=device)
+    return particle_filter(
+        seed, ScanKernel(init, step),
+        torch.zeros((), dtype=torch.float32, device=device),
+        Trie.from_dict({"y": ys[0]}), Trie.from_dict({"y": ys[1:]}), n,
+        resampling="systematic", ess_threshold=1.0, store_traces=False,
+        proposal=prop, rejuvenation=(select("x"), 1), device=device,
+        **kwargs)
+
+
+def check_lg_vmapped(device="cuda", n=PF_PARTICLES):
+    """Phase 43 (d): the vmapped filter with a proposal and moves at
+    pf-vmapped-spiral-10^4's particle count, counters at 0: kernel 3 T - 1
+    times and no other kernel; the log-ML within LG_LOG_ML_GAP of the
+    Kalman value, acceptance in (0, 1), bitwise its plain rerun on the
+    recorded draws. On the card, the same key on the CPU too: both within
+    the gate and within LG_LOG_ML_GAP of each other (their exp and log
+    round differently, so the runs part after the first resample; the
+    comparison is by the estimator's Monte Carlo error). Timed."""
+    exact = lg_kalman_log_ml(lg_observations())
+    rec = []
+    sync(device)
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: run_lg_vmapped(device, n, 44,
+                                                   record=rec))
+    wall = time.perf_counter() - t0
+    require_launches("phase 43 vmapped", launches,
+                     on_card(device, {"resample_fused_from_s": T - 1}))
+    log_ml = float(out["log_ml"])
+    acc = float(out["acceptance"].double().mean())
+    seen = {"log_ml": log_ml, "exact": exact, "acceptance": acc,
+            "ms": wall * 1e3,
+            "launches": {k: v for k, v in launches.items() if v}}
+    if torch.device(device).type == "cuda":
+        seen["log_ml_cpu"] = float(run_lg_vmapped("cpu", n, 44)["log_ml"])
+    if not (abs(log_ml - exact) <= LG_LOG_ML_GAP and 0.0 < acc < 1.0
+            and abs(seen.get("log_ml_cpu", log_ml) - exact) <= LG_LOG_ML_GAP
+            and abs(seen.get("log_ml_cpu", log_ml) - log_ml)
+            <= LG_LOG_ML_GAP):
+        raise AssertionError(f"phase 43 vmapped: {seen}")
+    with plain_versions():
+        plain = run_lg_vmapped(device, n, 44, replay=rec)
+    require_equal("phase 43 vmapped", out, plain,
+                  FILTER_OUTPUTS + ("acceptance",))
+    return seen
+
+
+def plain_blocked_rank():
+    """Kernel 4's plain version where the chain-blocked resampler calls it
+    (an unfusable systematic state)."""
+    from modppl_tpu_torch.ops import resample as rs
+    from modppl_tpu_torch.parallel import resample
+
+    return swapped([(resample, "grid_rank", rs.grid_rank_plain)])
+
+
+def check_blocked_scheme(scheme, device="cuda", num_chains=None, n=None,
+                         iters=S13_PMMH_ITERS):
+    """Phase 44 (a): ``pmmh`` over ``smc_log_ml_fn(resampling=scheme)`` at
+    PMMH's chains x particles. Residual, multinomial and stratified
+    resample inside each chain's block with no kernel (the latter two rank
+    by ``grid_rank_plain``, as the reference's one-chain forms are plain
+    XLA); "systematic" runs the model in float64, a state kernel 3 does
+    not take, so each step's parents come from kernel 4 on the blocked S
+    (``parallel/resample.py:260``), once a step for every chain. Gate:
+    phase 28's estimator at a = 0.7 over four chain keys within
+    PMMH_ML_GAP of the Kalman log-ML; then ``iters`` PMMH iterations, all
+    finite and each accept rate in [0, 1]; the kernel-4 arm bitwise its
+    rerun through kernel 4's plain version. Timed."""
+    from modppl_tpu_torch.core.keys import split_keys
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.pmcmc import pmmh, smc_log_ml_fn
+
+    c = num_chains or PMMH["num_chains"]
+    n = n or PMMH["num_particles"]
+    dtype = torch.float64 if scheme == "systematic" else torch.float32
+    make_kernel, ys = pmmh_model(device)
+    ys = ys.to(dtype)
+    _, exact_ml = pmmh_oracle(PMMH_YS)
+    fn = smc_log_ml_fn(make_kernel, torch.zeros((), dtype=dtype,
+                                                device=device),
+                       Trie.from_dict({"obs": ys[0]}),
+                       Trie.from_dict({"obs": ys[1:]}), n,
+                       resampling=scheme, auto_batch=True, device=device)
+    steps = PMMH["steps"] - 1
+    rank = {"grid_rank": steps} if scheme == "systematic" else {}
+
+    def estimate():
+        return fn(split_keys(11, 4, device),
+                  torch.full((4,), 0.7, dtype=dtype, device=device))
+
+    est, launches = counted(estimate)
+    what = f"phase 44 {scheme}"
+    require_launches(f"{what} estimator", launches, on_card(device, rank))
+
+    def log_prior(a):
+        return torch.where(a.abs() < 0.99, 0.0, -math.inf)
+
+    def run():
+        return pmmh(1, log_prior, fn, torch.tensor(0.2, dtype=dtype),
+                    num_samples=iters, num_chains=c,
+                    step_size=PMMH["step_size"], device=device)
+
+    sync(device)
+    t0 = time.perf_counter()
+    out, launches = counted(run)
+    wall = time.perf_counter() - t0
+    require_launches(what, launches, on_card(device, {
+        k: (1 + iters) * v for k, v in rank.items()}))
+    acc = out["accept_rate"].double()
+    seen = {"estimate": float(est.double().mean()), "kalman": exact_ml,
+            "dtype": str(dtype).replace("torch.", ""),
+            "accept": float(acc.mean()), "ms_an_iteration":
+            wall * 1e3 / iters, "launches": launches.get("grid_rank", 0)}
+    if not (abs(seen["estimate"] - exact_ml) < PMMH_ML_GAP
+            and bool(torch.isfinite(out["samples"]).all())
+            and out["samples"].shape[:2] == (c, iters)
+            and bool(((acc >= 0) & (acc <= 1)).all())):
+        raise AssertionError(f"{what}: {seen}")
+    if rank:
+        with plain_blocked_rank():
+            p_est = estimate()
+            plain = run()
+        if not (torch.equal(est, p_est)
+                and torch.equal(out["samples"], plain["samples"])
+                and torch.equal(out["accept_rate"], plain["accept_rate"])):
+            raise AssertionError(f"{what}: differs from its rerun through "
+                                 f"kernel 4's plain version")
+    return seen
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms for the block: a gather's
+    adjoint (``index_add_``, an indexing backward) then adds a CUDA
+    tensor's duplicate indices in one fixed order, not by atomics."""
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved)
+
+
+def check_fivo_resampled(device="cuda", config=None,
+                         grad_particles=FIVO_GRAD_PARTICLES):
+    """Phase 44 (b): ``fit_proposal`` at fivo-lg's configuration
+    (``config``, S13_FIVO by default) with chain-blocked residual
+    resampling under an ESS threshold, counters at 0 (no launch), under
+    deterministic algorithms (the gathers' backward adds by atomics
+    otherwise, and 400 Adam steps carry those last bits into the learned
+    parameters, which then differ from call to call), and the
+    reference FIVO test's gates on the learned parameters (w_obs within
+    0.15, the std within 0.1 of the optimal proposal's); its two gates on
+    the bound (sd under half the initial proposal's, mean within 0.1 of
+    the Kalman log-ML) are printed, not held: trained through resampling,
+    the reference misses them too at this configuration (the resampled
+    filter's gradient is biased, tests/test_batched_filter.py:158-159;
+    ``tests/test_torch_fivo.py::
+    test_resampled_training_misses_the_bound_gates``). Then the value
+    and gradient of ``fivo_objective(auto_batch=True, systematic,
+    ess_threshold=S13_FIVO_GRAD_ESS)`` at ``grad_particles``: kernel 3
+    once a step (both arms of the threshold run; the gradient reaches the
+    ancestors at the steps that resample), value and gradient bitwise the
+    plain rerun's, both under PyTorch's deterministic algorithms."""
+    from modppl_tpu_torch.core.keys import split
+    from modppl_tpu_torch.inference.fivo import fit_proposal, fivo_objective
+
+    cfg = dict(config or S13_FIVO)
+    kernel, prop, s0, ic, sc = fivo_inputs(device)
+    want = lg_kalman_log_ml(FIVO_YS)
+    prec = 1.0 / LG_Q ** 2 + 1.0 / LG_R ** 2
+    start = fivo_params(device, **LG_MISMATCHED)
+    sync(device)
+    t0 = time.perf_counter()
+    with deterministic():
+        (params, bounds), launches = counted(lambda: fit_proposal(
+            0, kernel, prop, start, s0, ic, sc, cfg["num_particles"],
+            num_steps=cfg["num_steps"], learning_rate=cfg["learning_rate"],
+            batch_size=cfg["batch_size"], resampling=cfg["resampling"],
+            ess_threshold=cfg["ess_threshold"], device=device))
+    wall = time.perf_counter() - t0
+    require_launches("phase 44 fit_proposal", launches, {})
+
+    def bound_stats(p):
+        vals = torch.stack([fivo_objective(
+            k, kernel, prop, p, s0, ic, sc, cfg["num_particles"],
+            device=device) for k in split(99, 32)]).double()
+        return float(vals.mean()), float(vals.std())
+
+    (mean_tr, std_tr), launches = counted(lambda: bound_stats(params))
+    require_launches("phase 44 fivo bounds", launches, {})
+    _, std_init = bound_stats(start)
+    std = float(torch.nn.functional.softplus(params["raw_std"]))
+    seen = {"w_obs": float(params["w_obs"]), "w_obs_opt": 1 / LG_R ** 2 / prec,
+            "std": std, "std_opt": 1 / math.sqrt(prec), "mean": mean_tr,
+            "kalman": want, "std_trained": std_tr, "std_init": std_init,
+            "ms_a_step": wall * 1e3 / cfg["num_steps"]}
+    if not (abs(seen["w_obs"] - seen["w_obs_opt"]) <= 0.15
+            and abs(std - seen["std_opt"]) <= 0.1
+            and bool(torch.isfinite(bounds).all())):
+        raise AssertionError(f"phase 44 fit_proposal: {seen}")
+
+    leaves = {k: v.detach().clone().requires_grad_()
+              for k, v in params.items()}
+
+    def grad_run():
+        val = fivo_objective(7, kernel, prop, leaves, s0, ic, sc,
+                             grad_particles, resampling="systematic",
+                             ess_threshold=S13_FIVO_GRAD_ESS,
+                             auto_batch=True, device=device)
+        return val, torch.autograd.grad(val, tuple(leaves.values()))
+
+    with deterministic():
+        sync(device)
+        t0 = time.perf_counter()
+        (val, grads), launches = counted(grad_run)
+        seen["grad_ms"] = (time.perf_counter() - t0) * 1e3
+        require_launches("phase 44 fivo gradient", launches, on_card(
+            device, {"resample_fused_from_s": len(FIVO_YS) - 1}))
+        with plain_versions():
+            p_val, p_grads = grad_run()
+    g, p_g = torch.stack(grads), torch.stack(p_grads)
+    seen.update(grad_value=float(val.detach()), grad=g.tolist(),
+                grad_launches=launches["resample_fused_from_s"],
+                grad_max_diff=float((g - p_g).abs().max()))
+    if not (torch.equal(val, p_val) and torch.equal(g, p_g)
+            and bool(torch.isfinite(g).all()) and bool((g != 0).all())):
+        raise AssertionError(f"phase 44 fivo gradient through kernel 3 "
+                             f"(ess_threshold {S13_FIVO_GRAD_ESS}): {seen}, "
+                             f"plain {float(p_val)!r} {p_g.tolist()}")
+    return seen
+
+
+def check_nuts_per_chain(device="cuda", config=None):
+    """Phase 45: ``nuts_runner(pooled_adaptation=False)`` on the
+    hierarchical target at S13_NUTS_PER_CHAIN, counters at 0 (no launch),
+    timed: one step size a chain, phase 24's posterior gate (finite draws,
+    the pooled mean of a, b, c within NUTS_SE posterior sd / sqrt(min ESS)
+    of the exact one), divergences below NUTS_MAX_DIVERGENCE."""
+    cfg = dict(config or S13_NUTS_PER_CHAIN)
+    with full_fp32():
+        run = make_nuts_leg(device, **cfg)
+        sync(device)
+        t0 = time.perf_counter()
+        out, launches = counted(lambda: run(0))
+        wall = time.perf_counter() - t0
+    require_launches("phase 45 nuts per chain", launches, {})
+    us, ess = logreg_summary(out)
+    mean = us.reshape(-1, 3).mean(0)
+    exact, sd = chees_exact()
+    bound = NUTS_SE * sd / math.sqrt(ess.min())
+    seen = {"means": mean.tolist(), "exact": exact.tolist(),
+            "bound": bound.tolist(), "ess": float(ess.min()), "wall_s": wall,
+            "divergence_rate": float(out["divergences"].double().mean()),
+            "leaves_a_transition": run.chains.leaves
+            / (cfg["num_warmup"] + cfg["num_samples"])}
+    if us.shape != (cfg["num_chains"], cfg["num_samples"], 3) or \
+            not np.isfinite(us).all() or \
+            not (np.abs(mean - exact) <= bound).all() or \
+            out["step_size"].shape != (cfg["num_chains"],) or \
+            not seen["divergence_rate"] < NUTS_MAX_DIVERGENCE:
+        raise AssertionError(f"phase 45 nuts per chain: {seen}")
+    return seen
+
+
+def check_hmc_per_chain(device="cuda", config=S13_HMC_PER_CHAIN,
+                        oracle_draws=LOGREG_ORACLE_DRAWS):
+    """Phase 45: phase 15's per-chain path (``hmc_runner(
+    pooled_adaptation=False)`` on logistic regression at ``config``, chains,
+    warmup, samples) timed, counters at 0 (no launch): inverse mass (chains,
+    d), the posterior mean within LOGREG_PER_CHAIN_GAP of the oracle."""
+    chains, warm, samp = config
+    X, ys = logreg_data(device)
+    oracle = logreg_oracle(X.cpu().numpy(), ys.cpu().numpy(),
+                           draws=oracle_draws)[0]
+    with full_fp32():
+        run = make_logreg_leg(device, num_chains=chains, num_warmup=warm,
+                              num_samples=samp, pooled_adaptation=False)
+        sync(device)
+        t0 = time.perf_counter()
+        out, launches = counted(lambda: run(0))
+        wall = time.perf_counter() - t0
+    require_launches("phase 45 hmc per chain", launches, {})
+    us, ess = logreg_summary(out)
+    gap = np.abs(us.reshape(-1, LOGREG["dim"]).mean(0) - oracle)
+    seen = {"gap": float(gap.max()), "wall_s": wall, "ess": float(ess.min()),
+            "accept": float(out["accept_prob"].double().mean())}
+    if out["inv_mass"].shape != (chains, LOGREG["dim"]) or \
+            out["step_size"].shape != (chains,) or \
+            not np.isfinite(us).all() or \
+            not (gap <= LOGREG_PER_CHAIN_GAP).all():
+        raise AssertionError(f"phase 45 hmc per chain: {seen}")
+    return seen
+
+
+def check_hmc_scale(device="cuda", config=None):
+    """Phase 45: ``hmc_runner`` on the gamma-prior scale model (the Exp
+    bijector) at S13_HMC_SCALE from the reference's start, counters at 0
+    (no launch), timed: every scale > 0, the mean within S13_HMC_SCALE_GAP
+    of the quadrature oracle (tests/test_hmc_vi.py:61-76)."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.hmc import hmc_runner
+
+    cfg = dict(config or S13_HMC_SCALE)
+    model = small_models(device)["scale_model"]
+    obs = Trie.from_dict({"ys": torch.tensor(SCALE_YS, dtype=torch.float32,
+                                             device=device)})
+    with full_fp32():
+        run = hmc_runner(model, (), obs, setup_key=99, device=device, **cfg)
+        sync(device)
+        t0 = time.perf_counter()
+        out, launches = counted(lambda: run(0))
+        wall = time.perf_counter() - t0
+    require_launches("phase 45 hmc scale", launches, {})
+    scales = out["samples"]["scale"].double()
+    exact, _ = scale_posterior()
+    seen = {"mean": float(scales.mean()), "exact": exact,
+            "min_scale": float(scales.min()), "wall_s": wall,
+            "fused": bool(out["fused_quadratic"]),
+            "accept": float(out["accept_prob"].double().mean())}
+    if scales.shape != (cfg["num_chains"], cfg["num_samples"]) or \
+            seen["fused"] or not seen["min_scale"] > 0 or \
+            not abs(seen["mean"] - exact) <= S13_HMC_SCALE_GAP:
+        raise AssertionError(f"phase 45 hmc scale: {seen}")
+    return seen
+
+
+def check_pt_mala(device="cuda", config=None):
+    """Phase 45: ``parallel_tempering(move="mala")`` at pt-conjugate's PT
+    (``config``), counters at 0 (no launch), timed: the reference test's
+    gates, the cold chain's mean and sd after the burn-in within 0.06 of
+    the conjugate posterior's, swap accept above 0.1."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.tempering import parallel_tempering
+
+    cfg = dict(config or PT)
+    mean, sd, _ = nn_exact()
+    obs = Trie.from_dict({"ys": torch.tensor(SMCS_YS, dtype=torch.float32,
+                                             device=device)})
+    sync(device)
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: parallel_tempering(
+        3, nn_model(), (), obs, num_replicas=cfg["num_replicas"],
+        num_chains=cfg["num_chains"], num_rounds=cfg["num_rounds"],
+        move="mala", step_size=PT_MALA_STEP, device=device))
+    wall = time.perf_counter() - t0
+    require_launches("phase 45 tempering mala", launches, {})
+    mus = out["samples"]["mu"][:, cfg["burn"]:].double().reshape(-1)
+    seen = {"mean": float(mus.mean()), "sd": float(mus.std()),
+            "exact": (mean, sd), "wall_s": wall,
+            "swap": float(out["swap_accept"].double().mean()),
+            "move_accept": float(out["move_accept"].double().mean())}
+    if not (abs(seen["mean"] - mean) <= 0.06 and abs(seen["sd"] - sd) <= 0.06
+            and seen["swap"] > 0.1):
+        raise AssertionError(f"phase 45 tempering mala: {seen}")
+    return seen
+
+
+_S13_MODELS = {}
+
+
+def s13_models():
+    """Phase 46's models: a Switch of three normals on a categorical
+    index, y observed below it; the Map plate of
+    tests/test_torch_combinators.py (``point``, ``regression``) and its
+    ``vec_point``; the batched tier's plated step of
+    tests/test_torch_lane_streams.py."""
+    if not _S13_MODELS:
+        from modppl_tpu_torch.dists import categorical, mvnormal, normal
+        from modppl_tpu_torch.modeling import gen
+        from modppl_tpu_torch.modeling.combinators import Switch
+        from modppl_tpu_torch.modeling.map_combinator import Map
+
+        def branch(mu):
+            @gen
+            def b(h):
+                return h.sample(normal, (mu, SWITCH_SD), "v")
+            return b
+
+        switch = Switch(*(branch(mu) for mu in SWITCH_MUS))
+        probs = [1.0 / len(SWITCH_MUS)] * len(SWITCH_MUS)
+
+        @gen
+        def switch_model(h):
+            k = h.sample(categorical, (torch.tensor(probs, device=h.device),),
+                         "k")
+            v = h.trace(switch, (k,), "s")
+            h.sample(normal, (v, 1.0), "y")
+            return v
+
+        @gen
+        def point(h, mu, x):
+            return h.sample(normal, (mu * x, 0.1), "y")
+
+        plate = Map(point, shared=(1,))
+
+        @gen
+        def regression(h, xs):
+            slope = h.sample(normal, (0.0, 1.0), "slope")
+            return h.trace(plate, (torch.as_tensor(slope)[..., None]
+                                   + torch.zeros_like(xs), xs), "ys")
+
+        @gen
+        def plated_step(h, t, slope):
+            s = h.sample(normal, (slope, 0.2), "slope")
+            xs = torch.tensor(MAP_XS, dtype=s.dtype, device=s.device)
+            h.trace(plate, (s[..., None] + torch.zeros_like(xs), xs), "ys")
+            return s
+
+        @gen
+        def vec_point(h, m):
+            return h.sample(mvnormal, (m, torch.eye(
+                3, dtype=m.dtype, device=m.device)), "v")
+
+        _S13_MODELS.update(switch_model=switch_model, regression=regression,
+                           plated_step=plated_step, vec_point=vec_point)
+    return _S13_MODELS
+
+
+def check_switch(device="cuda", n=S13_LANES):
+    """Phase 46: ``Switch`` under ``importance_sampling`` over ``n`` lanes
+    (k ~ categorical(1/3, 1/3, 1/3), v from the k-th of N(-1, 0.1),
+    N(0, 0.1), N(1, 0.1), y ~ N(v, 1) observed at SWITCH_Y): each P(k | y)
+    within SWITCH_SE Monte Carlo standard errors of its closed form, every
+    lane's v its own branch's draw."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.importance import importance_sampling
+
+    obs = Trie.from_dict({"y": torch.tensor(SWITCH_Y, device=device)})
+    sync(device)
+    t0 = time.perf_counter()
+    (traces, lw, _), launches = counted(lambda: importance_sampling(
+        46, s13_models()["switch_model"], (), obs, n, device=device))
+    wall = time.perf_counter() - t0
+    require_launches("phase 46 Switch", launches, {})
+    w = torch.softmax(lw.double(), 0)
+    k = traces.data.read("k").long()
+    branch = torch.stack([traces.data.read(f"s/{i}/v")
+                          for i in range(len(SWITCH_MUS))])
+    picked = branch[k, torch.arange(n, device=k.device)]
+    s = math.sqrt(1.0 + SWITCH_SD ** 2)
+    f = [math.exp(-0.5 * ((SWITCH_Y - mu) / s) ** 2) for mu in SWITCH_MUS]
+    exact = [x / sum(f) for x in f]
+    ess = 1.0 / float((w * w).sum())
+    est = [float(w[k == i].sum()) for i in range(len(SWITCH_MUS))]
+    se = [math.sqrt(p * (1 - p) / ess) for p in exact]
+    seen = {"p": est, "exact": exact, "se": se, "ess": ess,
+            "ms": wall * 1e3}
+    if not (torch.equal(traces.retv, picked)
+            and all(abs(a - b) <= SWITCH_SE * e
+                    for a, b, e in zip(est, exact, se))):
+        raise AssertionError(f"phase 46 Switch: {seen}")
+    return seen
+
+
+def check_pointed(device="cuda", n=S13_LANES):
+    """Phase 46: ``importance_sampling`` of ``PointedModel`` (its own
+    batched generate, ``vectorized=True``) over ``n`` lanes: the log-ML
+    within POINTED_GAP of log(1/100) (tests/test_importance.py)."""
+    from modppl_tpu_torch.inference.importance import importance_sampling
+    from modppl_tpu_torch.models import Bounds, PointedModel
+
+    model = PointedModel(torch.tensor(POINTED_COV, device=device))
+    obs = (None, torch.tensor([0.0, 0.0], device=device))
+    sync(device)
+    t0 = time.perf_counter()
+    (traces, lw, log_ml), launches = counted(lambda: importance_sampling(
+        46, model, Bounds(-5.0, 5.0, -5.0, 5.0), obs, n, vectorized=True,
+        device=device))
+    wall = time.perf_counter() - t0
+    require_launches("phase 46 PointedModel", launches, {})
+    seen = {"log_ml": float(log_ml), "exact": math.log(1.0 / 100.0),
+            "ms": wall * 1e3}
+    if lw.shape != (n,) or \
+            not abs(seen["log_ml"] - seen["exact"]) <= POINTED_GAP:
+        raise AssertionError(f"phase 46 PointedModel: {seen}")
+    return seen
+
+
+def relative_to_terms(got, terms):
+    """The largest difference between ``got`` (n,) and the float64 sum of
+    its (n, k) ``terms``, relative to the sum of their magnitudes (a sum
+    near 0 of large terms is held to the terms' float32 rounding)."""
+    want = terms.sum(-1)
+    return float(((got.double() - want).abs()
+                  / terms.abs().sum(-1).clamp_min(1e-30)).max())
+
+
+def check_map_arms(device="cuda", n=S13_LANES):
+    """Phase 46: ``Map`` three ways at ``n`` lanes, counters at 0 (no
+    launch): (1) the regression's plate over lane keys: retv (n, 3), the
+    first lane's and the last lane's runs alone bitwise the batch's, logjp
+    the float64 sum of its terms (``relative_to_terms`` within MAP_RTOL);
+    (2) the plated step under the batched tier
+    (``auto_batch_scan_kernel``), its generate over n particles bitwise the
+    halves' at their offsets, and the constrained weight the float64 sum of
+    its terms; (3) ``Map(vec_point, shared_choices=("v",))`` with a shared
+    (3, 3) constraint on v, every lane's weight the float64 sum of the
+    elements' mvnormal log-densities."""
+    from modppl_tpu_torch.core.keys import split_keys
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.inference.vsmc import ScanKernel
+    from modppl_tpu_torch.modeling.autobatch import auto_batch_scan_kernel
+    from modppl_tpu_torch.modeling.map_combinator import Map
+
+    m = s13_models()
+    xs = torch.tensor(MAP_XS, dtype=torch.float32, device=device)
+    keys = split_keys(46, n, device)
+    sync(device)
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: m["regression"].simulate(keys, (xs,)))
+    seen = {"lanes_ms": (time.perf_counter() - t0) * 1e3}
+    require_launches("phase 46 Map over lanes", launches, {})
+    slope, ys = out.data.read("slope").double(), out.retv.double()
+    x64 = xs.double()
+    terms = torch.cat([(-0.5 * slope ** 2 - 0.5 * math.log(2 * math.pi))[
+        :, None], -0.5 * ((ys - slope[:, None] * x64) / 0.1) ** 2
+        - math.log(0.1) - 0.5 * math.log(2 * math.pi)], -1)
+    rel = relative_to_terms(out.logjp, terms)
+    seen["lanes_rel"] = rel
+    ok = out.retv.shape == (n, 3) and rel <= MAP_RTOL
+    for c in (0, n - 1):
+        one = m["regression"].simulate(keys[c:c + 1], (xs,))
+        ok = ok and torch.equal(one.retv[0], out.retv[c]) \
+            and torch.equal(one.logjp[0], out.logjp[c])
+    if not ok:
+        raise AssertionError(f"phase 46 Map over lanes: {seen}")
+
+    kernel = auto_batch_scan_kernel(ScanKernel(m["plated_step"],
+                                               m["plated_step"]))
+    slopes = torch.linspace(-1.0, 1.0, n, dtype=torch.float32, device=device)
+    obs = Trie.from_dict({"ys": {"y": torch.tensor(MAP_YS, device=device)}})
+    half = n // 2
+
+    def step(lo, hi, cons):
+        return kernel.step.generate(47, (1, slopes[lo:hi]), cons, offset=lo)
+
+    sync(device)
+    t0 = time.perf_counter()
+    (tr, w), launches = counted(lambda: step(0, n, obs))
+    seen["batched_ms"] = (time.perf_counter() - t0) * 1e3
+    require_launches("phase 46 Map under the batched tier", launches, {})
+    s = tr.data.read("slope").double()
+    y = torch.tensor(MAP_YS, dtype=torch.float64, device=device)
+    rel = relative_to_terms(w, -0.5 * ((y - s[:, None] * x64) / 0.1) ** 2
+                            - math.log(0.1) - 0.5 * math.log(2 * math.pi))
+    seen["batched_rel"] = rel
+    free = step(0, n, Trie())[0].data.read("ys / y")
+    halves = torch.cat([step(0, half, Trie())[0].data.read("ys / y"),
+                        step(half, n, Trie())[0].data.read("ys / y")])
+    if w.shape != (n,) or rel > MAP_RTOL or free.shape != (n, 3) or \
+            not torch.equal(free, halves):
+        raise AssertionError(f"phase 46 Map under the batched tier: {seen}")
+
+    rng = np.random.default_rng(46)
+    mu = torch.tensor(rng.standard_normal((3, 3)), dtype=torch.float32,
+                      device=device)
+    v = torch.tensor(rng.standard_normal((3, 3)), dtype=torch.float32,
+                     device=device)
+    plate = Map(m["vec_point"], shared=(0,), shared_choices=("v",))
+    sync(device)
+    t0 = time.perf_counter()
+    (tr, w), launches = counted(lambda: plate.generate(
+        keys, (mu,), Trie.from_dict({"v": v})))
+    seen["shared_ms"] = (time.perf_counter() - t0) * 1e3
+    require_launches("phase 46 Map(shared_choices=)", launches, {})
+    d = (v - mu).double()
+    terms = (-0.5 * d * d - 0.5 * math.log(2 * math.pi)).reshape(1, -1)
+    rel = relative_to_terms(w, terms.expand(n, -1))
+    seen["shared_rel"] = rel
+    if w.shape != (n,) or rel > MAP_RTOL or \
+            not torch.equal(tr.data.read("v")[n - 1], v):
+        raise AssertionError(f"phase 46 Map(shared_choices=): {seen}")
+    return seen
+
+
+def check_mvnormal_nonpd(device="cuda", n=S13_LANES):
+    """Phase 46: ``mvnormal`` with a rank-deficient covariance computed on
+    ``device`` (B B^T, float64): the Cholesky factor has a NaN, so the
+    draw takes the reference's eigendecomposition factor T
+    (``dists/mvnormal.factor``): T T^T = cov within NONPD_TOL; the lane
+    draw of ``n`` lanes ``mu + T z``; then a model's site over ``n`` lane
+    keys under ``simulate``, whose draws' mean and covariance lie within
+    NONPD_SE standard errors of (mu, cov). No launch."""
+    from modppl_tpu_torch.core.keys import split_keys
+    from modppl_tpu_torch.dists import mvnormal
+    from modppl_tpu_torch.dists.mvnormal import cholesky, factor
+    from modppl_tpu_torch.modeling import gen
+
+    b = torch.tensor(NONPD_B, dtype=torch.float64, device=device)
+    cov = b @ b.T
+    mu = torch.tensor([0.5, -1.0, 2.0], dtype=torch.float64, device=device)
+    L = cholesky(cov)
+    chol_nan = bool(torch.isnan(torch.stack(
+        [torch.as_tensor(L[i][j]) for i in range(3)
+         for j in range(i + 1)])).any())
+    rng = np.random.default_rng(46)
+    z = torch.tensor(rng.standard_normal((n, 3)), device=device)
+
+    @gen
+    def site(h, m, c):
+        return h.sample(mvnormal, (m, c), "v")
+
+    def draws():
+        t = factor(cov)
+        x = mvnormal.from_standard(z, (mu, cov))
+        lanes = site.simulate(split_keys(46, n, device), (mu, cov)).retv
+        return t, x, lanes
+
+    sync(device)
+    t0 = time.perf_counter()
+    (t, x, lanes), launches = counted(draws)
+    wall = time.perf_counter() - t0
+    require_launches("phase 46 mvnormal non-PD", launches, {})
+    t = torch.as_tensor(t)
+    rec = float((t @ t.T - cov).abs().max()) if t.ndim == 2 else math.nan
+    draw_err = (float((x - (mu + z @ t.T)).abs().max()) if t.ndim == 2
+                else math.nan)
+    emp_mean = lanes.mean(0)
+    emp_cov = torch.cov(lanes.T)
+    sd = torch.sqrt(torch.diagonal(cov))
+    mean_err = float(((emp_mean - mu).abs() / (sd / math.sqrt(n))
+                      .clamp_min(1e-30))[sd > 0].max())
+    # var of an entry of the sample covariance: (s_ii s_jj + s_ij^2) / n
+    cov_se = torch.sqrt((torch.outer(sd ** 2, sd ** 2) + cov ** 2) / n)
+    cov_err = float(((emp_cov - cov).abs() / cov_se.clamp_min(1e-30))
+                    [cov_se > 0].max())
+    seen = {"cholesky_nan": chol_nan, "reconstruction": rec,
+            "draw_err": draw_err, "mean_se": mean_err, "cov_se": cov_err,
+            "ms": wall * 1e3}
+    if not (chol_nan and rec <= NONPD_TOL and draw_err <= NONPD_TOL
+            and bool(torch.isfinite(lanes).all()) and mean_err <= NONPD_SE
+            and cov_err <= NONPD_SE):
+        raise AssertionError(f"phase 46 mvnormal non-PD: {seen}")
+    return seen
+
+
+def run_sharded_pf(mesh, device, n=PF_PARTICLES, seed=47):
+    """BASELINE configs[2]'s spiral (PF_STEPS observations, systematic,
+    float32) through ``parallel/distributed.sharded_particle_filter`` over
+    ``mesh``'s dp axis."""
+    from modppl_tpu_torch.core.trie import Trie
+    from modppl_tpu_torch.models.spiral import spiral_scan_kernel
+    from modppl_tpu_torch.parallel.distributed import sharded_particle_filter
+
+    obs = torch.tensor(pf_observations(), dtype=torch.float32, device=device)
+    return sharded_particle_filter(
+        mesh, seed, spiral_scan_kernel(),
+        torch.zeros(2, dtype=torch.float32, device=device),
+        Trie.from_dict({"obs": obs[0]}), Trie.from_dict({"obs": obs[1:]}), n,
+        resampling="systematic", ess_threshold=1.0, device=device)
+
+
+def shard_pf(mesh, device, n=PF_PARTICLES):
+    """Phase 47's filter on this rank over ``mesh``, counted, and its rerun
+    through the plain versions: digests of the whole outputs (gathered in
+    shard order), launches, log-ML and wall ms of the counted run."""
+    t0 = time.perf_counter()
+    out, launches = counted(lambda: run_sharded_pf(mesh, device, n))
+    ms = (time.perf_counter() - t0) * 1e3
+    whole = whole_outputs(mesh, out)
+    with plain_versions():
+        plain = whole_outputs(mesh, run_sharded_pf(mesh, device, n))
+    return {"digests": digests_of(whole, FILTER_DIGESTS),
+            "plain_digests": digests_of(plain, FILTER_DIGESTS),
+            "launches": launches, "log_ml": float(out["log_ml"]), "ms": ms}
+
+
+def pow2_chains(mesh, which, device, config=None):
+    """Phase 47's pooled chains over ``mesh``'s dp axis on hmc-hierarchical-
+    d3's target at S13_SHARD_CHAINS: ``distributed.sharded_hmc`` (L of the
+    leg) or ``nuts_runner(axis_name="dp")`` (max_depth of NUTS); the
+    chains' outputs gathered whole."""
+    from modppl_tpu_torch.inference.nuts import nuts_runner
+    from modppl_tpu_torch.parallel.distributed import sharded_hmc
+
+    cfg = dict(config or S13_SHARD_CHAINS)
+    model, args, obs = shard_hmc_target(device)
+    if which == "sharded_hmc":
+        out = sharded_hmc(mesh, 42, model, args, obs, device=device,
+                          num_leapfrog=LEGS["hierarchical"]["num_leapfrog"],
+                          **cfg)
+    else:
+        run = nuts_runner(model, args, obs, axis_name="dp", setup_key=99,
+                          max_depth=NUTS["max_depth"], device=device, **cfg)
+        with mesh:
+            out = run(0)
+    return {k: mesh.gather(out[k]) if out[k].ndim else out[k]
+            for k in CHAIN_DIGESTS}
+
+
+def slice13_rank(meshes, device, n=PF_PARTICLES, chains_config=None):
+    """Phase 47's runs on this rank, at each dp of ``meshes`` it belongs
+    to: ``shard_pf`` of ``n`` particles and both ``pow2_chains`` samplers
+    (each counted). Returns what the rank saw."""
+    from modppl_tpu_torch.parallel.collectives import barrier
+
+    seen, t0 = {}, time.perf_counter()
+    for dp, mesh in meshes.items():
+        if not mesh.member:
+            continue
+        seen[f"47/pf/dp{dp}"] = shard_pf(mesh, device, n)
+        for which in ("sharded_hmc", "nuts"):
+            with mesh:
+                barrier("dp")
+            c0 = time.perf_counter()
+            out, launches = counted(lambda: pow2_chains(mesh, which, device,
+                                                        chains_config))
+            seen[f"47/{which}/dp{dp}"] = {
+                "digests": digests_of(out, CHAIN_DIGESTS),
+                "launches": launches,
+                "ms": (time.perf_counter() - c0) * 1e3}
+    seen["47/seconds"] = time.perf_counter() - t0
+    return seen
+
+
+def check_sharded_entries(seen, world, device="cuda", n=PF_PARTICLES,
+                          chains_config=None):
+    """Phase 47 in this process: the dp = 1 runs (a one-rank mesh) and the
+    one-device ``vsmc.particle_filter`` at the same key, then the ranks'
+    runs in ``seen`` (``slice13_rank``'s, at dp = 2 and ``world``): every
+    filter output bitwise across dp and bitwise the one-device filter's,
+    each run bitwise its plain rerun, kernel 3 PF_STEPS - 1 times a rank
+    and no other kernel; the chains bitwise across dp, no launch. Returns
+    what was seen."""
+    from modppl_tpu_torch.parallel.mesh import make_mesh
+
+    want = on_card(device, {"resample_fused_from_s": PF_STEPS - 1})
+    ref, launches = counted(lambda: run_pf_spiral(device, 47, n))
+    require_launches("phase 47 vsmc.particle_filter", launches, want)
+    ref = digests_of(ref, FILTER_DIGESTS)
+    runs = {"pf/dp1": shard_pf(make_mesh(), device, n)}
+    for which in ("sharded_hmc", "nuts"):
+        c0 = time.perf_counter()
+        out, launches = counted(lambda: pow2_chains(make_mesh(), which,
+                                                    device, chains_config))
+        for k in ("step_size", "unconstrained", "accept_prob"):
+            if not bool(torch.isfinite(out[k]).all()):
+                raise AssertionError(f"phase 47 {which} dp=1: {k} is not "
+                                     f"finite")
+        runs[f"{which}/dp1"] = {"digests": digests_of(out, CHAIN_DIGESTS),
+                                "launches": launches,
+                                "ms": (time.perf_counter() - c0) * 1e3}
+    runs.update({k[3:]: v for k, v in seen.items()
+                 if k.startswith("47/") and k != "47/seconds"})
+    for dp in (1, 2, world):
+        s = runs[f"pf/dp{dp}"]
+        require_launches(f"phase 47 sharded_particle_filter dp={dp}",
+                         s["launches"], want)
+        require_digests(f"phase 47 sharded_particle_filter dp={dp}",
+                        s["digests"], ref)
+        require_digests(f"phase 47 sharded_particle_filter dp={dp} plain "
+                        f"rerun", s["plain_digests"], ref)
+        for which in ("sharded_hmc", "nuts"):
+            c = runs[f"{which}/dp{dp}"]
+            require_launches(f"phase 47 {which} dp={dp}", c["launches"], {})
+            require_digests(f"phase 47 {which} dp={dp}", c["digests"],
+                            runs[f"{which}/dp1"]["digests"])
+    return runs
+
+
+def slice13_phases(card, profile, device="cuda", clock=None, shards=None,
+                   backend="gloo"):
+    """Phases 43-47 (slice 13), with their lines of output. ``shards`` is
+    what phases 39-42's ranks saw (``slice12_phases``' ``seen``), phase 47's
+    runs at dp = 2 and 4 among it; None spawns the ranks for phase 47 alone
+    over ``backend``. ``profile`` is accepted for the phase groups' common
+    signature; these phases are timed, not profiled."""
+    t0 = time.perf_counter()
+    # phase 43: the batched tier's remaining arms
+    for entry in LG_ENTRIES:
+        for arm in LG_ARMS:
+            s = check_lg_arm(entry, arm, device)
+            print(f"# phase 43: LG {arm} through {entry} N={N} T={T} "
+                  f"float32: launches {s['launches']}; log_ml "
+                  f"{s['log_ml']!r} Kalman {s['exact']!r} (gap "
+                  f"{s['gap']!r}, bound {s['bound']}); acceptance "
+                  f"{s['acceptance']!r}; == its plain rerun on the recorded "
+                  f"draws, bitwise; wall {s['ms']:.1f} ms (the rerun's "
+                  f"{s['plain_ms']:.1f} ms) ({card})")
+    s = check_lg_vmapped(device)
+    print(f"# phase 43: LG guided and rejuvenated through the vmapped "
+          f"particle_filter N={PF_PARTICLES} T={T} float32: launches "
+          f"{s['launches']}; log_ml {s['log_ml']!r} (CPU, same key, "
+          f"{s.get('log_ml_cpu')!r}) Kalman {s['exact']!r} (bound "
+          f"{LG_LOG_ML_GAP}); acceptance {s['acceptance']!r}; == its plain "
+          f"rerun, bitwise; wall {s['ms']:.1f} ms ({card})")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("43 batched tier arms")
+    # phase 44: the chain-blocked schemes and FIVO with resampling
+    for scheme in S13_SCHEMES:
+        s = check_blocked_scheme(scheme, device)
+        print(f"# phase 44: PMMH {PMMH['num_chains']} x "
+              f"{PMMH['num_particles']} {s['dtype']}, blocked {scheme}, "
+              f"{S13_PMMH_ITERS} iterations: grid_rank launches "
+              f"{s['launches']}, no other kernel; estimator at a = 0.7 "
+              f"{s['estimate']!r} Kalman {s['kalman']!r} (bound "
+              f"{PMMH_ML_GAP}); accept {s['accept']!r}"
+              f"{'; == its plain rerun, bitwise' if s['launches'] else ''}"
+              f"; {s['ms_an_iteration']:.2f} ms an iteration ({card})")
+    s = check_fivo_resampled(device)
+    print(f"# phase 44: fit_proposal {S13_FIVO} float32, no kernel: w_obs "
+          f"{s['w_obs']!r} (optimal {s['w_obs_opt']!r}, bound 0.15), std "
+          f"{s['std']!r} (optimal {s['std_opt']!r}, bound 0.1); not held: "
+          f"the bound's sd {s['std_trained']!r} (initial "
+          f"{s['std_init']!r}), mean {s['mean']!r} (Kalman {s['kalman']!r})"
+          f"; {s['ms_a_step']:.2f} ms a step; fivo_objective's value and "
+          f"gradient at N={FIVO_GRAD_PARTICLES}, systematic, ess_threshold "
+          f"{S13_FIVO_GRAD_ESS}: kernel 3 {s['grad_launches']} launches, "
+          f"value {s['grad_value']!r}, gradient {s['grad']} == the plain "
+          f"rerun's, bitwise (deterministic algorithms); {s['grad_ms']:.1f} "
+          f"ms ({card})")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("44 blocked schemes, FIVO resampled")
+    # phase 45: the generic MCMC arms
+    s = check_nuts_per_chain(device)
+    print(f"# phase 45: NUTS per chain {S13_NUTS_PER_CHAIN} on the "
+          f"hierarchical target float32, no kernel: mean a, b, c "
+          f"{[round(x, 5) for x in s['means']]} exact "
+          f"{[round(x, 5) for x in s['exact']]} (bound "
+          f"{[round(x, 5) for x in s['bound']]}); divergences "
+          f"{s['divergence_rate']!r}; {s['leaves_a_transition']:.2f} leaves "
+          f"a transition; {s['wall_s'] * 1e3:.1f} ms, "
+          f"{s['ess'] / s['wall_s']:.1f} ESS/s ({card})")
+    s = check_hmc_per_chain(device)
+    print(f"# phase 45: HMC per chain, logistic regression (chains, "
+          f"warmup, samples) {S13_HMC_PER_CHAIN} float32, no kernel: mean "
+          f"within "
+          f"{s['gap']!r} of the oracle (bound {LOGREG_PER_CHAIN_GAP}); accept "
+          f"{s['accept']!r}; {s['wall_s'] * 1e3:.1f} ms, "
+          f"{s['ess'] / s['wall_s']:.1f} ESS/s ({card})")
+    s = check_hmc_scale(device)
+    print(f"# phase 45: hmc_runner on the gamma-prior scale model "
+          f"{S13_HMC_SCALE} float32 (Exp bijector), no kernel: mean scale "
+          f"{s['mean']!r} quadrature {s['exact']!r} (bound "
+          f"{S13_HMC_SCALE_GAP}); min scale {s['min_scale']!r}; accept "
+          f"{s['accept']!r}; {s['wall_s'] * 1e3:.1f} ms ({card})")
+    s = check_pt_mala(device)
+    print(f"# phase 45: parallel_tempering(move='mala') {PT} float32, no "
+          f"kernel: cold mean {s['mean']!r} sd {s['sd']!r} exact "
+          f"{s['exact']} (bound 0.06); swap {s['swap']!r}; move accept "
+          f"{s['move_accept']!r}; {s['wall_s'] * 1e3:.1f} ms ({card})")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("45 generic MCMC arms")
+    # phase 46: the modeling arms
+    sw = check_switch(device)
+    pm = check_pointed(device)
+    mp = check_map_arms(device)
+    mv = check_mvnormal_nonpd(device)
+    print(f"# phase 46: at {S13_LANES} lanes float32, no kernel: Switch "
+          f"under importance_sampling P(k | y) "
+          f"{[round(p, 5) for p in sw['p']]} exact "
+          f"{[round(p, 5) for p in sw['exact']]} (se "
+          f"{[round(e, 5) for e in sw['se']]}), {sw['ms']:.1f} ms; "
+          f"PointedModel(vectorized=True) log_ml {pm['log_ml']!r} exact "
+          f"{pm['exact']!r} (bound {POINTED_GAP}), {pm['ms']:.1f} ms; Map "
+          f"over lanes, under the batched tier and with shared_choices: "
+          f"relative errors {mp['lanes_rel']:.2e}, {mp['batched_rel']:.2e}, "
+          f"{mp['shared_rel']:.2e} (bound {MAP_RTOL}), "
+          f"{mp['lanes_ms']:.1f} / {mp['batched_ms']:.1f} / "
+          f"{mp['shared_ms']:.1f} ms; mvnormal non-PD on a covariance "
+          f"computed on the card (float64): the Cholesky has a NaN "
+          f"{mv['cholesky_nan']}, T T^T - cov {mv['reconstruction']!r}, "
+          f"draw error {mv['draw_err']!r} (bound {NONPD_TOL}), the lanes' "
+          f"mean and covariance within {mv['mean_se']:.2f} and "
+          f"{mv['cov_se']:.2f} se (bound {NONPD_SE}), {mv['ms']:.1f} ms "
+          f"({card})")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("46 modeling arms")
+    s47 = phase47(card, device, shards, backend)
+    print(f"# phases 43-47: {time.perf_counter() - t0:.1f} s in this "
+          f"process, and the ranks' {s47:.1f} s")
+    sys.stdout.flush()
+    if clock:
+        clock.mark("47 distributed entries")
+
+
+def phase47(card, device="cuda", shards=None, backend="gloo"):
+    """Phase 47 with its line of output: the distributed entries at dp = 1
+    here and at dp = 2 and SHARD_WORLD on the ranks (their results
+    ``shards``, or None to spawn them for phase 47 alone over
+    ``backend``). Returns the ranks' seconds."""
+    import tempfile
+
+    world = SHARD_WORLD
+    if shards is None:
+        with tempfile.TemporaryDirectory() as workdir:
+            shards, _, _ = spawn_shards(workdir, world, device, backend,
+                                        groups="47")
+    runs = check_sharded_entries(shards, world, device)
+    where = (f"{world} {backend} ranks sharing one card" if backend == "gloo"
+             else f"{world} {backend} ranks, a card each")
+    dps = (1, 2, world)
+
+    def by_dp(what):
+        return [round(runs[f"{what}/dp{d}"]["ms"], 1) for d in dps]
+
+    k3 = [runs[f"pf/dp{d}"]["launches"]["resample_fused_from_s"]
+          for d in dps]
+    print(f"# phase 47: sharded_particle_filter, spiral N={PF_PARTICLES} "
+          f"T={PF_STEPS} float32, at dp={list(dps)} ({where}): == "
+          f"vsmc.particle_filter bitwise on {list(FILTER_DIGESTS)}, each "
+          f"rank's plain rerun too; kernel 3 launches a rank {k3}; log_ml "
+          f"{runs['pf/dp1']['log_ml']!r}; wall ms {by_dp('pf')}; "
+          f"sharded_hmc and nuts_runner(axis_name='dp') {S13_SHARD_CHAINS} "
+          f"on the hierarchical target, no kernel: == dp=1 bitwise on "
+          f"{list(CHAIN_DIGESTS)} at dp=2, {world}; wall ms hmc "
+          f"{by_dp('sharded_hmc')}, nuts {by_dp('nuts')}; the ranks' "
+          f"phase-47 runs {shards['47/seconds']:.1f} s ({card})")
+    return shards["47/seconds"]
 
 
 SOURCES = {
@@ -5885,7 +7035,7 @@ def slice7_phases(card, profile, device="cuda", clock=None):
 
 def main(argv):
     if argv[:1] == ["--slice12-rank"]:
-        return slice12_rank(int(argv[1]), int(argv[2]), *argv[3:8])
+        return slice12_rank(int(argv[1]), int(argv[2]), *argv[3:11])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -5908,6 +7058,10 @@ def main(argv):
                 or "Compiling entry" in line):
             print(f"#   {line.strip()}")
     sys.stdout.flush()
+    if argv[:1] == ["--slice13"]:
+        slice13_phases(card, False, clock=clock)
+        print(f"# phases 43-47 alone passed ({card})")
+        return 0
 
     errs = check_kernels("cuda")
     print(f"# kernels == plain versions on the card, bitwise: N in "
@@ -6146,7 +7300,9 @@ def main(argv):
     slice9_phases(card, "--profile" in argv, clock=clock)
     slice10_phases(card, "--profile" in argv, clock=clock)
     slice11_phases(card, "--profile" in argv, clock=clock)
-    slice12_phases(card, "--profile" in argv, clock=clock)
+    s12 = slice12_phases(card, "--profile" in argv, clock=clock)
+    slice13_phases(card, "--profile" in argv, clock=clock,
+                   shards=s12["seen"])
     launches.update(hmc_launches)
     launches.update(quad_launches)
     launches["grid_rank"] = rank_launches

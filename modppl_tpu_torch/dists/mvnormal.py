@@ -17,15 +17,18 @@ never expanded to (N, k, k).
 A draw whose covariance is not positive definite takes the reference's
 fallback factor, ``v sqrt(clip(w, 0))`` of ``eigh`` (``factor``), where
 the Cholesky factor has a NaN (below 33 dimensions; above, where
-``cholesky_ex`` reports a failure). As the reference decides it only on
-eager calls, the port decides it only where the answer costs no device
-read: a constant covariance on the host, once, and a CPU tensor outside
-``torch.func`` transforms. A covariance on the card keeps its Cholesky
-factor (a NaN there propagates, as in the reference's compiled calls),
-so a positive-definite path on the card reads nothing back.
+``cholesky_ex`` reports a failure). The reference decides it on eager
+calls, reading the factor from its device, and not under its transforms,
+where the factor is traced; the port decides it alike outside
+``torch.func`` transforms, and keeps the Cholesky factor inside them (a
+NaN there propagates, as in the reference's compiled calls). The decision
+is read once per covariance: a constant on the host, a tensor once per
+tensor and version (``_fails``), so a model's fixed covariance on the card
+costs one device read a process, not one a draw.
 """
 
 import math
+import weakref
 from functools import lru_cache
 
 import torch
@@ -101,16 +104,32 @@ def _constant_factor(cov):
     return [[float(x) for x in row] for row in T]
 
 
-def _host_checkable(cov):
-    """True where a NaN check on ``cov`` reads nothing from a device: a
-    CPU tensor outside ``torch.func`` transforms."""
-    return (cov.device.type == "cpu"
-            and not torch._C._functorch.is_functorch_wrapped_tensor(cov))
+# id(cov) -> (cov._version, whether it fails): each entry dropped when its
+# tensor is freed, and read again after an in-place change
+_DECIDED = {}
+
+
+def _fails(cov, failed):
+    """Whether the tensor ``cov`` takes the fallback factor: False inside a
+    ``torch.func`` transform, where it cannot be read; else ``failed()``, a
+    bool tensor, read once for this tensor and version."""
+    if torch._C._functorch.is_functorch_wrapped_tensor(cov):
+        return False
+    if cov.is_inference():  # no version counter to key the decision by
+        return bool(failed())
+    hit = _DECIDED.get(id(cov))
+    if hit is not None and hit[0] == cov._version:
+        return hit[1]
+    if hit is None:
+        weakref.finalize(cov, _DECIDED.pop, id(cov), None)
+    out = bool(failed())
+    _DECIDED[id(cov)] = (cov._version, out)
+    return out
 
 
 def factor(cov):
     """The factor a draw multiplies its standard normals by: the lower
-    Cholesky factor, or where it fails on a covariance checked on the host
+    Cholesky factor, or where it fails outside a ``torch.func`` transform
     (see the module docstring) ``eigh_factor``. Nested host floats for a
     constant covariance; nested entries (Cholesky) or a (..., k, k) tensor
     otherwise."""
@@ -119,11 +138,11 @@ def factor(cov):
     k = cov.shape[-1]
     if k > SMALL_DIM_MAX:
         L, info = torch.linalg.cholesky_ex(cov)
-        if _host_checkable(cov) and bool((info != 0).any()):
+        if _fails(cov, lambda: (info != 0).any()):
             return eigh_factor(cov)
         return L
     L = cholesky(cov)
-    if _host_checkable(cov) and bool(torch.isnan(torch.stack(
+    if _fails(cov, lambda: torch.isnan(torch.stack(
             [L[i][j] for i in range(k) for j in range(i + 1)])).any()):
         return eigh_factor(cov)
     return L

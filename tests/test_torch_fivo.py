@@ -396,6 +396,42 @@ def test_fivo_learns_optimal_proposal():
     assert mean_tr == pytest.approx(want, abs=0.1)
 
 
+@pytest.mark.slow
+def test_resampled_training_misses_the_bound_gates():
+    """fit_proposal trained through chain-blocked residual resampling at
+    ess_threshold 0.5, at tests/test_batched_filter.py:151-183's
+    configuration (N 256, 400 steps, lr 0.03, batch 4), in both packages:
+    each meets the reference test's gates on the learned w_obs and std,
+    and the reference misses its gate on the bound's sd (the resampled
+    filter's gradient is biased, tests/test_batched_filter.py:158-159),
+    so chip_smoke.py's phase 44 holds this arm to the parameter gates
+    alone."""
+    init_c, step_c = _constraints()
+    kw = dict(num_steps=400, learning_rate=0.03, batch_size=4,
+              resampling="residual", ess_threshold=0.5)
+    params, _ = fit_proposal(0, KERNEL, lg_learnable_proposal,
+                             _params(0.0, 0.0, 0.0, 0.5), torch.zeros(()),
+                             init_c, step_c, 256, device="cpu", **kw)
+    j0 = _j_params((0.0, 0.0, 0.0, 0.5))
+    ji, js = _j_constraints()
+    jparams, _ = jfivo.fit_proposal(jax.random.PRNGKey(0), J_KERNEL,
+                                    j_lg_learnable_proposal, j0, jnp.zeros(()),
+                                    ji, js, 256, **kw)
+    for w_obs, std in ((float(params["w_obs"]),
+                        float(F.softplus(params["raw_std"]))),
+                       (float(jparams["w_obs"]),
+                        float(jax.nn.softplus(jparams["raw_std"])))):
+        assert w_obs == pytest.approx(1.0 / R ** 2 / PREC, abs=0.15)
+        assert std == pytest.approx(1.0 / math.sqrt(PREC), abs=0.1)
+
+    def j_sd(p):
+        return float(jnp.std(jnp.stack([jfivo.fivo_objective(
+            k, J_KERNEL, j_lg_learnable_proposal, p, jnp.zeros(()), ji, js,
+            256) for k in jax.random.split(jax.random.PRNGKey(99), 32)])))
+
+    assert not j_sd(jparams) < 0.5 * j_sd(j0)
+
+
 # --- chain-blocked residual resampling -------------------------------------
 
 @pytest.mark.parametrize("c", [1, 3, 8])

@@ -100,3 +100,27 @@ def test_large_k_cpu_tensor_takes_the_fallback():
     top = slice(20, 40)
     np.testing.assert_allclose(np.abs(t.numpy()[:, top]), np.abs(ref[:, top]),
                                rtol=1e-8, atol=1e-10)
+
+
+def test_the_decision_is_read_once_per_tensor_and_version():
+    """A tensor covariance outside ``torch.func`` transforms is decided on
+    any device (a covariance computed on the card took the Cholesky
+    factor's NaN before): the decision is kept for the tensor, read again
+    after an in-place change, and dropped when the tensor is freed."""
+    import importlib
+
+    mv = importlib.import_module("modppl_tpu_torch.dists.mvnormal")
+    cov = torch.tensor(RANK_DEFICIENT["rank2_of_3"], dtype=F64)
+    assert torch.is_tensor(factor(cov))
+    key = id(cov)
+    assert mv._DECIDED[key] == (cov._version, True)
+    assert torch.is_tensor(factor(cov))
+    cov.copy_(torch.tensor(((2.0, 0.3, 0.0), (0.3, 1.0, 0.0),
+                            (0.0, 0.0, 1.0)), dtype=F64))
+    L = factor(cov)
+    assert isinstance(L, list) and mv._DECIDED[key] == (cov._version, False)
+    np.testing.assert_allclose(
+        [[float(v) for v in row] for row in L],
+        np.linalg.cholesky(cov.numpy()), rtol=1e-14, atol=1e-14)
+    del cov, L
+    assert key not in mv._DECIDED
