@@ -1,0 +1,4 @@
+"""The share of the profiled runs' window with no operation on the
+device."""
+
+from portbench.readers import idle_pct as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""The whole run's least time at the peaks (the larger of its bytes
+and operations from the shapes) over its measured time."""
+
+from portbench.readers import mfu_pct as read  # noqa: F401
