@@ -11,12 +11,16 @@ are the same derivations run on the device for a (C,) tensor of keys, one
 per chain or particle, and ``uniform_lanes`` / ``normal_lanes`` draw from
 each lane's own counter stream, so a lane's draws do not depend on how
 many lanes there are. ``rejection_lanes`` runs a rejection sampler over
-lanes under the same rule.
+lanes under the same rule. Each call of a public lane function runs in one
+``modppl.lane_words`` span (utils/profiling.annotate): the words' integer
+ops and their conversion to uniforms.
 """
 
 import math
 
 import torch
+
+from modppl_tpu_torch.utils.profiling import annotate, host_to_device
 
 _MASK = (1 << 64) - 1
 
@@ -84,19 +88,29 @@ def _as_lanes(x, device=None):
     """An int or an int64 tensor as an int64 tensor (an int as 0-dim)."""
     if torch.is_tensor(x):
         return x.to(torch.int64)
-    return torch.tensor(_signed(x), dtype=torch.int64, device=device)
+    return host_to_device(_signed(x), torch.int64, device)
 
 
-def fold_in_lanes(key_or_lanes, data):
-    """``fold_in`` lane by lane: ``key_or_lanes`` is a host key or a tensor
-    of lane keys, ``data`` an int or a tensor; they broadcast. Lane i is
-    ``fold_in(key_i, data_i)``."""
+# Each public lane function runs in one span; one calls another only through
+# the private bodies below, so a call opens one span however it is built.
+_LANE_WORDS = "modppl.lane_words"
+
+
+def _fold_in_lanes(key_or_lanes, data):
     if not torch.is_tensor(data):
         mixed = _signed(_mix(data & _MASK))
         return _mix_lanes(_as_lanes(key_or_lanes) ^ mixed)
     data = data.to(torch.int64)
     keys = _as_lanes(key_or_lanes, data.device)
     return _mix_lanes(keys ^ _mix_lanes(data))
+
+
+def fold_in_lanes(key_or_lanes, data):
+    """``fold_in`` lane by lane: ``key_or_lanes`` is a host key or a tensor
+    of lane keys, ``data`` an int or a tensor; they broadcast. Lane i is
+    ``fold_in(key_i, data_i)``."""
+    with annotate(_LANE_WORDS):
+        return _fold_in_lanes(key_or_lanes, data)
 
 
 def key_lane(key, device):
@@ -114,28 +128,37 @@ def lanes(key, c, device, offset=0):
     keyed by its global index, as the reference's ``fold_in(k, i)``. A
     shard holding the indices ``[offset, offset + c)`` builds its own
     lanes without the others'."""
-    return fold_in_lanes(key, _indices(c, device, offset))
+    with annotate(_LANE_WORDS):
+        return _fold_in_lanes(key, _indices(c, device, offset))
 
 
 def split_keys(key, c, device, offset=0):
     """(c,) lane keys, lane i ``split(key, C)[offset + i]`` for any C >
     offset + i, as the reference's ``split(k, C)`` keys one particle or
     chain each; ``offset`` as in :func:`lanes`."""
-    return fold_in_lanes(key, _indices(c, device, offset) + (1 << 32))
+    with annotate(_LANE_WORDS):
+        return _fold_in_lanes(key, _indices(c, device, offset) + (1 << 32))
 
 
 def split_lanes(key_lanes, num=2):
     """(..., num) keys: ``[..., j]`` is ``split(key_lanes[...], num)[j]``."""
-    mixed = torch.tensor([_signed(_mix((1 << 32) + j)) for j in range(num)],
-                         dtype=torch.int64, device=key_lanes.device)
-    return _mix_lanes(key_lanes[..., None] ^ mixed)
+    with annotate(_LANE_WORDS):
+        mixed = host_to_device(
+            [_signed(_mix((1 << 32) + j)) for j in range(num)], torch.int64,
+            key_lanes.device)
+        return _mix_lanes(key_lanes[..., None] ^ mixed)
+
+
+def _lane_bits(key_lanes, k):
+    j = torch.arange(k, dtype=torch.int64, device=key_lanes.device)
+    return _mix_lanes(_fold_in_lanes(key_lanes[..., None], j))
 
 
 def lane_bits(key_lanes, k):
     """(..., k) int64 random words: word j of a lane keyed ``key`` is
     ``_mix(fold_in(key, j))``, one pass of tensor ops for every lane."""
-    j = torch.arange(k, dtype=torch.int64, device=key_lanes.device)
-    return _mix_lanes(fold_in_lanes(key_lanes[..., None], j))
+    with annotate(_LANE_WORDS):
+        return _lane_bits(key_lanes, k)
 
 
 def _bits_to_uniform(bits, dtype):
@@ -152,7 +175,8 @@ def uniform_lanes(key_lanes, shape=(), dtype=torch.float32):
     takes word j of ``lane_bits``), never on the number of lanes."""
     shape = tuple(shape)
     n = math.prod(shape)
-    u = _bits_to_uniform(lane_bits(key_lanes, n), dtype)
+    with annotate(_LANE_WORDS):
+        u = _bits_to_uniform(_lane_bits(key_lanes, n), dtype)
     return u.reshape(tuple(key_lanes.shape) + shape)
 
 
@@ -235,7 +259,8 @@ def note_rounds(rounds, reads):
 def words_at(key_lanes, offsets):
     """The words at ``offsets`` of the lanes' counter streams (broadcast):
     word j of a lane keyed ``key`` is ``lane_bits``' word j."""
-    return _mix_lanes(fold_in_lanes(key_lanes, offsets))
+    with annotate(_LANE_WORDS):
+        return _mix_lanes(_fold_in_lanes(key_lanes, offsets))
 
 
 def rejection_lanes(key_lanes, m, words, propose, params=(),

@@ -40,6 +40,7 @@ from modppl_tpu_torch.core.keys import (
 )
 from modppl_tpu_torch.inference.transforms import transform_for
 from modppl_tpu_torch.modeling.handlers import entry_inputs
+from modppl_tpu_torch.utils.profiling import annotate
 
 # below this dimension the d <= 12 kernels run (ops/leapfrog_small.py),
 # from it the d >= 13 kernels (ops/leapfrog.py), as in the reference
@@ -297,24 +298,28 @@ def _quadratic_chains(key, lam, b, u0s, num_warmup, num_samples, eps0,
             hmc_warmup_chunk_small,
         )
 
-        us, eps, inv_mass = hmc_warmup_chunk_small(
-            fold_in(key, 0), u0s, float(eps0), lam, b, num_warmup,
-            num_leapfrog, target_accept=target_accept, draws=warm)
-        us_t, logps, aprobs, divs, _ = hmc_sample_chunk_small(
-            fold_in(key, 2), us, eps, lam, b, inv_mass, num_samples,
-            num_leapfrog, draws=samp)
+        with annotate("modppl.hmc.warmup"):
+            us, eps, inv_mass = hmc_warmup_chunk_small(
+                fold_in(key, 0), u0s, float(eps0), lam, b, num_warmup,
+                num_leapfrog, target_accept=target_accept, draws=warm)
+        with annotate("modppl.hmc.sample"):
+            us_t, logps, aprobs, divs, _ = hmc_sample_chunk_small(
+                fold_in(key, 2), us, eps, lam, b, inv_mass, num_samples,
+                num_leapfrog, draws=samp)
     else:
         from modppl_tpu_torch.ops.leapfrog import (
             hmc_sample_chunk,
             hmc_warmup_chunk,
         )
 
-        us, eps, inv_mass = hmc_warmup_chunk(
-            fold_in(key, 0), u0s, float(eps0), lam, b, num_warmup,
-            num_leapfrog, target_accept=target_accept, draws=warm)
-        us_t, logps, aprobs, divs = hmc_sample_chunk(
-            fold_in(key, 2), us, eps, lam, b, inv_mass, num_samples,
-            num_leapfrog, draws=samp)
+        with annotate("modppl.hmc.warmup"):
+            us, eps, inv_mass = hmc_warmup_chunk(
+                fold_in(key, 0), u0s, float(eps0), lam, b, num_warmup,
+                num_leapfrog, target_accept=target_accept, draws=warm)
+        with annotate("modppl.hmc.sample"):
+            us_t, logps, aprobs, divs = hmc_sample_chunk(
+                fold_in(key, 2), us, eps, lam, b, inv_mass, num_samples,
+                num_leapfrog, draws=samp)
     # (samples, chains, ...) -> (chains, samples, ...)
     return (*(x.transpose(0, 1) for x in (us_t, logps, aprobs, divs)), eps,
             inv_mass)
@@ -661,6 +666,7 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
                 "use_fused_quadratic=True but the target's log-density is "
                 "not quadratic in the unconstrained latents")
 
+    @annotate("modppl.hmc.run")
     def run(k_run):
         c_local, offset = shard_chains(num_chains, axis_name)
         # overdispersed start points around the initial trace
@@ -682,7 +688,8 @@ def hmc_runner(model, args, observed, *, num_samples=1000, num_warmup=500,
             us, logps, aprobs, divs, eps, inv_mass = _quadratic_chains(
                 fold_in(k_run, 0), *quad, u0s, num_warmup, num_samples,
                 step_size, num_leapfrog, target_accept)
-            dev, quad_ok = _quad_check(logprob_flat, us, logps)
+            with annotate("modppl.hmc.check"):
+                dev, quad_ok = _quad_check(logprob_flat, us, logps)
         return {
             "samples": target.constrain(us),
             "logp": logps,

@@ -74,6 +74,7 @@ from modppl_tpu_torch.utils.numerics import (
     effective_sample_size_from_log_weights,
     logsumexp,
 )
+from modppl_tpu_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -141,9 +142,11 @@ def batched_smc_init(key, kernel, state0, constraints, num_particles,
     draws of the addresses it holds; the particles start at the global
     index ``offset`` (:func:`tier_call`)."""
     k_gen, k_carry = split(key)
-    k, kw = tier_call(kernel.init, k_gen, num_particles, offset, (state0,))
-    trace, log_weights = kernel.init.generate(
-        k, (state0, num_particles), constraints, pool=pool, **kw)
+    with annotate("modppl.extend"):
+        k, kw = tier_call(kernel.init, k_gen, num_particles, offset,
+                          (state0,))
+        trace, log_weights = kernel.init.generate(
+            k, (state0, num_particles), constraints, pool=pool, **kw)
     log_ml = torch.zeros((), dtype=log_weights.dtype,
                          device=log_weights.device)
     return SMCState(k_carry, trace.retv, log_weights, log_ml, 1), trace

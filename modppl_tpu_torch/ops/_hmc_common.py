@@ -12,6 +12,7 @@ import torch
 from modppl_tpu_torch.core.keys import generator, split
 from modppl_tpu_torch.inference.adaptation import _tree_sum, slow_windows
 from modppl_tpu_torch.ops import _build
+from modppl_tpu_torch.utils.profiling import host_to_device
 
 # the most slow windows the warmup kernels take (csrc/hmc_pooled.cuh)
 MAX_WINDOWS = 32
@@ -175,7 +176,7 @@ def schedule_arrays(num_warmup, device):
     windows = slow_windows(num_warmup)
     if len(windows) > MAX_WINDOWS:
         raise ValueError(f"more than {MAX_WINDOWS} slow windows")
-    sch = torch.zeros(2, MAX_WINDOWS, dtype=torch.int32)
+    sch = [[0] * MAX_WINDOWS, [0] * MAX_WINDOWS]
     for i, (s, e) in enumerate(windows):
-        sch[0, i], sch[1, i] = s, e
-    return sch.to(device), len(windows)
+        sch[0][i], sch[1][i] = s, e
+    return host_to_device(sch, torch.int32, device), len(windows)

@@ -59,6 +59,7 @@ from modppl_tpu_torch.parallel.collectives import (
     ppermute,
 )
 from modppl_tpu_torch.parallel.resample import gather_from_s
+from modppl_tpu_torch.utils.profiling import annotate
 
 _B0 = 1024        # max CDF block width
 _MIN_BLOCKS = 64  # min block count
@@ -323,15 +324,17 @@ def _filter_parts(mesh, kernel, num_particles, ess_threshold, auto_batch,
                              "shard")
         key, k_res, k_gen, k_rej = split(s.key, 4)
         u, *entry = vsmc.replay_entry(replay)
-        if u is None:
-            u = systematic_uniform(k_res, s.log_weights)
-        state, lw, d_log_ml, parents, ess, do = resample_step(
-            k_res, s.log_weights, s.state, u=u)
+        with annotate("modppl.resample"):
+            if u is None:
+                u = systematic_uniform(k_res, s.log_weights)
+            state, lw, d_log_ml, parents, ess, do = resample_step(
+                k_res, s.log_weights, s.state, u=u)
         resampled = vsmc.SMCState(key, state, lw, s.log_ml + d_log_ml, s.t)
-        trace, w, accepts, draws = vsmc.guided_step(
-            resampled, kernel, k_gen, k_rej, constraints_t, n_local, proposal,
-            proposal_params, rejuvenation, entry, record=record is not None,
-            offset=offset)
+        with annotate("modppl.extend"):
+            trace, w, accepts, draws = vsmc.guided_step(
+                resampled, kernel, k_gen, k_rej, constraints_t, n_local,
+                proposal, proposal_params, rejuvenation, entry,
+                record=record is not None, offset=offset)
         if record is not None:
             record.append((u, *draws))
         acceptance = None
@@ -363,6 +366,7 @@ def filter_device(mesh, device, what):
     return shard_device(device)
 
 
+@annotate("modppl.filter")
 def sharded_batched_particle_filter(mesh, key, kernel, state0,
                                     init_constraints, step_constraints,
                                     num_particles, ess_threshold=1.0,
